@@ -1,0 +1,1 @@
+"""Tensor ops of the port (counterparts of `se3_equi_graph_registration_tpu.ops`)."""
