@@ -5,9 +5,10 @@ mirrors its path so each counterpart is easy to find. This package imports
 torch and numpy only — never jax and never the JAX package (importing any
 of its submodules would run its jax-importing `__init__`).
 
-Entry points (`serving.Registrar`, `train.engine.build_model`, the engine's
-forward) run on the CUDA card unless the caller passes `device="cpu"`; with
-no card and no explicit CPU device they raise. The hand-written kernels
+Entry points (`serving.Registrar`, `train.engine.build_model`,
+`train.engine.init_state`, `train.engine.batch_to_device`) run on the CUDA
+card unless the caller passes `device="cpu"`; with no card and no explicit
+CPU device they raise. The hand-written kernels
 (`csrc/*.cu`, bound in `ops/kernels/`) build with `nvcc` at first use.
 
 Importing this package imports nothing heavy.

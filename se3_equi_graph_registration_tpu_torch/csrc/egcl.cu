@@ -24,6 +24,11 @@
 // (the k-regular sum without atomics), and the node MLP and residual finish
 // in the same warp. wgmma tiles for the edge MLPs are later work.
 //
+// agg_m, the message sum before the node MLP, is written only when the
+// caller passes an output for it (training: the backward, egcl_backward.cu,
+// needs it); serving passes null and the kernel does the same work as
+// without the output.
+//
 // Numerics (egcl_kernel.py:97-114, 200-268): _safe_unit n = sqrt(n²+1e-20),
 // v/(n+1e-8); the frame becomes the identity when ‖a‖, ‖b‖ or ‖c‖ < 1e-6;
 // geometry [radial, dist, dot, a0,b0,c0,a1,b1,c1,a2,b2,c2]; edge_attr = 1
@@ -88,7 +93,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 egcl_kernel(const float* __restrict__ h, const float* __restrict__ x,
             const int* __restrict__ nbr, const float* __restrict__ params,
             float* __restrict__ h_out, float* __restrict__ x_out,
-            int total, int N, int K, int C, int wh) {
+            float* __restrict__ aggm_out, int total, int N, int K, int C, int wh) {
   extern __shared__ float smem[];
   const Offsets off(C);
   float* w = smem;
@@ -244,6 +249,11 @@ egcl_kernel(const float* __restrict__ h, const float* __restrict__ x,
       x_out[(size_t)center * 3 + 1] = xi1 + ax1;
       x_out[(size_t)center * 3 + 2] = xi2 + ax2;
     }
+    if (aggm_out != nullptr) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (lane + 32 * r < C) aggm_out[(size_t)center * C + lane + 32 * r] = aggm[r];
+    }
     // --- node MLP on [h, Σ m] and residual ---
     __syncwarp();
 #pragma unroll
@@ -280,8 +290,8 @@ egcl_kernel(const float* __restrict__ h, const float* __restrict__ x,
 
 template <int R, bool FAST>
 int launch(const float* h, const float* x, const int* nbr, const float* params,
-           float* h_out, float* x_out, int B, int N, int K, int C, int wh,
-           cudaStream_t stream) {
+           float* h_out, float* x_out, float* aggm_out, int B, int N, int K, int C,
+           int wh, cudaStream_t stream) {
   const size_t smem = (Offsets(C).total + kWarps * kBuf) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       egcl_kernel<R, FAST>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -293,18 +303,19 @@ int launch(const float* h, const float* x, const int* nbr, const float* params,
   const int need = (total + kWarps - 1) / kWarps;
   const int grid = need < sms * 8 ? need : sms * 8;  // warps loop over centers
   egcl_kernel<R, FAST><<<grid, kWarps * 32, smem, stream>>>(
-      h, x, nbr, params, h_out, x_out, total, N, K, C, wh);
+      h, x, nbr, params, h_out, x_out, aggm_out, total, N, K, C, wh);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // h [B,N,C], x [B,N,3] f32, nbr [B,N,K] int32, params: the packed buffer of
-// ops/kernels/egcl.py::pack_params. Outputs h_out [B,N,C], x_out [B,N,3].
+// ops/kernels/egcl.py::pack_params. Outputs h_out [B,N,C], x_out [B,N,3],
+// and agg_m [B,N,C] unless aggm_out is null.
 extern "C" int egcl_launch(const void* h, const void* x, const void* nbr,
-                           const void* params, void* h_out, void* x_out, int B,
-                           int N, int K, int C, int head_width, int fast,
-                           void* stream) {
+                           const void* params, void* h_out, void* x_out,
+                           void* aggm_out, int B, int N, int K, int C,
+                           int head_width, int fast, void* stream) {
   if (C < 1 || C > 64 || head_width < 1 || C % head_width) return (int)cudaErrorInvalidValue;
   const float* hf = static_cast<const float*>(h);
   const float* xf = static_cast<const float*>(x);
@@ -312,10 +323,11 @@ extern "C" int egcl_launch(const void* h, const void* x, const void* nbr,
   const float* p = static_cast<const float*>(params);
   float* ho = static_cast<float*>(h_out);
   float* xo = static_cast<float*>(x_out);
+  float* am = static_cast<float*>(aggm_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C <= 32)
-    return fast ? launch<1, true>(hf, xf, nb, p, ho, xo, B, N, K, C, head_width, s)
-                : launch<1, false>(hf, xf, nb, p, ho, xo, B, N, K, C, head_width, s);
-  return fast ? launch<2, true>(hf, xf, nb, p, ho, xo, B, N, K, C, head_width, s)
-              : launch<2, false>(hf, xf, nb, p, ho, xo, B, N, K, C, head_width, s);
+    return fast ? launch<1, true>(hf, xf, nb, p, ho, xo, am, B, N, K, C, head_width, s)
+                : launch<1, false>(hf, xf, nb, p, ho, xo, am, B, N, K, C, head_width, s);
+  return fast ? launch<2, true>(hf, xf, nb, p, ho, xo, am, B, N, K, C, head_width, s)
+              : launch<2, false>(hf, xf, nb, p, ho, xo, am, B, N, K, C, head_width, s);
 }

@@ -1,6 +1,8 @@
 """Fused EGCL layer: the CUDA kernel `csrc/egcl.cu` and its plain version
-(counterpart of `ops/pallas/egcl_kernel.py`), forward only, 'center'
-direction, 'frame' so3 mode, all-ones edge_attr, no edge mask.
+(counterpart of `ops/pallas/egcl_kernel.py`), forward, 'center' direction,
+'frame' so3 mode, all-ones edge_attr, no edge mask. The backward is
+`egcl_backward.py`; `egnn_forward` routes each layer through its
+`EGCLFunction` whenever autograd needs a gradient.
 
 Layout is the standard one, h [B, N, C] and x [B, N, 3] (the TPU kernel's
 transposed [B, C, N] layout served its lanes; a GPU warp wants channels
@@ -48,25 +50,35 @@ class EGCLParams(NamedTuple):
     head_width: int         # C / num_heads
 
 
-def params_from_layer(layer: EGCL) -> EGCLParams:
+def live_params(layer: EGCL) -> EGCLParams:
     """Arrange one EGCL module's weights for the kernel (the counterpart of
-    the reference's `params_from_tree`)."""
+    the reference's `params_from_tree`), from the live parameters. When
+    autograd records, the folds carry gradients back: db1 reaches both
+    `fused_in.bias` and the edge_attr column of `fused_in.weight`, dw2 the
+    diagonal blocks of `head_kernels`. Under `torch.no_grad()` nothing is
+    recorded."""
     em = layer.edge_mlp
-    w1 = em.fused_in.weight.detach()                    # [C, 2C+13]
+    w1 = em.fused_in.weight                             # [C, 2C+13]
     c = w1.shape[0]
-    hk = em.head_kernels.detach()                       # [H, w, w] (in, out)
+    hk = em.head_kernels                                # [H, w, w] (in, out)
     return EGCLParams(
         w1_hrow=w1[:, :c], w1_hcol=w1[:, c:2 * c], w1_geo=w1[:, 2 * c:2 * c + 12],
-        b1=em.fused_in.bias.detach() + w1[:, 2 * c + 12],
+        b1=em.fused_in.bias + w1[:, 2 * c + 12],
         w2=torch.block_diag(*hk.unbind(0)).T,
-        b2=em.head_biases.detach().reshape(-1),
-        ln_scale=layer.layer_norm.weight.detach(),
-        ln_bias=layer.layer_norm.bias.detach(),
-        wc0=layer.coord_mlp_0.weight.detach(), bc0=layer.coord_mlp_0.bias.detach(),
-        wc1=layer.coord_mlp_out.weight.detach(),
-        wn0=layer.node_mlp_0.weight.detach(), bn0=layer.node_mlp_0.bias.detach(),
-        wn1=layer.node_mlp_1.weight.detach(), bn1=layer.node_mlp_1.bias.detach(),
+        b2=em.head_biases.reshape(-1),
+        ln_scale=layer.layer_norm.weight, ln_bias=layer.layer_norm.bias,
+        wc0=layer.coord_mlp_0.weight, bc0=layer.coord_mlp_0.bias,
+        wc1=layer.coord_mlp_out.weight,
+        wn0=layer.node_mlp_0.weight, bn0=layer.node_mlp_0.bias,
+        wn1=layer.node_mlp_1.weight, bn1=layer.node_mlp_1.bias,
         head_width=hk.shape[-1])
+
+
+def params_from_layer(layer: EGCL) -> EGCLParams:
+    """`live_params`, detached: the layout for calling the kernel (or its
+    plain version) directly."""
+    p = live_params(layer)
+    return EGCLParams(*(t.detach() for t in p[:-1]), p.head_width)
 
 
 def pack_params(p: EGCLParams) -> torch.Tensor:
@@ -75,7 +87,7 @@ def pack_params(p: EGCLParams) -> torch.Tensor:
     parts = [p.w1_hrow.T, p.w1_hcol.T, p.w1_geo.T, p.b1, p.w2.T, p.b2,
              p.ln_scale, p.ln_bias, p.wc0.T, p.bc0, p.wc1.T, p.wn0.T, p.bn0,
              p.wn1.T, p.bn1]
-    return torch.cat([t.reshape(-1) for t in parts]).to(torch.float32).contiguous()
+    return torch.cat([t.detach().reshape(-1) for t in parts]).to(torch.float32).contiguous()
 
 
 def _round(fast: bool):
@@ -105,11 +117,12 @@ def edge_features(x_row: torch.Tensor, x_col: torch.Tensor
     return rel, torch.cat([radial, dist, dotf, so3], dim=-1)
 
 
-def egcl_layer_plain(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
-                     p: EGCLParams, accurate: bool = True
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: h [B,N,C], x [B,N,3],
-    nbr [B,N,K] → (h', x')."""
+def edge_aggregates_plain(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
+                          p: EGCLParams, accurate: bool = True
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The edge program summed onto centers: (agg_m [B,N,C], the message
+    sum before the node MLP; agg_x [B,N,3] = Σ_k rel·s, the coordinate
+    update)."""
     r = _round(not accurate)
     mm = lambda a, w: torch.matmul(r(a), r(w).T)
     b, n, k = nbr.shape
@@ -124,22 +137,33 @@ def egcl_layer_plain(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
     var = torch.mean((m - mu) ** 2, dim=-1, keepdim=True)
     m = (m - mu) * torch.rsqrt(var + 1e-5) * p.ln_scale + p.ln_bias
     s = mm(F.silu(mm(m, p.wc0) + p.bc0), p.wc1)              # [B, N, K, 1]
-    x_out = x + torch.sum(rel * s, dim=2)
-    out = F.silu(mm(torch.cat([h, torch.sum(m, dim=2)], dim=-1), p.wn0) + p.bn0)
-    return h + (mm(out, p.wn1) + p.bn1), x_out
+    return torch.sum(m, dim=2), torch.sum(rel * s, dim=2)
 
 
-def egcl_layer(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
-               p: EGCLParams, accurate: bool = True,
-               packed: torch.Tensor | None = None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One fused EGCL layer. A CPU tensor takes the plain version; a CUDA
-    tensor launches `csrc/egcl.cu`. `packed` is `pack_params(p)` when the
-    caller already has it on the device. Every nbr index must lie in [0, N)."""
-    if h.device.type == "cpu":
-        return egcl_layer_plain(h, x, nbr, p, accurate)
-    if h.device.type != "cuda":
-        raise ValueError(f"unsupported device {h.device}")
+def node_forward(h: torch.Tensor, agg_m: torch.Tensor, p: EGCLParams,
+                 accurate: bool = True) -> torch.Tensor:
+    """The node MLP and residual: h + wn1·silu(wn0·[h, agg_m] + bn0) + bn1."""
+    r = _round(not accurate)
+    mm = lambda a, w: torch.matmul(r(a), r(w).T)
+    out = F.silu(mm(torch.cat([h, agg_m], dim=-1), p.wn0) + p.bn0)
+    return h + (mm(out, p.wn1) + p.bn1)
+
+
+def egcl_layer_plain(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
+                     p: EGCLParams, accurate: bool = True,
+                     return_aggm: bool = False) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the kernel: h [B,N,C], x [B,N,3],
+    nbr [B,N,K] → (h', x'), and agg_m when asked."""
+    agg_m, agg_x = edge_aggregates_plain(h, x, nbr, p, accurate)
+    out = (node_forward(h, agg_m, p, accurate), x + agg_x)
+    return out + (agg_m,) if return_aggm else out
+
+
+def check_inputs(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
+                 head_width: int) -> None:
+    """Raise on what the EGCL kernels do not take: contiguous f32 h [B,N,C]
+    with 1 <= C <= 64 in whole heads, f32 x [B,N,3], int32 nbr [B,N,K],
+    all on h's CUDA device."""
     b, n, c = h.shape
     k = nbr.shape[-1]
     for name, t, shape, dtype in (("h", h, (b, n, c), torch.float32),
@@ -149,36 +173,58 @@ def egcl_layer(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous {dtype} {shape} on "
                              f"{h.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if not 1 <= c <= 64 or c % p.head_width:
+    if not 1 <= c <= 64 or c % head_width:
         raise ValueError(f"the kernel takes 1 <= C <= 64 with whole heads, got C={c}")
+
+
+def egcl_layer(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
+               p: EGCLParams, accurate: bool = True,
+               packed: torch.Tensor | None = None, return_aggm: bool = False
+               ) -> tuple[torch.Tensor, ...]:
+    """One fused EGCL layer → (h', x'), and agg_m [B,N,C] (the message sum
+    before the node MLP, which the backward needs) when asked. A CPU tensor
+    takes the plain version; a CUDA tensor launches `csrc/egcl.cu`. `packed`
+    is `pack_params(p)` when the caller already has it on the device. Every
+    nbr index must lie in [0, N)."""
+    if h.device.type == "cpu":
+        return egcl_layer_plain(h, x, nbr, p, accurate, return_aggm)
+    if h.device.type != "cuda":
+        raise ValueError(f"unsupported device {h.device}")
+    check_inputs(h, x, nbr, p.head_width)
+    b, n, c = h.shape
     if packed is None:
         packed = pack_params(p).to(h.device)
     h_out, x_out = torch.empty_like(h), torch.empty_like(x)
+    agg_m = torch.empty_like(h) if return_aggm else None
     fn = build.load("egcl").egcl_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), packed.data_ptr(),
-                 h_out.data_ptr(), x_out.data_ptr(), b, n, k, c, p.head_width,
-                 int(not accurate), stream)
+                 h_out.data_ptr(), x_out.data_ptr(),
+                 agg_m.data_ptr() if return_aggm else None, b, n, nbr.shape[-1], c,
+                 p.head_width, int(not accurate), stream)
     build.check(err, "egcl_launch")
     egcl_layer.launches += 1
-    return h_out, x_out
+    return (h_out, x_out, agg_m) if return_aggm else (h_out, x_out)
 
 
 egcl_layer.launches = 0
 
 
 class KernelEGNN(NamedTuple):
-    """An EGNN's weights arranged once for `egnn_forward`."""
+    """An EGNN's weights arranged for `egnn_forward`."""
     egnn: EGNN
     layers: list          # [EGCLParams]
     packed: list          # [flat buffer on the module's device]
 
 
 def kernel_params(egnn: EGNN) -> KernelEGNN:
-    layers = [params_from_layer(layer) for layer in egnn.layers()]
+    """The layout of every layer, from the live parameters (`live_params`).
+    Serving builds it once under `torch.no_grad()`; training builds it on
+    every step with autograd on, so gradients flow back through the folds."""
+    layers = [live_params(layer) for layer in egnn.layers()]
     return KernelEGNN(egnn, layers, [pack_params(p) for p in layers])
 
 
@@ -187,13 +233,22 @@ def egnn_forward(kp: KernelEGNN, h: torch.Tensor, x: torch.Tensor,
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Embedding → n × fused EGCL → embedding; h [B,N,C_in], x [B,N,3].
     The embeddings are plain matmuls (in fast mode on bf16-rounded operands,
-    as the TPU's DEFAULT precision gives)."""
+    as the TPU's DEFAULT precision gives). When autograd needs a gradient
+    (of h, x or a layer weight), each layer runs as `EGCLFunction`: the
+    forward kernel with agg_m, the backward kernel behind it."""
+    from .egcl_backward import EGCLFunction
+
     r = _round(not accurate)
     emb_in, emb_out = kp.egnn.embedding_in, kp.egnn.embedding_out
     h = torch.matmul(r(h), r(emb_in.weight).T) + emb_in.bias
     x = x.to(torch.float32).contiguous()
     nbr = nbr.to(torch.int32).contiguous()
     for p, packed in zip(kp.layers, kp.packed):
-        h, x = egcl_layer(h.contiguous(), x, nbr, p, accurate, packed)
+        h = h.contiguous()
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (h, x, *p[:-1])):
+            h, x = EGCLFunction.apply(h, x, nbr, p.head_width, accurate, packed, *p[:-1])
+        else:
+            h, x = egcl_layer(h, x, nbr, p, accurate, packed)
     h = torch.matmul(r(h), r(emb_out.weight).T) + emb_out.bias
     return h, x

@@ -38,7 +38,8 @@ class Registrar:
         self.model = engine.build_model(cfg, head_mode=head_mode, device=device)
         self.model.load_state_dict(params)
         self.device = next(self.model.parameters()).device
-        self._kp = kernel_params(self.model.egnn)   # the weights never change
+        with torch.no_grad():                        # the weights never change
+            self._kp = kernel_params(self.model.egnn)
 
     @torch.no_grad()
     def _apply(self, batch: dict) -> torch.Tensor:

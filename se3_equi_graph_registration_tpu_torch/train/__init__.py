@@ -1,1 +1,1 @@
-"""Engine, metrics and weight carriers of the port (inference only in this slice)."""
+"""Engine (inference and training), losses, metrics and weight carriers of the port."""

@@ -1,19 +1,28 @@
-"""Inference engine (counterpart of `train/engine.py`, inference only).
+"""Train and eval engine (counterpart of `train/engine.py`).
 
 `fast_tpu_config` keeps its name so configurations carry across: a
 Hilbert-sorted window k-NN graph (CUDA kernel `csrc/knn.cu`), the fused
-EGNN (CUDA kernel `csrc/egcl.cu`), the head, a quaternion Kabsch solve.
-Every configuration runs through both kernels' wrappers, and which code runs
+EGNN (CUDA kernel `csrc/egcl.cu`, and in training its backward
+`csrc/egcl_backward.cu`), the head, a quaternion Kabsch solve. Every
+configuration runs through the kernels' wrappers, and which code runs
 depends on the device alone: CPU tensors take the kernels' plain versions,
 CUDA tensors launch the kernels. `models/egnn.EGNN` is the readable
 reference the tests hold the fused path to; the engine does not call it.
+
+Training: `init_state` builds the model and Adam with the staircase
+schedule, `make_train_step` returns the step (forward, losses, backward,
+update, with gradient accumulation as optax.MultiSteps does), `fit` runs
+epochs with best-val checkpointing. Metrics stay on the device and are
+fetched once per epoch.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional, Union
+import time
+from typing import Callable, Iterable, NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -21,14 +30,16 @@ from ..models.pose_head import RegistrationModel, RegistrationOutputs
 from ..ops import morton
 from ..ops.kernels.egcl import KernelEGNN, egnn_forward, kernel_params
 from ..ops.kernels.knn import knn_window
+from . import losses as losses_lib
 from . import metrics as metrics_lib
+from .checkpoints import init_weights
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """The fields the inference path reads, with the reference's defaults.
-    The model is always 'center'/'frame'; head top-k is always exact (the
-    reference's approx top-k returns the exact sets on the CPU)."""
+    """The fields the port reads, with the reference's defaults. The model
+    is always 'center'/'frame'; head top-k is always exact (the reference's
+    approx top-k returns the exact sets on the CPU)."""
     num_nodes: int = 2048
     k: int = 16
     in_node_nf: int = 32
@@ -36,10 +47,17 @@ class EngineConfig:
     n_layers: int = 3
     num_heads: int = 4
     top_k: int = 128
+    lr: float = 1e-4
+    lr_step: int = 200              # StepLR(step_size=200, gamma=0.5)
+    lr_gamma: float = 0.5
+    lr_step_unit: str = "step"      # 'step' | 'epoch' (the reference's StepLR
+                                    # counts epochs; needs steps_per_epoch)
+    loss_weights: losses_lib.LossWeights = losses_lib.LossWeights()
     egnn_impl: str = "xla"          # 'xla' | 'pallas': accepted so the
                                     # reference's configs carry across; both
                                     # run the fused EGCL path
-    knn_method: str = "exact"       # 'exact' | 'approx' (= exact) | 'morton'
+    knn_method: str = "exact"       # 'exact' | 'approx' | 'pallas' (all three
+                                    # the exact whole-cloud graph) | 'morton'
     egnn_window: int = 384          # morton: curve-window width
     egnn_tile: int = 128            # morton: center tile of the graph
     curve: str = "hilbert"          # morton: 'hilbert' | 'morton'
@@ -50,6 +68,9 @@ class EngineConfig:
     fusion_literal: bool = False    # eval_fusion: reference broadcast accident
     fusion_weighting: str = "reference"  # eval_fusion: 'reference' | 'sharp'
     fusion_temp: float = 0.1
+    grad_accum_steps: int = 1       # micro-batches per optimizer step
+    best_val_metric: str = "loss"   # fit's best-val checkpoint criterion:
+                                    # 'loss' | 'rot_err_deg' | 'trans_err_cm'
 
 
 def fast_tpu_config(**overrides) -> EngineConfig:
@@ -64,7 +85,7 @@ def build_model(cfg: EngineConfig, head_mode: str = "train",
                 device: Union[str, torch.device, None] = None) -> RegistrationModel:
     """The model on `device` (the CUDA card unless told otherwise), in eval
     mode with torch's default initialization."""
-    if cfg.knn_method not in ("exact", "approx", "morton"):
+    if cfg.knn_method not in ("exact", "approx", "pallas", "morton"):
         raise ValueError(f"unknown knn_method {cfg.knn_method!r}")
     if cfg.egnn_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown egnn_impl {cfg.egnn_impl!r}")
@@ -86,7 +107,7 @@ def _check_batch(model: RegistrationModel, batch: dict) -> None:
 
 def _tile_and_window(cfg: EngineConfig, n: int) -> tuple[int, Optional[int]]:
     """(tile, window) of the k-NN kernel: the curve window for 'morton', the
-    whole cloud (window None) for 'exact'/'approx'."""
+    whole cloud (window None) for 'exact', 'approx' and 'pallas'."""
     if cfg.knn_method == "morton":
         if n % 128:
             raise ValueError(f"the morton path needs num_nodes divisible by 128 "
@@ -95,17 +116,15 @@ def _tile_and_window(cfg: EngineConfig, n: int) -> tuple[int, Optional[int]]:
     return math.gcd(n, 128), None
 
 
-@torch.no_grad()
-def _apply_with_graphs(model: RegistrationModel, cfg: EngineConfig, batch: dict,
-                       kp: Optional[KernelEGNN] = None) -> RegistrationOutputs:
+def _forward_with_graphs(model: RegistrationModel, cfg: EngineConfig, batch: dict,
+                         kp: KernelEGNN) -> RegistrationOutputs:
     """k-NN graphs + model forward for a batch dict of tensors on the
     model's device. Every configuration goes through the k-NN and EGCL
     wrappers: 'morton' sorts each cloud along the curve, builds the window
-    graph in sorted space, runs the EGNN and un-sorts; 'exact'/'approx'
-    search the whole cloud. `kp` is `kernel_params(model.egnn)` when the
-    caller keeps it; the head runs on the original order."""
+    graph in sorted space, runs the EGNN and un-sorts; the others search the
+    whole cloud. The head runs on the original order. Differentiable when
+    `kp` was built with autograd on."""
     _check_batch(model, batch)
-    kp = kernel_params(model.egnn) if kp is None else kp
     tile, window = _tile_and_window(cfg, batch["src_pts"].shape[1])
     packed = cfg.knn_packed and window is not None and window <= 1024
 
@@ -123,9 +142,113 @@ def _apply_with_graphs(model: RegistrationModel, cfg: EngineConfig, batch: dict,
         h_s, x_s, h_t, x_t, batch["labels"])
 
 
-def make_eval_step(model: RegistrationModel, cfg: EngineConfig
-                   ) -> Callable[[dict], dict]:
-    """(batch) → per-pair RRE / RTE / recall / precision tensors."""
+@torch.no_grad()
+def _apply_with_graphs(model: RegistrationModel, cfg: EngineConfig, batch: dict,
+                       kp: Optional[KernelEGNN] = None) -> RegistrationOutputs:
+    """The inference forward (no autograd). `kp` is
+    `kernel_params(model.egnn)` when the caller keeps it."""
+    kp = kernel_params(model.egnn) if kp is None else kp
+    return _forward_with_graphs(model, cfg, batch, kp)
+
+
+def train_loss(model: RegistrationModel, cfg: EngineConfig,
+               batch: dict) -> losses_lib.LossBreakdown:
+    """The training forward and its losses, with autograd on the live
+    parameters: the k-NN graphs, the EGNN through `EGCLFunction` (forward
+    and backward kernels), the train head, `total_loss`."""
+    out = _forward_with_graphs(model, cfg, batch, kernel_params(model.egnn))
+    return losses_lib.total_loss(out, batch["gt_pose"], batch["labels"],
+                                 cfg.loss_weights)
+
+
+def lr_schedule(cfg: EngineConfig, steps_per_epoch: Optional[int] = None
+                ) -> Callable[[int], float]:
+    """Staircase decay init·γ^⌊step/transition⌋ over optimizer steps,
+    matching the reference's StepLR(step_size, gamma). With
+    lr_step_unit='epoch' the boundary converts to optimizer steps through
+    `steps_per_epoch` (micro-batches per epoch; with gradient accumulation
+    the optimizer advances once per `grad_accum_steps` of them)."""
+    transition = cfg.lr_step
+    if cfg.lr_step_unit == "epoch":
+        if steps_per_epoch is None:
+            raise ValueError("lr_step_unit='epoch' requires steps_per_epoch "
+                             "(dataset_size // batch_size)")
+        transition = max(1, cfg.lr_step * steps_per_epoch // cfg.grad_accum_steps)
+    elif cfg.lr_step_unit != "step":
+        raise ValueError(f"unknown lr_step_unit {cfg.lr_step_unit!r}")
+    return lambda step: cfg.lr * cfg.lr_gamma ** (step // transition)
+
+
+class Optimizer(NamedTuple):
+    """Adam and its schedule; the schedule steps once per Adam step."""
+    adam: torch.optim.Adam
+    schedule: torch.optim.lr_scheduler.LambdaLR
+
+
+def build_optimizer(model: RegistrationModel, cfg: EngineConfig,
+                    steps_per_epoch: Optional[int] = None) -> Optimizer:
+    """Adam at optax's defaults (b1 0.9, b2 0.999, eps 1e-8 added after the
+    square root, no eps inside it) with the staircase schedule — the
+    reference's Adam(lr) + StepLR(200, 0.5)."""
+    adam = torch.optim.Adam(model.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    sched = lr_schedule(cfg, steps_per_epoch)
+    return Optimizer(adam, torch.optim.lr_scheduler.LambdaLR(
+        adam, lambda step: sched(step) / cfg.lr))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The live training state: the model holds the parameters, the
+    optimizer Adam's moments and the schedule; `step` counts micro-batches."""
+    model: RegistrationModel
+    optimizer: Optimizer
+    step: int = 0
+
+
+def init_state(cfg: EngineConfig, generator: torch.Generator,
+               device: Union[str, torch.device, None] = None,
+               steps_per_epoch: Optional[int] = None) -> TrainState:
+    """A train-head model on `device` (the CUDA card unless told otherwise)
+    with weights drawn from `generator`, and its optimizer."""
+    model = build_model(cfg, head_mode="train", device=device)
+    init_weights(model, generator)
+    return TrainState(model, build_optimizer(model, cfg, steps_per_epoch))
+
+
+def make_train_step(model: RegistrationModel, optimizer: Optimizer,
+                    cfg: EngineConfig) -> Callable[[TrainState, dict], tuple]:
+    """(state, batch) → (state, {loss name: 0-d tensor on the device}).
+
+    Each call is one micro-batch: the forward and backward through the
+    kernels, gradients summed into `.grad`. Every `grad_accum_steps`-th call
+    averages them (as optax.MultiSteps does), steps Adam and the schedule,
+    and clears them. Nothing is fetched to the host."""
+    k = cfg.grad_accum_steps
+    if k < 1:
+        raise ValueError(f"grad_accum_steps must be >= 1, got {k}")
+
+    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        lb = train_loss(model, cfg, batch)
+        lb.total.backward()
+        if (state.step + 1) % k == 0:
+            if k > 1:
+                for p in model.parameters():
+                    if p.grad is not None:      # Adam skips them too
+                        p.grad.div_(k)
+            optimizer.adam.step()
+            optimizer.schedule.step()
+            optimizer.adam.zero_grad(set_to_none=True)
+        state.step += 1
+        return state, {name: v.detach() for name, v in lb._asdict().items()}
+
+    return step
+
+
+def make_eval_step(model: RegistrationModel, cfg: EngineConfig,
+                   with_loss: bool = False) -> Callable[[dict], dict]:
+    """(batch) → per-pair RRE / RTE / recall / precision tensors, and with
+    `with_loss` the batch's total training loss (broadcast per pair), which
+    `fit` uses to pick the best-val checkpoint as the reference does."""
 
     def step(batch: dict) -> dict:
         out = _apply_with_graphs(model, cfg, batch)
@@ -136,8 +259,103 @@ def make_eval_step(model: RegistrationModel, cfg: EngineConfig
         rot_err, trans_err = metrics_lib.calculate_pose_error(batch["gt_pose"], pred)
         recall, precision = metrics_lib.registration_recall(
             pred, batch["src_pts"], batch["tgt_pts"])
-        return {"rot_err_deg": rot_err, "trans_err_cm": trans_err,
-                "recall": recall, "precision": precision}
+        m = {"rot_err_deg": rot_err, "trans_err_cm": trans_err,
+             "recall": recall, "precision": precision}
+        if with_loss:
+            lb = losses_lib.total_loss(out, batch["gt_pose"], batch["labels"],
+                                       cfg.loss_weights)
+            m["loss"] = lb.total.expand_as(rot_err)
+        return m
 
     return step
+
+
+_BATCH_KEYS = ("labels", "src_pts", "tgt_pts", "src_feat", "tgt_feat", "gt_pose")
+
+
+def batch_to_device(batch_tuple, device: Union[str, torch.device, None] = None) -> dict:
+    """The reference 7-tuple (corr, labels, src_pts, tgt_pts, src_feat,
+    tgt_feat, gt_pose) of numpy arrays → the engine's dict of float32
+    tensors on `device` (the CUDA card unless told otherwise)."""
+    dev = resolve_device(device)
+    _, *arrays = batch_tuple
+    return {k: torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+            for k, a in zip(_BATCH_KEYS, arrays)}
+
+
+def _as_batch(batch, model: RegistrationModel) -> dict:
+    """A reference 7-tuple or an engine dict → an engine dict on the
+    model's device."""
+    if isinstance(batch, tuple):
+        return batch_to_device(batch, next(model.parameters()).device)
+    return batch
+
+
+def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
+        state: TrainState, train_batches: Callable[[], Iterable], epochs: int,
+        val_batches: Optional[Callable[[], Iterable]] = None,
+        checkpointer=None, checkpoint_every: int = 20,
+        logger: Optional[Callable[[int, dict], None]] = None) -> TrainState:
+    """Epoch loop: per-epoch loss means (fetched once per epoch), a
+    validation pass, and checkpoints through any `checkpointer` with
+    `.save(step, state, metrics=...)`: the best validation score
+    (`cfg.best_val_metric`, lower is better) and every `checkpoint_every`
+    epochs. Batches are the reference 7-tuples or engine dicts."""
+    if cfg.best_val_metric not in ("loss", "rot_err_deg", "trans_err_cm"):
+        raise ValueError(f"unknown best_val_metric {cfg.best_val_metric!r}; expected "
+                         "'loss', 'rot_err_deg' or 'trans_err_cm'")
+    train_step = make_train_step(model, optimizer, cfg)
+    eval_step = make_eval_step(model, cfg, with_loss=cfg.best_val_metric == "loss")
+    best_val = np.inf
+    for epoch in range(epochs):
+        t0 = time.time()
+        ms = []
+        for batch in train_batches():
+            state, m = train_step(state, _as_batch(batch, model))
+            ms.append(m)
+        train_metrics = {}
+        if ms:   # one stack and one fetch per epoch
+            means = torch.stack([torch.stack([m[k] for m in ms]).mean() for k in ms[0]])
+            train_metrics = dict(zip(ms[0], means.tolist()))
+        train_metrics["epoch_seconds"] = time.time() - t0
+        if val_batches is not None:
+            vals = [eval_step(_as_batch(b, model)) for b in val_batches()]
+            val_metrics = {}
+            if vals:   # mean of the batch means, one fetch
+                means = torch.stack([torch.stack([v[k].mean() for v in vals]).mean()
+                                     for k in vals[0]])
+                val_metrics = dict(zip(vals[0], means.tolist()))
+            train_metrics.update({f"val_{k}": v for k, v in val_metrics.items()})
+            val_score = val_metrics.get(cfg.best_val_metric, np.inf)
+            if checkpointer is not None and val_score < best_val:
+                best_val = val_score
+                checkpointer.save(state.step, state,
+                                  metrics={f"val_{cfg.best_val_metric}": val_score})
+        if checkpointer is not None and (epoch + 1) % checkpoint_every == 0:
+            checkpointer.save(state.step, state)
+        if logger is not None:
+            logger(epoch, train_metrics)
+    return state
+
+
+def evaluate(model: RegistrationModel, cfg: EngineConfig, batches: Iterable,
+             save_path: Optional[str] = None) -> dict:
+    """Test-set evaluation in the reference's report format
+    (evaluation_results.txt)."""
+    eval_step = make_eval_step(model, cfg)
+    rows = {"rot_err_deg": [], "trans_err_cm": [], "recall": [], "precision": []}
+    for batch in batches:
+        m = eval_step(_as_batch(batch, model))
+        for k in rows:
+            rows[k].append(m[k])
+    rows = {k: torch.cat(v).cpu().numpy() for k, v in rows.items()}
+    summary = metrics_lib.summarize(rows["rot_err_deg"], rows["trans_err_cm"],
+                                    rows["recall"], rows["precision"])
+    if save_path:
+        with open(save_path, "w") as f:
+            f.write(f"Average Rotation Error: {summary['avg_rotation_error_deg']:.4f} degrees\n")
+            f.write(f"Average Translation Error: {summary['avg_translation_error_cm']:.4f} cm\n")
+            f.write(f"Average Registration Recall: {summary['avg_registration_recall']:.4f}\n")
+            f.write(f"Average F1 Score: {summary['avg_f1']:.4f}\n")
+    return summary
 

@@ -1,7 +1,8 @@
-"""Evaluation metrics: RRE / RTE / registration recall / precision
+"""Evaluation metrics: RRE / RTE / registration recall / precision / F1
 (counterpart of `train/metrics.py`)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -24,3 +25,22 @@ def registration_recall(pred_pose: torch.Tensor, src_pts: torch.Tensor,
     d = torch.linalg.norm(src_pts @ R.transpose(-1, -2) + t[..., None, :] - tgt_pts, dim=-1)
     precision = torch.mean((d < tau).to(torch.float32), dim=-1)
     return torch.sqrt(precision), precision
+
+
+def f1_score(precision, recall):
+    """Elementwise F1 of tensors or arrays."""
+    return 2.0 * precision * recall / (precision + recall + 1e-6)
+
+
+def summarize(rot_errs: np.ndarray, trans_errs: np.ndarray,
+              recalls: np.ndarray, precisions: np.ndarray) -> dict:
+    """Host-side averages, as the reference's evaluation script reports them."""
+    f1 = f1_score(precisions, recalls)
+    return {
+        "avg_rotation_error_deg": float(np.mean(rot_errs)),
+        "avg_translation_error_cm": float(np.mean(trans_errs)),
+        "avg_registration_recall": float(np.mean(recalls)),
+        "avg_precision": float(np.mean(precisions)),
+        "avg_f1": float(np.mean(f1)),
+        "num_pairs": int(len(rot_errs)),
+    }

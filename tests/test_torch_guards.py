@@ -14,7 +14,11 @@ PORT_MODULES = [
     "se3_equi_graph_registration_tpu_torch.serving",
     "se3_equi_graph_registration_tpu_torch.train.engine",
     "se3_equi_graph_registration_tpu_torch.train.checkpoints",
+    "se3_equi_graph_registration_tpu_torch.train.losses",
+    "se3_equi_graph_registration_tpu_torch.ops.kernels.egcl_backward",
+    "se3_equi_graph_registration_tpu_torch.core.se3",
     "se3_equi_graph_registration_tpu_torch.data.synthetic",
+    "se3_equi_graph_registration_tpu_torch.data.pipeline",
 ]
 
 
@@ -45,6 +49,10 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
         engine.build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         serving.Registrar(sd, cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.init_state(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.batch_to_device((None,) + (np.zeros((1, 4)),) * 6)
     reg = serving.Registrar(sd, cfg, device="cpu")
     rng = np.random.default_rng(0)
     R, t, info = reg.register(rng.uniform(-1, 1, (128, 3)), rng.standard_normal((128, 8)),
@@ -55,11 +63,12 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
 def test_engine_rejects_unported_modes():
     from se3_equi_graph_registration_tpu_torch.train import engine
 
-    for bad in (dict(knn_method="pallas"), dict(egnn_impl="triton")):
+    for bad in (dict(knn_method="kd-tree"), dict(egnn_impl="triton")):
         with pytest.raises(ValueError):
             engine.build_model(engine.EngineConfig(**bad), device="cpu")
     for unported in (dict(refine_iters=5), dict(direction="cluster"),
-                     dict(onehot_h_permute=True)):
+                     dict(onehot_h_permute=True), dict(bf16_params=True),
+                     dict(remat=True), dict(use_pointnet=True)):
         with pytest.raises(TypeError):
             engine.fast_tpu_config(**unported)
 
@@ -81,9 +90,10 @@ def test_seeded_init_is_reproducible():
 
 @pytest.mark.parametrize("overrides", [
     dict(knn_method="exact"), dict(knn_method="approx", egnn_impl="pallas"),
+    dict(knn_method="pallas", egnn_impl="pallas"),
     dict(knn_method="morton", knn_packed=True, egnn_accurate=False),
     dict(knn_method="morton", knn_packed=False, curve="morton"),
-], ids=["exact", "approx", "morton-packed-fast", "morton-exact-window"])
+], ids=["exact", "approx", "pallas", "morton-packed-fast", "morton-exact-window"])
 def test_every_engine_config_goes_through_both_kernel_wrappers(monkeypatch, overrides):
     """No configuration picks a plain path by itself: each register() calls
     the k-NN wrapper once per cloud and the EGCL wrapper once per layer and
@@ -111,3 +121,36 @@ def test_every_engine_config_goes_through_both_kernel_wrappers(monkeypatch, over
                            rng.uniform(-1, 1, (2, 256, 3)), rng.standard_normal((2, 256, 8)))
     assert calls == {"knn": 2, "egcl": 2 * cfg.n_layers}
     assert np.all(np.isfinite(R))
+
+
+@pytest.mark.parametrize("accurate", [True, False], ids=["accurate", "fast"])
+def test_train_step_goes_through_all_three_kernel_wrappers(monkeypatch, accurate):
+    """One train step calls the k-NN wrapper once per cloud, the EGCL forward
+    wrapper and the EGCL backward wrapper once per layer and cloud, so on the
+    card the step launches all three kernels."""
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl, egcl_backward
+    from se3_equi_graph_registration_tpu_torch.train import engine
+
+    calls = {"knn": 0, "egcl": 0, "egcl_backward": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(engine, "knn_window", spy("knn", engine.knn_window))
+    monkeypatch.setattr(egcl, "egcl_layer", spy("egcl", egcl.egcl_layer))
+    monkeypatch.setattr(egcl_backward, "egcl_backward",
+                        spy("egcl_backward", egcl_backward.egcl_backward))
+    cfg = engine.fast_tpu_config(num_nodes=256, k=8, in_node_nf=8, hidden_nf=8, n_layers=2,
+                                 num_heads=2, top_k=16, egnn_accurate=accurate)
+    state = engine.init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    step = engine.make_train_step(state.model, state.optimizer, cfg)
+    pb = make_pair_batch(np.random.default_rng(2), batch=2, n=256, feat_dim=8)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    state, m = step(state, engine.batch_to_device(tuple(pb), "cpu"))
+    assert calls == {"knn": 2, "egcl": 2 * cfg.n_layers, "egcl_backward": 2 * cfg.n_layers}
+    assert np.isfinite(float(m["total"])) and state.step == 1
+    assert all(not torch.equal(a, b) for a, b in zip(before, state.model.parameters()))

@@ -55,3 +55,69 @@ def neighbor_set_mismatches(x: np.ndarray, ref: np.ndarray, got: np.ndarray,
             kth = ((xb[ref[b, r]] - xb[r]) ** 2).sum(-1).max()
             assert np.all(np.abs(d2 - kth) <= rel * max(kth, 1e-30)), (b, r, d2, kth)
     return mismatches
+
+
+def pair_batches(seed: int, count: int = 1, b: int = 2, n: int = 256, c: int = 16):
+    """`count` synthetic pair batches from one numpy seed (the JAX package's
+    `make_pair_batch`, which the port copies)."""
+    from se3_equi_graph_registration_tpu.data.synthetic import make_pair_batch
+
+    rng = np.random.default_rng(seed)
+    return [make_pair_batch(rng, batch=b, n=n, feat_dim=c) for _ in range(count)]
+
+
+def jax_train_batch(pb):
+    from se3_equi_graph_registration_tpu.train import engine as jengine
+
+    return jengine.batch_to_device((pb.corr, pb.labels, pb.src_pts, pb.tgt_pts,
+                                    pb.src_feat, pb.tgt_feat, pb.gt_pose))
+
+
+def port_train_batch(pb):
+    from se3_equi_graph_registration_tpu_torch.train import engine as tengine
+
+    return tengine.batch_to_device((pb.corr, pb.labels, pb.src_pts, pb.tgt_pts,
+                                    pb.src_feat, pb.tgt_feat, pb.gt_pose), "cpu")
+
+
+def port_model(cfg_kw: dict, params):
+    """(the port's fast_tpu_config(**cfg_kw), its train-head model on the CPU
+    holding the JAX `params`)."""
+    from se3_equi_graph_registration_tpu_torch.train import engine as tengine
+    from se3_equi_graph_registration_tpu_torch.train.checkpoints import params_from_jax
+
+    cfg = tengine.fast_tpu_config(**cfg_kw)
+    model = tengine.build_model(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(params))
+    return cfg, model
+
+
+def jax_grads(jmodel, jcfg, params, batch):
+    """(loss breakdown, {port name: gradient}) of the JAX engine's loss:
+    `jax.grad` over `_apply_with_graphs` + `total_loss`."""
+    from se3_equi_graph_registration_tpu.train import engine as jengine
+    from se3_equi_graph_registration_tpu.train import losses as jlosses
+    from se3_equi_graph_registration_tpu_torch.train.checkpoints import params_from_jax
+
+    def loss_fn(p):
+        out = jengine._apply_with_graphs(jmodel, jcfg, p, batch)
+        lb = jlosses.total_loss(out, batch["gt_pose"], batch["labels"], jcfg.loss_weights)
+        return lb.total, lb
+    (_, lb), g = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    return lb, {k: v.numpy() for k, v in params_from_jax(
+        jax.tree_util.tree_map(np.asarray, g)).items()}
+
+
+def port_grads(model, cfg, batch):
+    """(loss breakdown, {name: gradient}) of the port's training loss."""
+    from se3_equi_graph_registration_tpu_torch.train import engine as tengine
+
+    model.zero_grad(set_to_none=True)
+    lb = tengine.train_loss(model, cfg, batch)
+    lb.total.backward()
+    return lb, {k: p.grad.numpy().copy() for k, p in model.named_parameters()}
+
+
+def cosine(a, b):
+    a, b = a.ravel().astype(np.float64), b.ravel().astype(np.float64)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-300))
