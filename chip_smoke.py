@@ -3,17 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
+Builds the five CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
-version on the card at the main paths' shapes. Then it drives both main
-paths at the full `fast_tpu_config` (N=2048, k=16, C=32, 3 layers, 4 heads,
-top_k=128) with seeded random weights, each with the launch counters set to
-0 just before it and read just after:
-- serving: `Registrar.register` and `BatchingServer`, checked against the
-  same Registrar on the CPU;
+version on the card at the main paths' shapes. Then it drives the three
+main paths, each with the launch counters set to 0 just before it and read
+just after:
+- serving at the full `fast_tpu_config` (N=2048, k=16, C=32, 3 layers, 4
+  heads, top_k=128), seeded random weights: `Registrar.register` and
+  `BatchingServer`, checked against the same Registrar on the CPU;
 - training: `make_train_step` with Adam at B=64 (2 knn, 6 EGCL forward and
   6 EGCL backward launches per step), an accurate step checked against the
-  same step on the CPU, and fast-against-accurate gradients printed.
+  same step on the CPU, and fast-against-accurate gradients printed;
+- the checkpoint-free pipeline at full width (N=2048, k_normals 30, k_fpfh
+  60, tile 128, window 768, chunked keys, top_m 512, 512 hypotheses, 5 IRLS
+  and 10 ICP steps, quaternion Kabsch): `register_fpfh` at 4 branches and 1
+  (2 chunked k-NN and 2 SPFH launches per call, no B1) against the same
+  call on the CPU on a seeded bumpy surface pair, then
+  `register_fpfh_batch` at B=8 and 32, and a profile of one b=1 call.
 Any failed check raises (non-zero exit, no result line). The last line is
 one JSON object with the device.
 
@@ -58,6 +64,22 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   At these untrained weights the similarity softmax saturates, and the two
   modes are different functions (the reference's gradient budget,
   BASELINE.md); the table is printed.
+- knn_chunked (B4): lists identical to the plain version (same integer keys
+  from the same round-to-nearest d²). Its neighbor-set agreement with B1
+  packed is printed. B1 at k=60, W=768: as above (near-ties).
+- spfh (B5), both modes: distances within 1e-6 relative; at most 1e-4 of
+  the edge-channels in another bin (fp noise at a boundary); SPFH values
+  within 1e-3 (of 100 per channel) where a center's counts all agree.
+- TF32 enabled: the normals and the branch verification equal their
+  TF32-off values within 1e-6 (they use no matmul).
+- register_fpfh card vs CPU, same seed: both within 0.5 deg and 5 mm of the
+  ground truth; ‖ΔR‖_F/√2 ≤ 2e-3 and |Δt| ≤ 2e-3 m between them. The
+  batch: all but at most one pair within 0.5 deg and 5 mm. The gap between
+  card and CPU is fp noise amplified by plane ICP, whose end state on
+  independently sampled surfaces wanders at the 1e-3 level: over 12 seeded
+  pairs at 4 branches and 1 it measured 1.2e-4 to 3.3e-3 (4 of 24 above
+  2e-3) while every run stayed within 0.19 deg and 1.8 mm of the truth
+  (H100 80GB HBM3, 700 W). The check runs on pair 6 (2.8e-4 at both).
 """
 from __future__ import annotations
 
@@ -74,6 +96,15 @@ PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 BWD_TOL_ACCURATE = 1e-4
 BWD_TOL_FAST = 5e-3
+# csrc/spfh.cu, fp32 operations per edge: d and d² (8), sqrt and d̂ (5), the
+# two source-pick dots (12), the v cross, norm and divides (20), w (9), four
+# Darboux dots (20), α/φ bins (12), 12 θ sector tests (36) and their
+# compares (24), the distance select (1)
+SPFH_EDGE_OPS = 147
+# the checkpoint-free pipeline's full width (register_fpfh defaults, the
+# fused/chunked fast mode): N, k_normals, k_fpfh, tile, window
+FPFH_N, FPFH_KN, FPFH_K, FPFH_TILE, FPFH_WINDOW = 2048, 30, 60, 128, 768
+FPFH_BATCHES = (8, 32)      # register_fpfh_batch sizes timed
 
 
 def log(*a):
@@ -301,7 +332,8 @@ def main() -> int:
 
 
 def run(torch, dev, cfg, bsz):
-    """The three phases at `cfg` with `bsz` pairs; returns the kernel rows."""
+    """Every phase at `cfg` with `bsz` pairs (clouds, for B4 and B5);
+    returns the kernel rows."""
     from se3_equi_graph_registration_tpu_torch import serving
     from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
     from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
@@ -474,6 +506,8 @@ def run(torch, dev, cfg, bsz):
         row["launches_by_path"] = {"serve": n}
     rows.append(bwd_row)
     train_phase(torch, dev, cfg, bsz, rows)
+    rows.extend(fpfh_kernel_phase(torch, dev, bsz))
+    register_fpfh_phase(torch, dev, rows)
     return rows
 
 
@@ -599,6 +633,252 @@ def train_phase(torch, dev, cfg, bsz, rows):
         log(f"  | {name} | {c:.4f} | {r:.3g} |")
 
     profile_call(torch, lambda: step(state, batches[0]), f"train step B={bsz}")
+
+
+def bumpy_surface(seed=0):
+    """The Gaussian-bump height field of tests/test_global_registration.py
+    (locally distinctive geometry): surf(rng, n) samples n points of it with
+    2 mm noise."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-1.6, 1.6, (30, 2))
+    amps = rng.uniform(-0.35, 0.35, 30)
+    widths = rng.uniform(0.08, 0.3, 30)
+
+    def surf(rng2, n):
+        xy = np.stack([rng2.uniform(-1, 1, n), rng2.uniform(-1, 1, n)], -1)
+        z = np.zeros(n)
+        for (cx, cy), a, w in zip(centers, amps, widths):
+            z += a * np.exp(-((xy[:, 0] - cx) ** 2 + (xy[:, 1] - cy) ** 2) / w)
+        pts = np.concatenate([xy, z[:, None]], -1).astype(np.float32)
+        return pts + rng2.standard_normal(pts.shape).astype(np.float32) * 0.002
+
+    return surf
+
+
+def pose_err(Rh, th, R, t):
+    """(rotation error in degrees, max |Δt|) of an estimate against the truth."""
+    return (float(np.degrees(np.linalg.norm(Rh - R) / np.sqrt(2))),
+            float(np.abs(th - t).max()))
+
+
+def surface_pairs(count, seed):
+    """`count` (src, tgt, R, t): the bumpy surface sampled twice
+    independently at FPFH_N points, tgt under a random pose."""
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import random_rotation
+
+    surf, rng = bumpy_surface(), np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        src = surf(rng, FPFH_N)
+        R = random_rotation(rng).astype(np.float32)
+        t = (rng.standard_normal(3) * 0.3).astype(np.float32)
+        out.append((src, (surf(rng, FPFH_N) @ R.T + t).astype(np.float32), R, t))
+    return out
+
+
+def spfh_bin_flips(spfh, ref, dist_ref):
+    """(edge-channel entries in another bin, max|ΔSPFH| over centers whose
+    counts all agree): counts come back from rows scaled to 100."""
+    valid = (dist_ref > 0).sum(-1, keepdim=True).double()
+    cg = (spfh.double() * valid / 100.0).round()
+    cr = (ref.double() * valid / 100.0).round()
+    dc = (cg - cr).abs()
+    same = dc.sum(-1) == 0
+    return float(dc.sum() / 2), float((spfh - ref).abs()[same].max())
+
+
+def fpfh_kernel_phase(torch, dev, bsz):
+    """B4 and B5 against their plain versions, and B1 at the pipeline's
+    k=60/W=768, on `bsz` curve-sorted surface clouds at full width. Returns
+    the B4 and B5 rows."""
+    from se3_equi_graph_registration_tpu_torch.ops import fpfh, morton
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn, spfh
+
+    n, k, tile, w = FPFH_N, FPFH_K, FPFH_TILE, FPFH_WINDOW
+    x = torch.from_numpy(np.stack([p[0] @ p[2].T for p in surface_pairs(bsz, 100)])).to(dev)
+    _, xs, _ = morton.sort_by_curve(x[..., :0], x)
+    xs = xs.contiguous()
+
+    got = knn.knn_chunked(xs, k, tile, w)
+    torch.cuda.synchronize()
+    ref = knn.knn_chunked_plain(xs, k, tile, w)
+    check(torch.equal(got, ref), "knn_chunked: the kernel's lists differ from its plain version")
+    packed = knn.knn_window(xs, k, tile, w, packed=True)
+    same_sets = torch.all(torch.sort(got, -1).values == torch.sort(packed, -1).values, -1)
+    ms4 = cuda_ms(torch, lambda: knn.knn_chunked(xs, k, tile, w), 20)
+    plain4 = cuda_ms(torch, lambda: knn.knn_chunked_plain(xs, k, tile, w), 3)
+    b4, b4by = bound_ms(xs.numel() * 4 + bsz * n * k * 4, bsz * n * w * 8, PEAK_FP32)
+    log(f"knn_chunked B={bsz} N={n} k={k} T={tile} W={w} (C={w // 128}, S_pc="
+        f"{min(2 * -(-k // (w // 128)), 128 // (w // 128))}): identical to the plain version; "
+        f"neighbor sets equal to B1 packed on {float(same_sets.float().mean()):.6f} of rows; "
+        f"kernel {ms4:.4f} ms, plain {plain4:.3f} ms, bound {b4:.4f} ms ({b4by})")
+    for mode in ("packed", "exact"):
+        kw = dict(tile=tile, window=w, packed=mode == "packed")
+        g1 = knn.knn_window(xs, k, **kw)
+        torch.cuda.synchronize()
+        n_bad, err = knn_compare(xs, knn.knn_window_plain(xs, k, **kw), g1)
+        ms1 = cuda_ms(torch, lambda: knn.knn_window(xs, k, **kw), 20)
+        log(f"knn[{mode}] at the pipeline's shape B={bsz} N={n} k={k} W={w}: rows differing "
+            f"{n_bad} (near-ties), max|Δd²| {err:.3g}, kernel {ms1:.4f} ms")
+
+    normals = fpfh.estimate_normals_window(xs, got[..., :FPFH_KN]).contiguous()
+    edges = bsz * n * k
+    stats = {}
+    for accurate in (True, False):
+        name = "accurate" if accurate else "fast"
+        sg, dg = spfh.spfh(xs, normals, got, tile, w, accurate)
+        torch.cuda.synchronize()
+        sr, dr = spfh.spfh_plain(xs, normals, got, tile, w, accurate)
+        derr = float(((dg - dr).abs() / dr.abs().clamp_min(1e-30)).max())
+        flips, serr = spfh_bin_flips(sg, sr, dr)
+        check(torch.isfinite(sg).all() and derr <= 1e-6 and flips <= 1e-4 * edges
+              and serr <= 1e-3,
+              f"spfh {name}: dist rel {derr}, {flips} edge-channels in another bin, "
+              f"max|ΔSPFH| {serr} where the counts agree")
+        ms5 = cuda_ms(torch, lambda: spfh.spfh(xs, normals, got, tile, w, accurate), 20)
+        plain5 = cuda_ms(torch, lambda: spfh.spfh_plain(xs, normals, got, tile, w, accurate), 3)
+        stats[name] = (ms5, plain5, serr)
+        log(f"spfh[{name}] B={bsz} N={n} K={k} W={w}: dist max rel {derr:.3g}, "
+            f"{flips:.0f} of {edges} edge-channels in another bin, max|ΔSPFH| {serr:.3g} "
+            f"where the counts agree (of 100 per channel); kernel {ms5:.4f} ms, plain "
+            f"{plain5:.3f} ms")
+    nbytes5 = xs.numel() * 4 * 2 + edges * 4 * 2 + bsz * n * 33 * 4
+    b5, b5by = bound_ms(nbytes5, edges * SPFH_EDGE_OPS, PEAK_FP32)
+    log(f"spfh bound: {SPFH_EDGE_OPS} fp32 operations per edge, {nbytes5 / 1e6:.1f} MB: "
+        f"{b5:.4f} ms ({b5by})")
+    tf32_check(torch, xs, got)
+    ms5, plain5, serr = stats["accurate"]
+    return [dict(name="knn_chunked", route="cuda",
+                 source="se3_equi_graph_registration_tpu_torch/csrc/knn_chunked.cu",
+                 replaces="se3_equi_graph_registration_tpu/ops/pallas/knn_kernel.py:93",
+                 launches=0, max_abs_err=0.0, ms=ms4, plain_ms=plain4, bound_ms=b4,
+                 bound_by=b4by, library_ms=None),
+            dict(name="spfh", route="cuda",
+                 source="se3_equi_graph_registration_tpu_torch/csrc/spfh.cu",
+                 replaces="se3_equi_graph_registration_tpu/ops/pallas/spfh_kernel.py:62",
+                 launches=0, max_abs_err=serr, ms=ms5, plain_ms=plain5, bound_ms=b5,
+                 bound_by=b5by, library_ms=None)]
+
+
+def tf32_check(torch, xs, nbr):
+    """With TF32 enabled for matmuls, the normals' moments and the branch
+    verification equal their TF32-off values (they use no matmul); a
+    matmul-based verification, printed for contrast, does not."""
+    from se3_equi_graph_registration_tpu_torch.core.se3 import matrix_exp_so3
+    from se3_equi_graph_registration_tpu_torch.ops import fpfh
+    from se3_equi_graph_registration_tpu_torch.ops.knn import pairwise_sq_dists
+    from se3_equi_graph_registration_tpu_torch.registration import _branch_verify_ms
+
+    b = min(8, xs.shape[0])
+    x, nb = xs[:b], nbr[:b, :, :FPFH_KN].contiguous()
+    n_keep = int(0.35 * x.shape[1])
+    g = torch.Generator().manual_seed(3)
+    R = matrix_exp_so3((torch.randn(b, 4, 3, generator=g) * 1e-3).to(x.device))
+    t = (torch.randn(b, 4, 3, generator=g) * 1e-3).to(x.device)
+    tgt = (x + 1e-3 * torch.randn(x.shape, generator=g).to(x.device)).flip(-2).contiguous()
+
+    def matmul_verify():
+        posed = torch.einsum("bkij,bnj->bkni", R, x) + t[..., None, :]
+        d2 = pairwise_sq_dists(posed, tgt[:, None])
+        return torch.mean(torch.topk(d2.amin(-1), n_keep, dim=-1, largest=False).values, -1)
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            out[tf32] = (fpfh.estimate_normals_window(x, nb), _branch_verify_ms(R, t, x, tgt, n_keep),
+                         matmul_verify())
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    dn = float((out[True][0] - out[False][0]).abs().max())
+    dv = float(((out[True][1] - out[False][1]).abs() / out[False][1].abs()).max())
+    dm = float(((out[True][2] - out[False][2]).abs() / out[False][2].abs()).max())
+    check(dn <= 1e-6 and dv <= 1e-6, f"TF32 reached fp32-pinned work: normals {dn}, verify {dv}")
+    log(f"TF32 on: normals max|Δ| {dn:.3g}, branch verify rel {dv:.3g} (fp32-pinned); a "
+        f"matmul-based verify moves by rel {dm:.3g} (the hazard the pin removes)")
+
+
+def register_fpfh_phase(torch, dev, rows):
+    """The checkpoint-free path at full width (fused, chunked, W=768,
+    N=2048): register_fpfh on the card against the same call on the CPU, at
+    4 branches and 1, with the launch counters; pairs/s at b=1 and of
+    register_fpfh_batch at B=8 and 32; a profile of one b=1 call."""
+    from se3_equi_graph_registration_tpu_torch import registration
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl, knn, spfh
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+
+    kw = dict(knn_method="fused", knn_packed="chunked", window=FPFH_WINDOW)
+    (src, tgt, R, t), = surface_pairs(1, 6)
+    counters = dict(knn_window=knn.knn_window, egcl_layer=egcl.egcl_layer,
+                    egcl_backward=eb.egcl_backward, knn_chunked=knn.knn_chunked, spfh=spfh.spfh)
+    for fn in counters.values():
+        fn.launches = 0
+
+    rates = {}
+    t0 = time.perf_counter()
+    for br in (4, 1):
+        before = {k_: fn.launches for k_, fn in counters.items()}
+        Rc, tc, ic = registration.register_fpfh(src, tgt, ransac_branches=br, **kw)
+        torch.cuda.synchronize()
+        d = {k_: fn.launches - before[k_] for k_, fn in counters.items()}
+        check(d == dict(knn_window=0, egcl_layer=0, egcl_backward=0, knn_chunked=2, spfh=2),
+              f"register_fpfh launched {d} (want knn_chunked 2, spfh 2, nothing else)")
+        t1 = time.perf_counter()
+        Rp, tp, ip = registration.register_fpfh(src, tgt, ransac_branches=br, device="cpu", **kw)
+        cpu_s = time.perf_counter() - t1
+        dR = float(np.linalg.norm(Rc - Rp) / np.sqrt(2))
+        dt = float(np.abs(tc - tp).max())
+        (ec, etc), (ep, etp) = pose_err(Rc, tc, R, t), pose_err(Rp, tp, R, t)
+        check(all(np.isfinite(a).all() for a in (Rc, tc, ic["weights"], ic["pose_covariance"])),
+              f"register_fpfh branches={br}: non-finite output")
+        check(ec < 0.5 and etc < 5e-3 and ep < 0.5 and etp < 5e-3,
+              f"register_fpfh branches={br}: ground truth missed, card {ec} deg {etc} m, "
+              f"CPU {ep} deg {etp} m")
+        check(dR <= 2e-3 and dt <= 2e-3, f"register_fpfh branches={br}: card vs CPU dR {dR} dt {dt}")
+        log(f"register_fpfh branches={br} N={FPFH_N} fused/chunked W={FPFH_WINDOW}: launches {d}; "
+            f"ground truth card {ec:.4f} deg {etc * 1e3:.3f} mm, CPU {ep:.4f} deg "
+            f"{etp * 1e3:.3f} mm; card vs CPU ‖ΔR‖/√2 {dR:.3g}, |Δt| {dt:.3g} m "
+            f"(CPU run {cpu_s:.1f} s)")
+        reps = 10
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            registration.register_fpfh(src, tgt, ransac_branches=br, **kw)
+        rates[f"b=1, {br} branches"] = reps / (time.perf_counter() - t1)
+    for b in FPFH_BATCHES:
+        pairs = surface_pairs(b, 200 + b)
+        bs = np.stack([p[0] for p in pairs])
+        bt = np.stack([p[1] for p in pairs])
+        before = {k_: fn.launches for k_, fn in counters.items()}
+        Rb, tb, _ = registration.register_fpfh_batch(bs, bt, seed=1, **kw)
+        torch.cuda.synchronize()
+        d = {k_: fn.launches - before[k_] for k_, fn in counters.items()}
+        check(d["knn_chunked"] == 2 and d["spfh"] == 2 and d["knn_window"] == 0,
+              f"register_fpfh_batch B={b} launched {d}")
+        ok = sum(e[0] < 0.5 and e[1] < 5e-3
+                 for e in (pose_err(Rb[i], tb[i], *pairs[i][2:]) for i in range(b)))
+        check(np.isfinite(Rb).all() and ok >= b - 1,
+              f"register_fpfh_batch B={b}: {ok} of {b} pairs recovered")
+        torch.cuda.reset_peak_memory_stats()
+        reps = 3
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            registration.register_fpfh_batch(bs, bt, seed=1, **kw)
+        rates[f"batch B={b}"] = b * reps / (time.perf_counter() - t1)
+        log(f"register_fpfh_batch B={b}: {ok}/{b} pairs within 0.5 deg / 5 mm; launches {d}; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = {k_: fn.launches for k_, fn in counters.items()}
+    log(f"register_fpfh path: run {time.perf_counter() - t0:.1f} s, launches {launches}")
+    log("register_fpfh pairs/s (host clock incl. sampling, H2D, noise draw and result copy; "
+        "robust = 4 branches): " + ", ".join(f"{k_}: {r:.2f}" for k_, r in rates.items()))
+    for row in rows:
+        n_ = launches.get(row["name"], 0)
+        row.setdefault("launches_by_path", {})["register_fpfh"] = n_
+        if row["name"] in ("knn_chunked", "spfh"):
+            check(n_ > 0, f"{row['name']} never launched on the register_fpfh path")
+        row["launches"] = sum(row["launches_by_path"].values())
+    profile_call(torch, lambda: registration.register_fpfh(src, tgt, **kw), "register_fpfh b=1")
 
 
 def other_configs(torch, dev, cfg, sd, args, same):

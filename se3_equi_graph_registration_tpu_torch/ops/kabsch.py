@@ -1,5 +1,5 @@
-"""Weighted Kabsch pose solve and pose covariance, forward only
-(counterpart of `ops/kabsch.py`).
+"""Weighted Kabsch pose solve, its IRLS refinement and the pose covariance,
+forward only (counterpart of `ops/kabsch.py`).
 
 Validity is expressed as weights (masked softmax), not data-dependent
 slicing; the det(R) < 0 reflection fix is a sign multiply; all-zero weights
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from .numerics import median
 from .svd3 import svd3
 
 
@@ -89,6 +90,46 @@ def kabsch_weighted(src: torch.Tensor, tgt: torch.Tensor, weights: torch.Tensor,
     R = torch.where(empty[..., None], eye, R)
     t = torch.where(empty, torch.zeros_like(t), t)
     return R.to(in_dtype), t.to(in_dtype)
+
+
+_IRLS_KERNELS = {
+    # w(u) = ρ'(u)/u for the residual u = r/σ; shared by kabsch_irls and ICP
+    "huber": lambda u: torch.clamp(1.0 / torch.clamp(u, min=1e-12), max=1.0),
+    "cauchy": lambda u: 1.0 / (1.0 + u * u),
+    "geman": lambda u: 1.0 / (1.0 + u * u) ** 2,
+    "welsch": lambda u: torch.exp(-(u * u)),
+}
+
+
+def mad_scale(r: torch.Tensor, min_sigma: float) -> torch.Tensor:
+    """1.4826·median|r − median r| over the last axis (keepdims), floored:
+    the robust residual scale of kabsch_irls and ICP."""
+    med = median(r)
+    return torch.clamp(1.4826 * median(torch.abs(r - med)), min=min_sigma)
+
+
+def kabsch_irls(src: torch.Tensor, tgt: torch.Tensor, weights: torch.Tensor,
+                iters: int = 5, kernel: str = "geman", sigma: float | None = None,
+                min_sigma: float = 1e-3, solver: str = "svd", eps_reg: float = 1e-6
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Iteratively reweighted weighted Kabsch: the `weights` solve, then
+    `iters` times the prior weights times a robust kernel of the residuals
+    under the current pose. σ defaults to the MAD scale each iteration.
+    Returns (R, t, final weights)."""
+    if kernel not in _IRLS_KERNELS:
+        raise ValueError(f"unknown IRLS kernel {kernel!r}; "
+                         f"expected one of {sorted(_IRLS_KERNELS)}")
+    kfn = _IRLS_KERNELS[kernel]
+    w0, srcf, tgtf = weights.float(), src.float(), tgt.float()
+    R, t = kabsch_weighted(srcf, tgtf, w0, eps_reg=eps_reg, solver=solver)
+    w = w0
+    for _ in range(iters):
+        r = torch.linalg.vector_norm(
+            torch.einsum("...ij,...nj->...ni", R, srcf) + t[..., None, :] - tgtf, dim=-1)
+        s = mad_scale(r, min_sigma) if sigma is None else sigma
+        w = w0 * kfn(r / s)
+        R, t = kabsch_weighted(srcf, tgtf, w, eps_reg=eps_reg, solver=solver)
+    return R, t, w
 
 
 def pose_covariance(src: torch.Tensor, tgt: torch.Tensor, R: torch.Tensor,

@@ -39,6 +39,14 @@ def smallest_k(d2: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(d2, dim=-1, stable=True).indices[..., :k]
 
 
+def gather_rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """a [..., N, C], idx [..., *I] (indices into N) → [..., *I, C]."""
+    lead = idx.shape[:a.dim() - 2]
+    flat = idx.reshape(lead + (-1, 1)).to(torch.int64)
+    out = torch.gather(a, -2, flat.expand(lead + (flat.shape[-2], a.shape[-1])))
+    return out.reshape(idx.shape + (a.shape[-1],))
+
+
 def knn_graph(x: torch.Tensor, k: int, include_self: bool = True,
               method: str = "exact") -> torch.Tensor:
     """Dense exact k-NN: nbr_idx [..., N, K] int32.

@@ -30,3 +30,26 @@ def safe_normalize(x: torch.Tensor, dim: int = -1,
                    eps: float = 1e-8) -> torch.Tensor:
     """x / (‖x‖ + eps) with finite gradients everywhere."""
     return x / (safe_norm(x, dim=dim, keepdim=True) + eps)
+
+
+def quantile(x: torch.Tensor, q: float, method: str = "linear") -> torch.Tensor:
+    """`jnp.quantile` over the last axis, keepdims, with JAX's arithmetic:
+    position q·(n − 1) in fp32, then low·(1 − f) + high·f ('linear') or
+    (low + high)·0.5 ('midpoint', `jnp.median`'s method: the mean of the two
+    middle values at even n, where `torch.median` takes the lower one)."""
+    n = x.shape[-1]
+    s = torch.sort(x, dim=-1).values
+    pos = torch.tensor(q, dtype=torch.float32) * (n - 1)
+    lo, hi = torch.floor(pos), torch.ceil(pos)
+    low, high = s[..., int(lo):int(lo) + 1], s[..., int(hi):int(hi) + 1]
+    if method == "midpoint":
+        return (low + high) * 0.5
+    if method == "linear":
+        fw = pos - lo
+        return low * (1.0 - fw) + high * fw
+    raise ValueError(f"unknown quantile method {method!r}")
+
+
+def median(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.median` over the last axis, keepdims."""
+    return quantile(x, 0.5, "midpoint")

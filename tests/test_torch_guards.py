@@ -19,6 +19,10 @@ PORT_MODULES = [
     "se3_equi_graph_registration_tpu_torch.core.se3",
     "se3_equi_graph_registration_tpu_torch.data.synthetic",
     "se3_equi_graph_registration_tpu_torch.data.pipeline",
+    "se3_equi_graph_registration_tpu_torch.registration",
+    "se3_equi_graph_registration_tpu_torch.ops.kernels.spfh",
+    "se3_equi_graph_registration_tpu_torch.ops.fpfh",
+    "se3_equi_graph_registration_tpu_torch.ops.icp",
 ]
 
 
@@ -53,6 +57,19 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
         engine.init_state(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         engine.batch_to_device((None,) + (np.zeros((1, 4)),) * 6)
+    from se3_equi_graph_registration_tpu_torch import registration
+    from se3_equi_graph_registration_tpu_torch.ops import fpfh
+
+    pts = np.random.default_rng(0).uniform(-1, 1, (256, 3)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        registration.register_fpfh(pts, pts, n_points=256)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        registration.register_fpfh_batch(pts[None], pts[None])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fpfh.extract_fpfh_native(pts, voxel_size=0.1)
+    R, _, _ = registration.register_fpfh(pts, pts, n_points=256, window=256, device="cpu",
+                                         knn_method="fused", knn_packed="chunked")
+    assert np.all(np.isfinite(R)) and abs(np.linalg.det(R) - 1) < 1e-4
     reg = serving.Registrar(sd, cfg, device="cpu")
     rng = np.random.default_rng(0)
     R, t, info = reg.register(rng.uniform(-1, 1, (128, 3)), rng.standard_normal((128, 8)),
@@ -154,3 +171,57 @@ def test_train_step_goes_through_all_three_kernel_wrappers(monkeypatch, accurate
     assert calls == {"knn": 2, "egcl": 2 * cfg.n_layers, "egcl_backward": 2 * cfg.n_layers}
     assert np.isfinite(float(m["total"])) and state.step == 1
     assert all(not torch.equal(a, b) for a, b in zip(before, state.model.parameters()))
+
+
+@pytest.mark.parametrize("knobs,want", [
+    (dict(knn_method="fused", knn_packed="chunked"), dict(chunked=2, window=0, spfh=2)),
+    (dict(knn_method="fused", knn_packed=True), dict(chunked=0, window=2, spfh=2)),
+    (dict(knn_method="fused", knn_packed=False, coarse="spectral"),
+     dict(chunked=0, window=2, spfh=2)),
+    (dict(knn_method="window"), dict(chunked=0, window=2, spfh=0)),
+    (dict(knn_method="exact", coarse="fgr"), dict(chunked=0, window=2, spfh=0)),
+    (dict(knn_method="approx", icp_mode="gicp"), dict(chunked=0, window=2, spfh=0)),
+], ids=["fused-chunked", "fused-packed", "fused-exact", "window", "exact", "approx"])
+@pytest.mark.parametrize("batch", [None, 3], ids=["single", "batch3"])
+def test_register_fpfh_goes_through_the_kernel_wrappers(monkeypatch, knobs, want, batch):
+    """One call, single or batched, calls each k-NN wrapper once per cloud
+    side and (fused) the SPFH wrapper once per cloud side: fused/chunked
+    runs B4 and B5 twice each and B1 never, so on the card every mode
+    launches its kernels."""
+    from se3_equi_graph_registration_tpu_torch import registration
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn, spfh
+
+    calls = dict(chunked=0, window=0, spfh=0)
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(knn, "knn_chunked", spy("chunked", knn.knn_chunked))
+    monkeypatch.setattr(knn, "knn_window", spy("window", knn.knn_window))
+    monkeypatch.setattr(spfh, "spfh", spy("spfh", spfh.spfh))
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(-1, 1, (2, 256, 3)).astype(np.float32)
+    pts[..., 2] *= 0.2
+    kw = dict(window=256, device="cpu", top_m=128, hypotheses=64, **knobs)
+    if batch is None:
+        R, _, _ = registration.register_fpfh(pts[0], pts[1], n_points=256, **kw)
+    else:
+        R, _, _ = registration.register_fpfh_batch(np.repeat(pts[:1], batch, 0),
+                                                   np.repeat(pts[1:], batch, 0), **kw)
+    assert calls == want
+    assert np.all(np.isfinite(R))
+
+
+def test_register_fpfh_rejects_unported_options():
+    from se3_equi_graph_registration_tpu_torch import registration
+
+    pts = np.zeros((256, 3), np.float32)
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+        registration.register_fpfh(pts, pts, n_points=256, icp_voxels=(0.05, 0.0),
+                                   device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        registration.register_fpfh_batch(pts[None], pts[None], mesh=object(), device="cpu")
+    assert not hasattr(registration, "export_compiled")
