@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases egcl,serve,train,fpfh]
 
-Builds the five CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
+Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
-version on the card at the main paths' shapes. Then it drives the three
-main paths, each with the launch counters set to 0 just before it and read
-just after:
+version on the card at the main paths' shapes; the EGCL forward has two
+kernels (the bf16 tensor-core tile kernel for fast mode at C=32, the SIMT
+kernel for accurate mode and other widths) and both are held. Then it
+drives the three main paths, each with the launch counters set to 0 just
+before it and read just after (`--phases` runs a subset: `egcl` is the
+k-NN and EGCL forward kernel checks alone, for iterating on a kernel; with
+no argument everything runs):
 - serving at the full `fast_tpu_config` (N=2048, k=16, C=32, 3 layers, 4
   heads, top_k=128), seeded random weights: `Registrar.register` and
   `BatchingServer`, checked against the same Registrar on the CPU;
@@ -42,6 +46,12 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
 - register() card vs CPU: ‖ΔR‖_F/√2 ≤ 2e-3, |Δt| ≤ 2e-3 m, covariance and
   similarity mean within 2e-2 relative (fast mode on both sides).
 - egcl agg_m output: as h′ (1e-4 accurate, 2e-2 fast, of its scale).
+- egcl tile kernel: one bare mma tile against a matrix product of the same
+  bf16 values, 1e-5 of its scale (fp32 sums in another order); its per-edge
+  stages s1 and m against the plain version's as h′ (2e-2 of the scale);
+  the layer as egcl fast, in every case (K=12, 16, 20, head widths 8 and
+  32, repeated points, B=1, with and without agg_m); tile against SIMT (the
+  same function in two orders of summation) at twice the fast tolerances.
 - egcl_backward, dh, dx and each of the 11 parameter gradients, relative
   to the tensor's max-abs scale: accurate 1e-4 (fp32; the neighbor and
   parameter sums are atomic, so their order changes from run to run, and
@@ -192,8 +202,9 @@ def backward_errors(got, ref, accurate, what):
 
 
 def egcl_backward_phase(torch, p, h, xs, nbr, gen):
-    """B2 with agg_m, then B3 against their plain versions, both modes, at
-    the main path's shapes, on random cotangents and on the coordinate path
+    """B2 with agg_m (the tile kernel in fast mode, the SIMT kernel in
+    accurate), then B3 against their plain versions, both modes, at the main
+    path's shapes, on random cotangents and on the coordinate path
     alone; then C=33 with one head. Returns the kernel row."""
     from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
@@ -202,13 +213,13 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
     dev = h.device
     b, n, c = h.shape
     k = nbr.shape[-1]
-    packed = egcl.pack_params(p)
+    packed = egcl.pack_for_kernels(p)
     dagg_m = torch.randn(b, n, c, generator=gen).to(dev)
     dagg_x = torch.randn(b, n, 3, generator=gen).to(dev)
     # the coordinate path alone: every cotangent reaches the edge MLP through
     # dm = Wc0ᵀ·dcm_in, and drel's dax·scale term is at full weight
     pc = p._replace(wc1=torch.randn(1, c, generator=gen).to(dev) / c ** 0.5)
-    packed_c, zero_m = egcl.pack_params(pc), torch.zeros_like(dagg_m)
+    packed_c, zero_m = egcl.pack_for_kernels(pc), torch.zeros_like(dagg_m)
     stats = {}
     for accurate in (True, False):
         name = "accurate" if accurate else "fast"
@@ -247,7 +258,7 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
                 + 20 * c + 150)                                          # LN, SiLU, geometry
     center = 3 * 2 * c * c
     ops = b * n * (k * (fwd_edge + bwd_edge) + center)
-    nbytes = 4 * b * n * (2 * c + 6 + k) + 2 * 4 * b * n * (c + 3) + packed.numel() * 4
+    nbytes = 4 * b * n * (2 * c + 6 + k) + 2 * 4 * b * n * (c + 3) + packed.simt.numel() * 4
     ms, plain, err = stats["fast"]
     bb, bby = bound_ms(nbytes, ops, PEAK_BF16)
     log(f"egcl_backward bound: {ops / (b * n * k):.0f} FLOP/edge; fast vs bf16 peak "
@@ -294,7 +305,20 @@ def knn_compare(x, ref, got, rel=2.0 ** -12):
     return len(bad), float(np.abs(d_ref - d_got).max())
 
 
-def main() -> int:
+PHASES = ("egcl", "serve", "train", "fpfh")
+ROW_ORDER = ("knn_window", "egcl_layer", "egcl_backward", "knn_chunked", "spfh")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES) + " (default: all)")
+    phases = tuple(ap.parse_args(argv).phases.split(","))
+    if not phases or any(ph not in PHASES for ph in phases):
+        ap.error(f"--phases takes names from {PHASES}")
+
     import torch
 
     if not torch.cuda.is_available():
@@ -323,7 +347,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}] {line.strip()}")
 
-    rows = run(torch, dev, engine.fast_tpu_config(), bsz=64)
+    rows = run(torch, dev, engine.fast_tpu_config(), bsz=64, phases=phases)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -331,12 +355,23 @@ def main() -> int:
     return 0
 
 
-def run(torch, dev, cfg, bsz):
-    """Every phase at `cfg` with `bsz` pairs (clouds, for B4 and B5);
-    returns the kernel rows."""
-    from se3_equi_graph_registration_tpu_torch import serving
+def record_launches(rows, path, launches):
+    """Write one path's launch counts {kernel name: n} into the rows."""
+    for name, n in launches.items():
+        if name in rows:
+            rows[name].setdefault("launches_by_path", {})[path] = n
+            rows[name]["launches"] = sum(rows[name]["launches_by_path"].values())
+
+
+def reset_egcl_counters(egcl):
+    egcl.egcl_layer.launches = 0
+    egcl.egcl_layer.launches_by_variant = {"tile": 0, "simt": 0}
+
+
+def run(torch, dev, cfg, bsz, phases=PHASES):
+    """The chosen phases at `cfg` with `bsz` pairs (clouds, for B4 and B5);
+    returns the kernel rows of the phases that ran, in ROW_ORDER."""
     from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
-    from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
     from se3_equi_graph_registration_tpu_torch.ops import morton
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl, knn
     from se3_equi_graph_registration_tpu_torch.train import checkpoints, engine
@@ -347,9 +382,37 @@ def run(torch, dev, cfg, bsz):
     x = torch.from_numpy(pb.src_pts).to(dev)
     _, xs, _ = morton.sort_by_curve(torch.zeros(bsz, n, 1, device=dev), x)
     xs = xs.contiguous()
-    rows = []
+    gen = torch.Generator().manual_seed(0)
+    cpu_model = engine.build_model(cfg, "eval_fusion", device="cpu")
+    checkpoints.init_weights(cpu_model, gen)
+    sd = cpu_model.state_dict()
+    layer_model = engine.build_model(cfg, "eval_fusion", device=dev)
+    layer_model.load_state_dict(sd)
+    p = egcl.params_from_layer(layer_model.egnn.gcl_0)
+    h = torch.randn(bsz, n, c, generator=gen).to(dev)
+    nbr = knn.knn_window(xs, k, tile=tile, window=window, packed=True)
+    rows = {}
 
-    # --- phase 1: knn kernel vs plain, packed (served) then exact ---------
+    if "egcl" in phases:
+        rows["knn_window"] = knn_phase(torch, xs, k, tile, window)
+        rows["egcl_layer"] = egcl_phase(torch, p, h, xs, nbr, gen)
+    if "serve" in phases:
+        serve_phase(torch, dev, cfg, bsz, sd, rows)
+    if "train" in phases:
+        rows["egcl_backward"] = egcl_backward_phase(torch, p, h, xs, nbr, gen)
+        train_phase(torch, dev, cfg, bsz, rows)
+    if "fpfh" in phases:
+        for row in fpfh_kernel_phase(torch, dev, bsz):
+            rows[row["name"]] = row
+        register_fpfh_phase(torch, dev, rows)
+    return [rows[name] for name in ROW_ORDER if name in rows]
+
+
+def knn_phase(torch, xs, k, tile, window):
+    """B1 against its plain version, packed (served) then exact; its row."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn
+
+    bsz, n, _ = xs.shape
     knn_stats = {}
     for mode in ("packed", "exact"):
         kw = dict(tile=tile, window=window, packed=mode == "packed")
@@ -365,50 +428,119 @@ def run(torch, dev, cfg, bsz):
     nbytes = xs.numel() * 4 + bsz * n * k * 4
     kb, kby = bound_ms(nbytes, bsz * n * window * 8, PEAK_FP32)
     ms, plain, err = knn_stats["packed"]
-    rows.append(dict(name="knn_window", route="cuda",
-                     source="se3_equi_graph_registration_tpu_torch/csrc/knn.cu",
-                     replaces="se3_equi_graph_registration_tpu/ops/pallas/knn_kernel.py:26",
-                     launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
-                     bound_ms=kb, bound_by=kby, library_ms=None))
+    return dict(name="knn_window", route="cuda",
+                source="se3_equi_graph_registration_tpu_torch/csrc/knn.cu",
+                replaces="se3_equi_graph_registration_tpu/ops/pallas/knn_kernel.py:26",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=kb, bound_by=kby, library_ms=None)
 
-    # --- phase 2: egcl kernel vs plain, both modes; C=33 one head --------
-    gen = torch.Generator().manual_seed(0)
-    cpu_model = engine.build_model(cfg, "eval_fusion", device="cpu")
-    checkpoints.init_weights(cpu_model, gen)
-    sd = cpu_model.state_dict()
-    layer_model = engine.build_model(cfg, "eval_fusion", device=dev)
-    layer_model.load_state_dict(sd)
-    p = egcl.params_from_layer(layer_model.egnn.gcl_0)
-    packed = egcl.pack_params(p)
-    h = torch.randn(bsz, n, c, generator=gen).to(dev)
-    nbr = knn.knn_window(xs, k, tile=tile, window=window, packed=True)
-    egcl_stats = {}
-    for accurate in (True, False):
-        name = "accurate" if accurate else "fast"
-        gh, gx = egcl.egcl_layer(h, xs, nbr, p, accurate, packed)
+
+def egcl_tile_checks(torch, p, h, xs, nbr, gen):
+    """The tile kernel from the bottom up: one bare mma tile against a
+    matrix product, its per-edge stages (first layer, then the chain to the
+    LayerNorm) against the plain version's, then the layer in every case the
+    kernel has a path for."""
+    from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+
+    dev = h.device
+    a = torch.randn(16, 16, generator=gen).to(torch.bfloat16).to(dev)
+    w = torch.randn(32, 16, generator=gen).to(dev)
+    got = egcl.mma_tile_probe(a, w)
+    torch.cuda.synchronize()
+    ref = a.double() @ w[:8].to(torch.bfloat16).double().T
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    check(err <= 1e-5 * scale, f"mma tile: max|Δ| {err} against scale {scale}")
+    log(f"egcl tile: one mma.m16n8k16 tile vs matmul max|Δ| {err:.3g} (scale {scale:.3g})")
+
+    b8 = min(8, h.shape[0])
+    h8, x8, nbr8 = h[:b8].contiguous(), xs[:b8].contiguous(), nbr[:b8].contiguous()
+    s1, m = egcl.egcl_tile_stages(h8, x8, nbr8, p)
+    torch.cuda.synchronize()
+    _, rs1, rm, _ = egcl.edge_stages_plain(h8, x8, nbr8, p, accurate=False)
+    for name, g_, r_ in (("s1 (first layer)", s1, rs1), ("m (chain to LayerNorm)", m, rm)):
+        err, scale = (g_ - r_).abs().max().item(), r_.abs().max().item()
+        check(err <= 2e-2 * scale, f"egcl tile stage {name}: max|Δ| {err} against scale {scale}")
+        log(f"egcl tile stage {name} B={b8}: max|Δ| {err:.3g} (rel {err / scale:.3g})")
+
+    p1 = egcl.params_from_layer(EGNN(in_node_nf=32, hidden_nf=32, out_node_nf=32, n_layers=1,
+                                     num_heads=1).to(dev).gcl_0)
+    x_dup = x8.clone()
+    x_dup[:, 1::2] = x_dup[:, ::2]                 # every point twice: degenerate frames
+    k = nbr.shape[-1]
+    wide = torch.cat([nbr8, nbr8.flip(1)[..., :4]], dim=-1).contiguous()
+    cases = [(f"K={k}, head width {p.head_width}", h8, x8, nbr8, p),
+             ("K=12", h8, x8, nbr8[..., :12].contiguous(), p),
+             (f"K={k + 4} (two row tiles)", h8, x8, wide, p),
+             ("head width 32", h8, x8, nbr8, p1),
+             ("repeated points", h8, x_dup, nbr8, p),
+             ("B=1", h8[:1].contiguous(), x8[:1].contiguous(), nbr8[:1].contiguous(), p)]
+    for name, h_, x_, nbr_, p_ in cases:
+        check(egcl.egcl_variant(h_.shape[-1], nbr_.shape[-1], p_.head_width, False) == "tile",
+              f"egcl tile case {name} is not routed to the tile kernel")
+        gh, gx, gm = egcl.egcl_layer(h_, x_, nbr_, p_, False, return_aggm=True)
+        gh2, gx2 = egcl.egcl_layer(h_, x_, nbr_, p_, False)
         torch.cuda.synchronize()
+        check(torch.equal(gh, gh2) and torch.equal(gx, gx2),
+              f"egcl tile case {name}: asking for agg_m changed h′ or x′")
+        rh, rx, rm = egcl.egcl_layer_plain(h_, x_, nbr_, p_, False, return_aggm=True)
+        check(all(bool(torch.isfinite(t_).all()) for t_ in (gh, gx, gm)),
+              f"egcl tile case {name}: non-finite output")
+        eh, eu, sh, su = egcl_errors(torch, (gh, gx), (rh, rx), x_, accurate=False)
+        em, sm = (gm - rm).abs().max().item(), rm.abs().max().item()
+        check(em <= 2e-2 * sm, f"egcl tile case {name}: agg_m max|Δ| {em} against scale {sm}")
+        log(f"egcl tile case {name} B={h_.shape[0]}: rel h′ {eh / sh:.3g}, u {eu / su:.3g}, "
+            f"agg_m {em / sm:.3g}; same with and without agg_m")
+
+
+def egcl_phase(torch, p, h, xs, nbr, gen):
+    """B2 against its plain version: the tile kernel from the bottom up,
+    then both kernels at the main path's shape in fast mode and the SIMT
+    kernel in accurate mode, tile against SIMT, and C=33 with one head.
+    Returns the kernel row."""
+    from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+
+    dev = h.device
+    bsz, n, c = h.shape
+    k = nbr.shape[-1]
+    egcl_tile_checks(torch, p, h, xs, nbr, gen)
+    packed = egcl.pack_for_kernels(p)
+    stats, outs = {}, {}
+    for name, accurate, variant in (("accurate", True, "simt"), ("fast tile", False, "tile"),
+                                    ("fast simt", False, "simt")):
+        reset_egcl_counters(egcl)
+        gh, gx = egcl.egcl_layer(h, xs, nbr, p, accurate, packed, variant=variant)
+        torch.cuda.synchronize()
+        check(egcl.egcl_layer.launches_by_variant == {"tile": 0, "simt": 0, variant: 1},
+              f"egcl[{name}] launched {egcl.egcl_layer.launches_by_variant}")
         ref = egcl.egcl_layer_plain(h, xs, nbr, p, accurate)
         eh, eu, sh, su = egcl_errors(torch, (gh, gx), ref, xs, accurate)
-        ms = cuda_ms(torch, lambda: egcl.egcl_layer(h, xs, nbr, p, accurate, packed), 10)
+        ms = cuda_ms(torch, lambda: egcl.egcl_layer(h, xs, nbr, p, accurate, packed,
+                                                     variant=variant), 10)
         plain = cuda_ms(torch, lambda: egcl.egcl_layer_plain(h, xs, nbr, p, accurate), 3)
-        egcl_stats[name] = (ms, plain, max(eh, eu))
+        stats[name], outs[name] = (ms, plain, max(eh, eu)), (gh, gx)
         log(f"egcl[{name}] B={bsz} N={n} C={c} K={k}: max|Δh′| {eh:.3g} (rel {eh / sh:.3g}), "
             f"max|Δu| {eu:.3g} (rel {eu / su:.3g} of the update scale {su:.3g}), "
             f"kernel {ms:.3f} ms, plain {plain:.3f} ms")
+    # tile against SIMT: one function, two orders of summation
+    (th, tx), (sh_, sx) = outs["fast tile"], outs["fast simt"]
+    dh, hs = (th - sh_).abs().max().item(), sh_.abs().max().item()
+    du, us = ((tx - xs) - (sx - xs)).abs().max().item(), (sx - xs).abs().max().item()
+    ulp = torch.finfo(torch.float32).eps * xs.abs().max().item()
+    check(dh <= 2 * 2e-2 * hs and du <= 2 * 1e-2 * us + ulp,
+          f"egcl tile vs simt: max|Δh′| {dh} (scale {hs}), max|Δu| {du} (scale {us})")
+    log(f"egcl tile vs simt (fast): max|Δh′| {dh:.3g} (rel {dh / hs:.3g}), max|Δu| {du:.3g} "
+        f"(rel {du / us:.3g})")
     wh = p.head_width
     edge_ops = 2 * c * (c + 12) + 2 * c * wh + 2 * c * c + 2 * c + 12 * c
     center_ops = 2 * c * c + 2 * 2 * c * c + 2 * c * c
     ops = bsz * n * (k * edge_ops + center_ops)
-    nbytes = 4 * bsz * n * (2 * c + 6 + k) + packed.numel() * 4
-    ms, plain, err = egcl_stats["fast"]
+    nbytes = 4 * bsz * n * (2 * c + 6 + k) + packed.simt.numel() * 4
+    ms, plain, err = stats["fast tile"]
     eb, eby = bound_ms(nbytes, ops, PEAK_BF16)
     log(f"egcl bound: {ops / (bsz * n * k):.0f} FLOP/edge; fast vs bf16 peak {eb:.4f} ms, "
         f"accurate vs fp32 peak {bound_ms(nbytes, ops, PEAK_FP32)[0]:.4f} ms")
-    rows.append(dict(name="egcl_layer", route="cuda",
-                     source="se3_equi_graph_registration_tpu_torch/csrc/egcl.cu",
-                     replaces="se3_equi_graph_registration_tpu/ops/pallas/egcl_kernel.py:116",
-                     launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
-                     bound_ms=eb, bound_by=eby, library_ms=None))
 
     m33 = EGNN(in_node_nf=33, hidden_nf=33, out_node_nf=33, n_layers=1, num_heads=1)
     p33 = egcl.params_from_layer(m33.to(dev).gcl_0)
@@ -416,15 +548,32 @@ def run(torch, dev, cfg, bsz):
     h33 = torch.randn(b33, n, 33, generator=gen).to(dev)
     x33, nbr33 = xs[:b33].contiguous(), nbr[:b33].contiguous()
     for accurate in (True, False):
+        reset_egcl_counters(egcl)
         got = egcl.egcl_layer(h33, x33, nbr33, p33, accurate)
+        check(egcl.egcl_layer.launches_by_variant == {"tile": 0, "simt": 1},
+              f"egcl C=33 launched {egcl.egcl_layer.launches_by_variant}")
         ref = egcl.egcl_layer_plain(h33, x33, nbr33, p33, accurate)
         eh, eu, sh, su = egcl_errors(torch, got, ref, x33, accurate)
         log(f"egcl[C=33, 1 head, accurate={accurate}] B={b33}: max|Δh′| {eh:.3g} "
             f"(rel {eh / sh:.3g}), max|Δu| {eu:.3g} (rel {eu / su:.3g})")
+    return dict(name="egcl_layer", route="cuda",
+                source="se3_equi_graph_registration_tpu_torch/csrc/egcl_tile.cu",
+                replaces="se3_equi_graph_registration_tpu/ops/pallas/egcl_kernel.py:116",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=eb, bound_by=eby, library_ms=None, variant="tile",
+                simt_ms=stats["fast simt"][0], accurate_ms=stats["accurate"][0],
+                simt_source="se3_equi_graph_registration_tpu_torch/csrc/egcl.cu")
 
-    bwd_row = egcl_backward_phase(torch, p, h, xs, nbr, gen)
 
-    # --- phase 3: the served path ----------------------------------------
+def serve_phase(torch, dev, cfg, bsz, sd, rows):
+    """The served path: Registrar.register and BatchingServer at `cfg`
+    against the same Registrar on the CPU, with the launch counters; the
+    engine's other configurations; pairs/s and two profiles."""
+    from se3_equi_graph_registration_tpu_torch import serving
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl, knn
+
+    n = cfg.num_nodes
     reg = serving.Registrar(sd, cfg, device=dev)
     cpu_reg = serving.Registrar(sd, cfg, device="cpu")
     reqs = make_pair_batch(np.random.default_rng(1), batch=bsz, n=n, feat_dim=cfg.in_node_nf)
@@ -449,7 +598,7 @@ def run(torch, dev, cfg, bsz):
         return dR, dt
 
     knn.knn_window.launches = 0
-    egcl.egcl_layer.launches = 0
+    reset_egcl_counters(egcl)
     per_call = []
 
     def counted(fn):
@@ -480,13 +629,17 @@ def run(torch, dev, cfg, bsz):
             reg.register(*args(sl))
         rates[b] = b * reps / (time.perf_counter() - t1)
     launches = (knn.knn_window.launches, egcl.egcl_layer.launches)
+    by_variant = dict(egcl.egcl_layer.launches_by_variant)
     log(f"serve: main path run {time.perf_counter() - t_serve:.1f} s, launches knn "
-        f"{launches[0]} egcl {launches[1]}")
+        f"{launches[0]} egcl {launches[1]} ({by_variant})")
     for kd, ed in per_call:
         check(kd == 2 and ed == 2 * cfg.n_layers,
               f"register() launched knn {kd}, egcl {ed} (want 2, {2 * cfg.n_layers})")
     check(launches[0] > 0 and launches[1] > 0, "a kernel of the path never launched")
-    rows[0]["launches"], rows[1]["launches"] = launches
+    want = "simt" if cfg.egnn_accurate else "tile"
+    check(by_variant[want] == launches[1] and sum(by_variant.values()) == launches[1],
+          f"serve: EGCL launches by kernel {by_variant}, want all {launches[1]} {want}")
+    record_launches(rows, "serve", dict(knn_window=launches[0], egcl_layer=launches[1]))
 
     other_configs(torch, dev, cfg, sd, args, same)
 
@@ -502,13 +655,6 @@ def run(torch, dev, cfg, bsz):
         + ", ".join(f"B={b}: {r:.1f}" for b, r in rates.items()))
     profile_call(torch, lambda: reg.register(*args(0)), "register() B=1")
     profile_call(torch, lambda: reg.register(*args(slice(0, bsz))), f"register() B={bsz}")
-    for row, n in zip(rows, launches):
-        row["launches_by_path"] = {"serve": n}
-    rows.append(bwd_row)
-    train_phase(torch, dev, cfg, bsz, rows)
-    rows.extend(fpfh_kernel_phase(torch, dev, bsz))
-    register_fpfh_phase(torch, dev, rows)
-    return rows
 
 
 def grad_cosines(torch, a, b):
@@ -545,6 +691,7 @@ def train_phase(torch, dev, cfg, bsz, rows):
     counters = (knn.knn_window, egcl.egcl_layer, eb.egcl_backward)
     for fn in counters:
         fn.launches = 0
+    reset_egcl_counters(egcl)
     per_step, totals = [], []
     t0 = time.perf_counter()
     for i in range(5):
@@ -561,12 +708,15 @@ def train_phase(torch, dev, cfg, bsz, rows):
     for counts in per_step:
         check(counts == [2, 2 * L, 2 * L],
               f"train step launched knn/egcl/egcl_backward {counts} (want 2, {2 * L}, {2 * L})")
-    for row, n in zip(rows, launches):
-        row.setdefault("launches_by_path", {})["train"] = n
-        row["launches"] = sum(row["launches_by_path"].values())
+    by_variant = dict(egcl.egcl_layer.launches_by_variant)
+    want = "simt" if cfg.egnn_accurate else "tile"
+    check(by_variant[want] == launches[1] and sum(by_variant.values()) == launches[1],
+          f"train: EGCL launches by kernel {by_variant}, want all {launches[1]} {want}")
+    record_launches(rows, "train", dict(zip(("knn_window", "egcl_layer", "egcl_backward"),
+                                            launches)))
     log(f"train B={bsz}: 5 steps in {dt:.3f} s, {5 * bsz / dt:.1f} pairs/s (host clock, "
         f"synchronized at the end), losses {[round(float(v), 4) for v in losses]}; launches "
-        f"knn {launches[0]} egcl {launches[1]} egcl_backward {launches[2]}; peak memory of "
+        f"knn {launches[0]} egcl {launches[1]} ({by_variant}) egcl_backward {launches[2]}; peak memory of "
         f"the 6 steps {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # --- the accurate step on the card against the same step on the CPU ---
@@ -872,12 +1022,9 @@ def register_fpfh_phase(torch, dev, rows):
     log(f"register_fpfh path: run {time.perf_counter() - t0:.1f} s, launches {launches}")
     log("register_fpfh pairs/s (host clock incl. sampling, H2D, noise draw and result copy; "
         "robust = 4 branches): " + ", ".join(f"{k_}: {r:.2f}" for k_, r in rates.items()))
-    for row in rows:
-        n_ = launches.get(row["name"], 0)
-        row.setdefault("launches_by_path", {})["register_fpfh"] = n_
-        if row["name"] in ("knn_chunked", "spfh"):
-            check(n_ > 0, f"{row['name']} never launched on the register_fpfh path")
-        row["launches"] = sum(row["launches_by_path"].values())
+    for name in ("knn_chunked", "spfh"):
+        check(launches[name] > 0, f"{name} never launched on the register_fpfh path")
+    record_launches(rows, "register_fpfh", launches)
     profile_call(torch, lambda: registration.register_fpfh(src, tgt, **kw), "register_fpfh b=1")
 
 
@@ -903,14 +1050,18 @@ def other_configs(torch, dev, cfg, sd, args, same):
     for name, kw in variants.items():
         vcfg = engine.EngineConfig(**dict(base, **kw))
         reg = serving.Registrar(sd, vcfg, device=dev)
-        knn.knn_window.launches = egcl.egcl_layer.launches = 0
+        knn.knn_window.launches = 0
+        reset_egcl_counters(egcl)
         res = reg.register(*args(slice(0, 2)))
         kd, ed = knn.knn_window.launches, egcl.egcl_layer.launches
+        by_variant = dict(egcl.egcl_layer.launches_by_variant)
         check(kd == 2 and ed == 2 * vcfg.n_layers,
               f"config {name}: register() launched knn {kd}, egcl {ed}")
+        check(by_variant["simt" if vcfg.egnn_accurate else "tile"] == ed,
+              f"config {name}: EGCL launches by kernel {by_variant}")
         dR, dt = same(res, serving.Registrar(sd, vcfg, device="cpu").register(
             *args(slice(0, 2))), f"config {name}")
-        log(f"config {name}: launches knn {kd} egcl {ed}; card vs CPU "
+        log(f"config {name}: launches knn {kd} egcl {ed} ({by_variant}); card vs CPU "
             f"max‖ΔR‖/√2 {dR:.3g}, max|Δt| {dt:.3g} m")
 
 

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` compiles with `nvcc` for Hopper (`sm_90a`) into a
 shared library with a plain C interface, loaded with `ctypes` — no PyTorch
 headers, so a build takes seconds. Libraries go to `_build/` inside the
-package (ignored by git), named by a hash of the source and flags, so an
-edited source rebuilds and a stale library is never loaded.
+package (ignored by git), named by a hash of the source, every header
+`csrc/*.cuh` and the flags, so an edited source or header rebuilds and a
+stale library is never loaded.
 
 Nothing builds at import time: the first launch of a kernel builds it, or
 `build_all()` builds every source at once, one `nvcc` per source in
@@ -13,6 +14,7 @@ parallel.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -24,7 +26,7 @@ from typing import Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("knn", "knn_chunked", "egcl", "egcl_backward", "spfh")
+SOURCES = ("knn", "knn_chunked", "egcl", "egcl_tile", "egcl_backward", "spfh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,8 +45,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, f"{name}.cu"), *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -52,7 +56,7 @@ def _start(name: str) -> tuple[subprocess.Popen, str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, _lib_path(name)

@@ -1,8 +1,11 @@
-"""Fused EGCL layer: the CUDA kernel `csrc/egcl.cu` and its plain version
-(counterpart of `ops/pallas/egcl_kernel.py`), forward, 'center' direction,
-'frame' so3 mode, all-ones edge_attr, no edge mask. The backward is
-`egcl_backward.py`; `egnn_forward` routes each layer through its
-`EGCLFunction` whenever autograd needs a gradient.
+"""Fused EGCL layer: the CUDA kernels `csrc/egcl_tile.cu` (fast mode at
+C=32, on the tensor cores) and `csrc/egcl.cu` (accurate mode and every other
+width), and their plain version (counterpart of
+`ops/pallas/egcl_kernel.py`), forward, 'center' direction, 'frame' so3 mode,
+all-ones edge_attr, no edge mask. `egcl_variant` picks the kernel from the
+shape and the mode before the launch. The backward is `egcl_backward.py`;
+`egnn_forward` routes each layer through its `EGCLFunction` whenever
+autograd needs a gradient.
 
 Layout is the standard one, h [B, N, C] and x [B, N, 3] (the TPU kernel's
 transposed [B, C, N] layout served its lanes; a GPU warp wants channels
@@ -90,6 +93,69 @@ def pack_params(p: EGCLParams) -> torch.Tensor:
     return torch.cat([t.detach().reshape(-1) for t in parts]).to(torch.float32).contiguous()
 
 
+TILE_C = 32                    # the tile kernel's width (csrc/egcl_tile.cuh)
+# the B-fragment matrices, then the fp32 vectors [32], in the order of
+# `Layout` in csrc/egcl_tile.cuh
+TILE_MATRICES = ("w1", "w2", "wc0", "wn0", "wn1")
+TILE_VECTORS = ("b1", "b2", "ln_scale", "ln_bias", "bc0", "wc1", "bn0", "bn1")
+
+
+class Packed(NamedTuple):
+    """One layer's kernel buffers: `simt` for `csrc/egcl.cu` and
+    `csrc/egcl_backward.cu` (`pack_params`), `tile` for `csrc/egcl_tile.cu`
+    (`pack_params_tile`; None where the layer's shape has no tile kernel)."""
+    simt: torch.Tensor
+    tile: torch.Tensor | None
+
+
+def egcl_variant(c: int, k: int, head_width: int, accurate: bool) -> str:
+    """Which hand-written kernel runs a layer of width `c`, `k` neighbors and
+    heads of `head_width` channels: 'tile' (`csrc/egcl_tile.cu`, bf16
+    mma.sync) for fast mode at C=32 with a head width that divides 32,
+    'simt' (`csrc/egcl.cu`) for accurate mode and every other shape. A choice
+    by shape, made before the launch; a launch that fails raises."""
+    if not accurate and c == TILE_C and k >= 1 and head_width >= 1 and TILE_C % head_width == 0:
+        return "tile"
+    return "simt"
+
+
+def b_fragments(w: torch.Tensor) -> torch.Tensor:
+    """A weight [32, in] (in a multiple of 16) → the bf16 B fragments of
+    `mma.m16n8k16` for activations @ w.T, flat: block (k-step j, n-tile n),
+    then lane = 4g + t, then (b0.lo, b0.hi, b1.lo, b1.hi) = B[16j + 2t + {0,
+    1, 8, 9}][8n + g] with B = w.T."""
+    bm = w.detach().to(torch.float32).T.to(torch.bfloat16)          # [in, 32]
+    f = bm.reshape(bm.shape[0] // 16, 2, 4, 2, 4, 8)                # j, half, t, lo, n, g
+    return f.permute(0, 4, 5, 2, 1, 3).reshape(-1)                  # j, n, g, t, half, lo
+
+
+def pack_params_tile(p: EGCLParams) -> torch.Tensor:
+    """The buffer `csrc/egcl_tile.cu` reads (`Layout` in egcl_tile.cuh), as
+    float32 words: first the matrices as bf16 B fragments, two to a word —
+    w1 = [w1_hcol | w1_geo | 4 zero columns | w1_hrow] (80 inputs), the dense
+    block-diagonal w2, wc0, wn0, wn1 — then fp32 b1, b2, ln_scale, ln_bias,
+    bc0, wc1 (rounded to bf16: it is a product's operand), bn0, bn1."""
+    c = p.b1.shape[0]
+    if c != TILE_C or TILE_C % p.head_width:
+        raise ValueError(f"the tile kernel takes C={TILE_C} with whole heads, got C={c}, "
+                         f"head width {p.head_width}")
+    f32 = lambda t: t.detach().to(torch.float32)
+    w1 = torch.cat([f32(p.w1_hcol), f32(p.w1_geo), torch.zeros_like(f32(p.w1_geo[:, :4])),
+                    f32(p.w1_hrow)], dim=1)
+    mats = dict(w1=w1, w2=p.w2, wc0=p.wc0, wn0=p.wn0, wn1=p.wn1)
+    frags = torch.cat([b_fragments(mats[name]) for name in TILE_MATRICES])
+    vecs = dict(b1=p.b1, b2=p.b2, ln_scale=p.ln_scale, ln_bias=p.ln_bias, bc0=p.bc0,
+                wc1=_round(True)(f32(p.wc1)), bn0=p.bn0, bn1=p.bn1)
+    return torch.cat([frags.contiguous().view(torch.float32),
+                      *(f32(vecs[name]).reshape(-1) for name in TILE_VECTORS)]).contiguous()
+
+
+def pack_for_kernels(p: EGCLParams) -> Packed:
+    """Both kernel buffers of a layer, on the parameters' device."""
+    has_tile = egcl_variant(p.b1.shape[0], 1, p.head_width, accurate=False) == "tile"
+    return Packed(pack_params(p), pack_params_tile(p) if has_tile else None)
+
+
 def _round(fast: bool):
     return (lambda t: t.to(torch.bfloat16).to(torch.float32)) if fast else (lambda t: t)
 
@@ -117,12 +183,12 @@ def edge_features(x_row: torch.Tensor, x_col: torch.Tensor
     return rel, torch.cat([radial, dist, dotf, so3], dim=-1)
 
 
-def edge_aggregates_plain(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
-                          p: EGCLParams, accurate: bool = True
-                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The edge program summed onto centers: (agg_m [B,N,C], the message
-    sum before the node MLP; agg_x [B,N,3] = Σ_k rel·s, the coordinate
-    update)."""
+def edge_stages_plain(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
+                      p: EGCLParams, accurate: bool = True
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The edge program per edge: (rel [B,N,K,3]; s1 [B,N,K,C], the first
+    edge layer after its SiLU; m [B,N,K,C], the message after LayerNorm;
+    s [B,N,K,1], the coordinate scalar)."""
     r = _round(not accurate)
     mm = lambda a, w: torch.matmul(r(a), r(w).T)
     b, n, k = nbr.shape
@@ -131,12 +197,22 @@ def edge_aggregates_plain(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
     h_col = torch.take_along_dim(h, flat, dim=1).reshape(b, n, k, -1)
     rel, geo = edge_features(x[:, :, None, :], x_col)
     m = (mm(h, p.w1_hrow)[:, :, None, :] + mm(h_col, p.w1_hcol)) + mm(geo, p.w1_geo)
-    m = F.silu(m + p.b1)
-    m = mm(m, p.w2) + p.b2
+    s1 = F.silu(m + p.b1)
+    m = mm(s1, p.w2) + p.b2
     mu = torch.mean(m, dim=-1, keepdim=True)
     var = torch.mean((m - mu) ** 2, dim=-1, keepdim=True)
     m = (m - mu) * torch.rsqrt(var + 1e-5) * p.ln_scale + p.ln_bias
-    s = mm(F.silu(mm(m, p.wc0) + p.bc0), p.wc1)              # [B, N, K, 1]
+    s = mm(F.silu(mm(m, p.wc0) + p.bc0), p.wc1)
+    return rel, s1, m, s
+
+
+def edge_aggregates_plain(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
+                          p: EGCLParams, accurate: bool = True
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The edge program summed onto centers: (agg_m [B,N,C], the message
+    sum before the node MLP; agg_x [B,N,3] = Σ_k rel·s, the coordinate
+    update)."""
+    rel, _, m, s = edge_stages_plain(h, x, nbr, p, accurate)
     return torch.sum(m, dim=2), torch.sum(rel * s, dim=2)
 
 
@@ -177,47 +253,117 @@ def check_inputs(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
         raise ValueError(f"the kernel takes 1 <= C <= 64 with whole heads, got C={c}")
 
 
-def egcl_layer(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
-               p: EGCLParams, accurate: bool = True,
-               packed: torch.Tensor | None = None, return_aggm: bool = False
-               ) -> tuple[torch.Tensor, ...]:
-    """One fused EGCL layer → (h', x'), and agg_m [B,N,C] (the message sum
-    before the node MLP, which the backward needs) when asked. A CPU tensor
-    takes the plain version; a CUDA tensor launches `csrc/egcl.cu`. `packed`
-    is `pack_params(p)` when the caller already has it on the device. Every
-    nbr index must lie in [0, N)."""
-    if h.device.type == "cpu":
-        return egcl_layer_plain(h, x, nbr, p, accurate, return_aggm)
-    if h.device.type != "cuda":
-        raise ValueError(f"unsupported device {h.device}")
-    check_inputs(h, x, nbr, p.head_width)
-    b, n, c = h.shape
-    if packed is None:
-        packed = pack_params(p).to(h.device)
+def _launch_tile(h, x, nbr, p, tile, agg_m, dbg):
+    """Launch `csrc/egcl_tile.cu` → (h', x'); fills agg_m and dbg if given."""
+    b, n, _ = h.shape
     h_out, x_out = torch.empty_like(h), torch.empty_like(x)
-    agg_m = torch.empty_like(h) if return_aggm else None
+    fn = build.load("egcl_tile").egcl_tile_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), tile.data_ptr(),
+                 h_out.data_ptr(), x_out.data_ptr(), ptr(agg_m), ptr(dbg), b, n,
+                 nbr.shape[-1], p.head_width, stream)
+    build.check(err, "egcl_tile_launch")
+    return h_out, x_out
+
+
+def _launch_simt(h, x, nbr, p, simt, agg_m, accurate):
+    """Launch `csrc/egcl.cu` → (h', x'); fills agg_m if given."""
+    b, n, c = h.shape
+    h_out, x_out = torch.empty_like(h), torch.empty_like(x)
     fn = build.load("egcl").egcl_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), packed.data_ptr(),
+        err = fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), simt.data_ptr(),
                  h_out.data_ptr(), x_out.data_ptr(),
-                 agg_m.data_ptr() if return_aggm else None, b, n, nbr.shape[-1], c,
+                 None if agg_m is None else agg_m.data_ptr(), b, n, nbr.shape[-1], c,
                  p.head_width, int(not accurate), stream)
     build.check(err, "egcl_launch")
+    return h_out, x_out
+
+
+def egcl_layer(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
+               p: EGCLParams, accurate: bool = True,
+               packed: Packed | None = None, return_aggm: bool = False,
+               variant: str | None = None) -> tuple[torch.Tensor, ...]:
+    """One fused EGCL layer → (h', x'), and agg_m [B,N,C] (the message sum
+    before the node MLP, which the backward needs) when asked. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel that
+    `egcl_variant` names for its shape and mode. `packed` is
+    `pack_for_kernels(p)` when the caller already has it on the device.
+    `variant='simt'` asks for `csrc/egcl.cu` where the tile kernel would run
+    (to compare the two); 'tile' where the shape has no tile kernel raises.
+    Every nbr index must lie in [0, N)."""
+    if h.device.type == "cpu":
+        return egcl_layer_plain(h, x, nbr, p, accurate, return_aggm)
+    if h.device.type != "cuda":
+        raise ValueError(f"unsupported device {h.device}")
+    check_inputs(h, x, nbr, p.head_width)
+    by_shape = egcl_variant(h.shape[-1], nbr.shape[-1], p.head_width, accurate)
+    variant = by_shape if variant is None else variant
+    if variant not in ("tile", "simt") or (variant == "tile" and by_shape != "tile"):
+        raise ValueError(f"no {variant!r} EGCL kernel for C={h.shape[-1]}, "
+                         f"head width {p.head_width}, accurate={accurate}")
+    agg_m = torch.empty_like(h) if return_aggm else None
+    if variant == "tile":
+        tile = pack_params_tile(p).to(h.device) if packed is None else packed.tile
+        h_out, x_out = _launch_tile(h, x, nbr, p, tile, agg_m, None)
+    else:
+        simt = pack_params(p).to(h.device) if packed is None else packed.simt
+        h_out, x_out = _launch_simt(h, x, nbr, p, simt, agg_m, accurate)
     egcl_layer.launches += 1
+    egcl_layer.launches_by_variant[variant] += 1
     return (h_out, x_out, agg_m) if return_aggm else (h_out, x_out)
 
 
 egcl_layer.launches = 0
+egcl_layer.launches_by_variant = {"tile": 0, "simt": 0}
+
+
+def egcl_tile_stages(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
+                     p: EGCLParams) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tile kernel's per-edge stages on the card, (s1, m) as
+    `edge_stages_plain` names them, each [B,N,K,32]: a check of the fragment
+    layouts stage by stage. Not a path of the layer and not counted."""
+    check_inputs(h, x, nbr, p.head_width)
+    if h.device.type != "cuda" or egcl_variant(h.shape[-1], nbr.shape[-1], p.head_width,
+                                               False) != "tile":
+        raise ValueError("the tile kernel takes CUDA tensors at C=32 with whole heads")
+    dbg = torch.zeros(*nbr.shape, 2 * TILE_C, dtype=torch.float32, device=h.device)
+    _launch_tile(h, x, nbr, p, pack_params_tile(p).to(h.device), None, dbg)
+    return dbg[..., :TILE_C], dbg[..., TILE_C:]
+
+
+def mma_tile_probe(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One bare `mma.m16n8k16` tile on the card: a [16,16] bf16 times the
+    first 8 output channels of w [32,16] through `b_fragments` → a @ w[:8].T
+    [16,8] f32. Holds the fragment layouts and the host's packing against a
+    matrix product."""
+    if a.device.type != "cuda" or a.dtype != torch.bfloat16 or tuple(a.shape) != (16, 16):
+        raise ValueError("a must be a CUDA bf16 [16,16] tensor")
+    a = a.contiguous()
+    block = b_fragments(w)[:128].contiguous().view(torch.float32).to(a.device)
+    d = torch.empty(16, 8, dtype=torch.float32, device=a.device)
+    fn = build.load("egcl_tile").egcl_tile_mma_probe
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), block.data_ptr(), d.data_ptr(),
+                 torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(err, "egcl_tile_mma_probe")
+    return d
 
 
 class KernelEGNN(NamedTuple):
     """An EGNN's weights arranged for `egnn_forward`."""
     egnn: EGNN
     layers: list          # [EGCLParams]
-    packed: list          # [flat buffer on the module's device]
+    packed: list          # [Packed, on the module's device]
 
 
 def kernel_params(egnn: EGNN) -> KernelEGNN:
@@ -225,7 +371,7 @@ def kernel_params(egnn: EGNN) -> KernelEGNN:
     Serving builds it once under `torch.no_grad()`; training builds it on
     every step with autograd on, so gradients flow back through the folds."""
     layers = [live_params(layer) for layer in egnn.layers()]
-    return KernelEGNN(egnn, layers, [pack_params(p) for p in layers])
+    return KernelEGNN(egnn, layers, [pack_for_kernels(p) for p in layers])
 
 
 def egnn_forward(kp: KernelEGNN, h: torch.Tensor, x: torch.Tensor,

@@ -146,7 +146,7 @@ def _unpack_grads(flat: torch.Tensor, c: int) -> dict:
 
 def egcl_backward(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
                   p: EGCLParams, dagg_m: torch.Tensor, dagg_x: torch.Tensor,
-                  accurate: bool = True, packed: torch.Tensor | None = None) -> tuple:
+                  accurate: bool = True, packed: egcl.Packed | None = None) -> tuple:
     """Backward of the edge program → (dh_edge [B,N,C], dx_edge [B,N,3],
     {name: gradient} for EDGE_PARAMS). A CPU tensor takes the plain version;
     a CUDA tensor launches `csrc/egcl_backward.cu`, whose neighbor and
@@ -162,8 +162,7 @@ def egcl_backward(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous float32 {shape} on {h.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if packed is None:
-        packed = egcl.pack_params(p).to(h.device)
+    simt = egcl.pack_params(p).to(h.device) if packed is None else packed.simt
     dh, dx = torch.empty_like(h), torch.empty_like(x)
     dh_nbr, dx_nbr = torch.zeros_like(h), torch.zeros_like(x)
     grads = torch.zeros(5 * c * c + 18 * c, dtype=torch.float32, device=h.device)
@@ -172,7 +171,7 @@ def egcl_backward(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
     fn.restype = ctypes.c_int
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), packed.data_ptr(),
+        err = fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), simt.data_ptr(),
                  dagg_m.data_ptr(), dagg_x.data_ptr(), dh.data_ptr(), dx.data_ptr(),
                  dh_nbr.data_ptr(), dx_nbr.data_ptr(), grads.data_ptr(),
                  b, n, nbr.shape[-1], c, p.head_width, int(not accurate), stream)
@@ -194,7 +193,7 @@ class EGCLFunction(torch.autograd.Function):
 
     `p` is an EGCLParams whose tensors may require grad
     (`egcl.live_params(layer)`), passed as positional
-    tensors so autograd sees them; `packed` is `pack_params(p)` or None.
+    tensors so autograd sees them; `packed` is `pack_for_kernels(p)` or None.
     """
 
     @staticmethod

@@ -152,7 +152,7 @@ class BatchingServer:
                     fut.set_result((R[j], t[j], {
                         "similarity_mean": info["similarity_mean"],
                         "pose_covariance": info["pose_covariance"][j]}))
-            except Exception as e:  # the server thread must keep serving
+            except BaseException as e:  # incl. SystemExit: keep serving, tell the callers
                 for fut in futs:
                     if not fut.done():
                         fut.set_exception(e)

@@ -121,3 +121,32 @@ def test_batching_server_answers_concurrent_submits(accurate_pair):
         np.testing.assert_allclose(R, Rs, atol=1e-5)
         np.testing.assert_allclose(t, ts, atol=1e-5)
         assert info["pose_covariance"].shape == (6, 6)
+
+
+def test_batching_server_survives_a_base_exception_in_register():
+    """A register() that raises SystemExit (not an Exception) resolves the
+    batch's futures with it, and the server thread goes on serving."""
+    class Stub:
+        calls = 0
+
+        def register(self, src_pts, src_feat, tgt_pts, tgt_feat):
+            Stub.calls += 1
+            if Stub.calls == 1:
+                raise SystemExit(3)
+            b = len(src_pts)
+            return (np.tile(np.eye(3), (b, 1, 1)), np.zeros((b, 3)),
+                    {"similarity_mean": 1.0, "pose_covariance": np.zeros((b, 6, 6))})
+
+    server = tserving.BatchingServer(Stub(), max_batch=1, max_wait_ms=1)
+    try:
+        pts, feat = np.zeros((4, 3), np.float32), np.zeros((4, 2), np.float32)
+        first = server.submit(pts, feat, pts, feat)
+        with pytest.raises(SystemExit):
+            first.result(timeout=30)
+        assert server._thread.is_alive()
+        R, t, info = server.submit(pts, feat, pts, feat).result(timeout=30)
+        np.testing.assert_array_equal(R, np.eye(3))
+        assert info["pose_covariance"].shape == (6, 6)
+    finally:
+        server.close()
+    assert not server._thread.is_alive()
