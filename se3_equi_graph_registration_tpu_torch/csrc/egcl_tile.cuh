@@ -1,7 +1,9 @@
 // Tensor-core building blocks of the EGCL edge program at C = 32, fast mode
 // (bf16 operands, fp32 accumulation), for Hopper (sm_90a). Shared by the
-// forward kernel (egcl_tile.cu); written so that a backward kernel can
-// include the same staging, geometry, fragment helpers and s1 -> m chain.
+// forward kernel (egcl_tile.cu) and the backward kernel (egcl_backward_tile.cu):
+// staging, geometry, fragment helpers and the s1 -> m -> coord chain, split
+// where the backward keeps a pre-activation (first_layer_pre, normalize,
+// coord_pre).
 //
 // One warp owns one center. A row tile is 16 of its edges: the 16 rows of a
 // bf16 mma.sync.m16n8k16 product whose 32 output channels are 4 n-tiles of 8.
@@ -90,9 +92,16 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint2
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
-// This lane's (b0, b1) of block (j, n) of the matrix at word offset `off`.
+// This lane's (b0, b1) of block (j, n) of a matrix at word offset `off` whose
+// k-steps hold NT n-tiles each.
+template <int NT>
+__device__ __forceinline__ uint2 b_frag_nt(const uint32_t* w, int off, int j, int n, int lane) {
+  return reinterpret_cast<const uint2*>(w + off + (j * NT + n) * Layout::kBlock)[lane];
+}
+
+// The same for the 32-channel matrices of `Layout` (4 n-tiles a k-step).
 __device__ __forceinline__ uint2 b_frag(const uint32_t* w, int off, int j, int n, int lane) {
-  return reinterpret_cast<const uint2*>(w + off + (j * kNT + n) * Layout::kBlock)[lane];
+  return b_frag_nt<kNT>(w, off, j, n, lane);
 }
 
 // acc[n] += A[j] * W[j][n] over KS k-steps and the 4 n-tiles.
@@ -245,18 +254,25 @@ __device__ __forceinline__ void hrow_block(const uint32_t (&ahi)[2][4], const ui
   for (int n = 0; n < kNT; ++n) hr[n] = make_float2(acc[n][0], acc[n][1]);
 }
 
-// First edge layer on a staged tile: s1 = silu(hr + [h_col | geo] W1), fp32.
-__device__ __forceinline__ void first_layer(const __nv_bfloat16* tile, const float2 (&hr)[kNT],
-                                            const uint32_t* w, int lane,
-                                            float (&s1)[kNT][4]) {
+// First edge layer on a staged tile before its SiLU: u = hr + [h_col | geo] W1.
+__device__ __forceinline__ void first_layer_pre(const __nv_bfloat16* tile,
+                                                const float2 (&hr)[kNT], const uint32_t* w,
+                                                int lane, float (&u)[kNT][4]) {
   uint32_t a[3][4];
   staged_a(tile, lane, a);
 #pragma unroll
   for (int n = 0; n < kNT; ++n) {
-    s1[n][0] = s1[n][2] = hr[n].x;
-    s1[n][1] = s1[n][3] = hr[n].y;
+    u[n][0] = u[n][2] = hr[n].x;
+    u[n][1] = u[n][3] = hr[n].y;
   }
-  product<3>(s1, a, w, Layout::w1, lane);
+  product<3>(u, a, w, Layout::w1, lane);
+}
+
+// First edge layer on a staged tile: s1 = silu(hr + [h_col | geo] W1), fp32.
+__device__ __forceinline__ void first_layer(const __nv_bfloat16* tile, const float2 (&hr)[kNT],
+                                            const uint32_t* w, int lane,
+                                            float (&s1)[kNT][4]) {
+  first_layer_pre(tile, hr, w, lane, s1);
 #pragma unroll
   for (int n = 0; n < kNT; ++n)
 #pragma unroll
@@ -286,10 +302,10 @@ __device__ __forceinline__ void head_layer(const float (&s1)[kNT][4], const uint
   }
 }
 
-// LayerNorm over the 32 channels of rows g and g + 8, in place (biased
-// variance, eps 1e-5).
-__device__ __forceinline__ void layer_norm(float (&m)[kNT][4], const uint32_t* w, int lane) {
-  const int t = lane & 3;
+// LayerNorm's normalisation over the 32 channels of rows g and g + 8, in
+// place: m becomes vhat = (m - mean) * r with r = rsqrt(var + 1e-5) (biased
+// variance), and r_lo, r_hi are the rows' r.
+__device__ __forceinline__ void normalize(float (&m)[kNT][4], float& r_lo, float& r_hi) {
   float s_lo = 0.f, s_hi = 0.f;
 #pragma unroll
   for (int n = 0; n < kNT; ++n) {
@@ -305,28 +321,44 @@ __device__ __forceinline__ void layer_norm(float (&m)[kNT][4], const uint32_t* w
     v_lo += m[n][0] * m[n][0] + m[n][1] * m[n][1];
     v_hi += m[n][2] * m[n][2] + m[n][3] * m[n][3];
   }
-  const float r_lo = rsqrtf(quad_sum(v_lo) * (1.0f / kC) + 1e-5f);
-  const float r_hi = rsqrtf(quad_sum(v_hi) * (1.0f / kC) + 1e-5f);
+  r_lo = rsqrtf(quad_sum(v_lo) * (1.0f / kC) + 1e-5f);
+  r_hi = rsqrtf(quad_sum(v_hi) * (1.0f / kC) + 1e-5f);
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    m[n][0] *= r_lo; m[n][1] *= r_lo;
+    m[n][2] *= r_hi; m[n][3] *= r_hi;
+  }
+}
+
+// LayerNorm's affine part: m = vhat * ln_scale + ln_bias.
+__device__ __forceinline__ void ln_affine(const float (&vhat)[kNT][4], const uint32_t* w,
+                                          int lane, float (&m)[kNT][4]) {
+  const int t = lane & 3;
 #pragma unroll
   for (int n = 0; n < kNT; ++n) {
     const float2 sc = vec2(w, Layout::lns, n, t);
     const float2 bi = vec2(w, Layout::lnb, n, t);
-    m[n][0] = m[n][0] * r_lo * sc.x + bi.x;
-    m[n][1] = m[n][1] * r_lo * sc.y + bi.y;
-    m[n][2] = m[n][2] * r_hi * sc.x + bi.x;
-    m[n][3] = m[n][3] * r_hi * sc.y + bi.y;
+    m[n][0] = vhat[n][0] * sc.x + bi.x;
+    m[n][1] = vhat[n][1] * sc.y + bi.y;
+    m[n][2] = vhat[n][2] * sc.x + bi.x;
+    m[n][3] = vhat[n][3] * sc.y + bi.y;
   }
 }
 
-// Coordinate scalar of rows g and g + 8: s = wc1 . bf16(silu(bc0 + m Wc0)),
-// the same value in the 4 lanes of the quad.
-__device__ __forceinline__ void coord_scalar(const float (&m)[kNT][4], const uint32_t* w,
-                                             int lane, float& s_lo,
-                                             float& s_hi) {
+// LayerNorm over the 32 channels of rows g and g + 8, in place (biased
+// variance, eps 1e-5).
+__device__ __forceinline__ void layer_norm(float (&m)[kNT][4], const uint32_t* w, int lane) {
+  float r_lo, r_hi;
+  normalize(m, r_lo, r_hi);
+  ln_affine(m, w, lane, m);
+}
+
+// The coordinate MLP's hidden layer before its SiLU: cm = bc0 + m Wc0.
+__device__ __forceinline__ void coord_pre(const float (&m)[kNT][4], const uint32_t* w, int lane,
+                                          float (&cm)[kNT][4]) {
   const int t = lane & 3;
   uint32_t a[2][4];
   to_a(m, a);
-  float cm[kNT][4];
 #pragma unroll
   for (int n = 0; n < kNT; ++n) {
     const float2 b = vec2(w, Layout::bc0, n, t);
@@ -334,6 +366,13 @@ __device__ __forceinline__ void coord_scalar(const float (&m)[kNT][4], const uin
     cm[n][1] = cm[n][3] = b.y;
   }
   product<2>(cm, a, w, Layout::wc0, lane);
+}
+
+// s = wc1 . bf16(silu(cm)) of rows g and g + 8, the same value in the 4
+// lanes of the quad.
+__device__ __forceinline__ void coord_sum(const float (&cm)[kNT][4], const uint32_t* w,
+                                          int lane, float& s_lo, float& s_hi) {
+  const int t = lane & 3;
   s_lo = 0.f; s_hi = 0.f;
 #pragma unroll
   for (int n = 0; n < kNT; ++n) {
@@ -345,6 +384,15 @@ __device__ __forceinline__ void coord_scalar(const float (&m)[kNT][4], const uin
   }
   s_lo = quad_sum(s_lo);
   s_hi = quad_sum(s_hi);
+}
+
+// Coordinate scalar of rows g and g + 8: s = wc1 . bf16(silu(bc0 + m Wc0)),
+// the same value in the 4 lanes of the quad.
+__device__ __forceinline__ void coord_scalar(const float (&m)[kNT][4], const uint32_t* w,
+                                             int lane, float& s_lo, float& s_hi) {
+  float cm[kNT][4];
+  coord_pre(m, w, lane, cm);
+  coord_sum(cm, w, lane, s_lo, s_hi);
 }
 
 // The value of row (lane % 16), given rows g (lo) and g + 8 (hi) per quad.
