@@ -102,10 +102,13 @@ TILE_VECTORS = ("b1", "b2", "ln_scale", "ln_bias", "bc0", "wc1", "bn0", "bn1")
 
 class Packed(NamedTuple):
     """One layer's kernel buffers: `simt` for `csrc/egcl.cu` and
-    `csrc/egcl_backward.cu` (`pack_params`), `tile` for `csrc/egcl_tile.cu`
-    (`pack_params_tile`; None where the layer's shape has no tile kernel)."""
+    `csrc/egcl_backward.cu` (`pack_params`); `tile` for `csrc/egcl_tile.cu`
+    (`pack_params_tile`) and, with `tile_bwd` (`pack_params_tile_bwd`), for
+    `csrc/egcl_backward_tile.cu`; both None where the layer's shape has no
+    tile kernel."""
     simt: torch.Tensor
     tile: torch.Tensor | None
+    tile_bwd: torch.Tensor | None = None
 
 
 def egcl_variant(c: int, k: int, head_width: int, accurate: bool) -> str:
@@ -120,12 +123,12 @@ def egcl_variant(c: int, k: int, head_width: int, accurate: bool) -> str:
 
 
 def b_fragments(w: torch.Tensor) -> torch.Tensor:
-    """A weight [32, in] (in a multiple of 16) → the bf16 B fragments of
-    `mma.m16n8k16` for activations @ w.T, flat: block (k-step j, n-tile n),
-    then lane = 4g + t, then (b0.lo, b0.hi, b1.lo, b1.hi) = B[16j + 2t + {0,
-    1, 8, 9}][8n + g] with B = w.T."""
-    bm = w.detach().to(torch.float32).T.to(torch.bfloat16)          # [in, 32]
-    f = bm.reshape(bm.shape[0] // 16, 2, 4, 2, 4, 8)                # j, half, t, lo, n, g
+    """A weight [out, in] (out a multiple of 8, in of 16) → the bf16 B
+    fragments of `mma.m16n8k16` for activations @ w.T, flat: block (k-step j,
+    n-tile n), then lane = 4g + t, then (b0.lo, b0.hi, b1.lo, b1.hi) =
+    B[16j + 2t + {0, 1, 8, 9}][8n + g] with B = w.T."""
+    bm = w.detach().to(torch.float32).T.to(torch.bfloat16)          # [in, out]
+    f = bm.reshape(bm.shape[0] // 16, 2, 4, 2, bm.shape[1] // 8, 8)  # j, half, t, lo, n, g
     return f.permute(0, 4, 5, 2, 1, 3).reshape(-1)                  # j, n, g, t, half, lo
 
 
@@ -150,10 +153,38 @@ def pack_params_tile(p: EGCLParams) -> torch.Tensor:
                       *(f32(vecs[name]).reshape(-1) for name in TILE_VECTORS)]).contiguous()
 
 
+# the backward's B-fragment matrices, in the order of `BwdLayout` in
+# csrc/egcl_backward_tile.cu, with their n-tiles: each is the weight a
+# cotangent is multiplied by on its way back, B = the weight itself
+TILE_BWD_MATRICES = (("wc0", 4), ("w2", 4), ("w1_h", 8), ("w1_geo", 2))
+
+
+def pack_params_tile_bwd(p: EGCLParams) -> torch.Tensor:
+    """The backward's own buffer for `csrc/egcl_backward_tile.cu`, carried in
+    `Packed.tile_bwd` beside `pack_params_tile` (which the backward kernel
+    reads too, for the recomputed forward): the transposed products
+    cotangent @ W as bf16 B fragments, `b_fragments(W.T)`, two to a word —
+    Wc0 (dm from dcm_in), the dense block-diagonal w2 (ds1 from dv),
+    [W1hc | W1hr] (dh_col and dh_row from du, 8 n-tiles) and W1g (dgeo
+    from du) padded from 12 to 16 outputs with zero rows (2 n-tiles)."""
+    c = p.b1.shape[0]
+    if c != TILE_C or TILE_C % p.head_width:
+        raise ValueError(f"the tile kernel takes C={TILE_C} with whole heads, got C={c}, "
+                         f"head width {p.head_width}")
+    f32 = lambda t: t.detach().to(torch.float32)
+    geo_t = f32(p.w1_geo).T                                                # [12, 32]
+    mats = dict(wc0=f32(p.wc0).T, w2=f32(p.w2).T,
+                w1_h=torch.cat([f32(p.w1_hcol).T, f32(p.w1_hrow).T]),
+                w1_geo=torch.cat([geo_t, torch.zeros_like(geo_t[:4])]))
+    frags = torch.cat([b_fragments(mats[name]) for name, _ in TILE_BWD_MATRICES])
+    return frags.contiguous().view(torch.float32)
+
+
 def pack_for_kernels(p: EGCLParams) -> Packed:
-    """Both kernel buffers of a layer, on the parameters' device."""
-    has_tile = egcl_variant(p.b1.shape[0], 1, p.head_width, accurate=False) == "tile"
-    return Packed(pack_params(p), pack_params_tile(p) if has_tile else None)
+    """Every kernel buffer of a layer, on the parameters' device."""
+    if egcl_variant(p.b1.shape[0], 1, p.head_width, accurate=False) != "tile":
+        return Packed(pack_params(p), None, None)
+    return Packed(pack_params(p), pack_params_tile(p), pack_params_tile_bwd(p))
 
 
 def _round(fast: bool):

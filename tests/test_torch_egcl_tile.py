@@ -125,6 +125,36 @@ def test_tile_buffer_zeros_and_values(head_width):
         assert torch.equal(w[name], ref), name               # fp32, not rounded
 
 
+def read_tile_bwd_buffer(buf: torch.Tensor) -> dict:
+    """The backward buffer's layout alone: per matrix 2 k-steps of 16 (the
+    32 channels a cotangent has) and its n-tiles, B fragments in the order
+    of `read_tile_buffer`. Returns B [32, 8 · n-tiles] per matrix."""
+    out, o = {}, 0
+    for name, nt in (("wc0", 4), ("w2", 4), ("w1_h", 8), ("w1_geo", 2)):
+        words = 2 * nt * 64
+        f = buf[o:o + words].view(torch.bfloat16).reshape(2, nt, 8, 4, 2, 2)  # j n g t half lo
+        out[name] = f.permute(0, 4, 3, 5, 1, 2).reshape(32, 8 * nt).to(torch.float32)
+        o += words
+    assert o == buf.numel() == 2304
+    return out
+
+
+@pytest.mark.parametrize("head_width", [1, 8, 32])
+def test_tile_bwd_buffer_holds_the_weights_a_cotangent_goes_back_through(head_width):
+    p = _layer(head_width, seed=4)
+    w = read_tile_bwd_buffer(tk.pack_params_tile_bwd(p))
+    bf = lambda t: t.to(torch.bfloat16).to(torch.float32)
+    assert torch.equal(w["wc0"], bf(p.wc0))                  # dm = dcm_in · Wc0
+    assert torch.equal(w["w2"], bf(p.w2))                    # ds1 = dv · W2, dense
+    assert torch.equal(w["w1_h"][:, :32], bf(p.w1_hcol))     # dh_col = du · W1hc
+    assert torch.equal(w["w1_h"][:, 32:], bf(p.w1_hrow))     # dh_row = du · W1hr
+    assert torch.equal(w["w1_geo"][:, :12], bf(p.w1_geo))    # dgeo = du · W1g
+    assert torch.count_nonzero(w["w1_geo"][:, 12:]) == 0     # the 4 padded outputs
+    heads = torch.arange(C) // head_width
+    assert torch.count_nonzero(w["w2"][heads[:, None] != heads[None, :]]) == 0
+    assert tk.pack_for_kernels(p).tile_bwd.numel() == 2304
+
+
 def test_b_fragments_follow_the_mma_layout():
     rng = np.random.default_rng(5)
     w = torch.from_numpy(rng.standard_normal((32, 48)).astype(np.float32))
@@ -144,7 +174,9 @@ def test_pack_params_tile_rejects_other_widths():
     p33 = tk.params_from_layer(egnn.gcl_0)
     with pytest.raises(ValueError, match="C=32"):
         tk.pack_params_tile(p33)
-    assert tk.pack_for_kernels(p33).tile is None
+    assert tk.pack_for_kernels(p33).tile is None and tk.pack_for_kernels(p33).tile_bwd is None
+    with pytest.raises(ValueError, match="C=32"):
+        tk.pack_params_tile_bwd(p33)
     assert tk.pack_for_kernels(_layer(8, 0)).tile.numel() == 4096
 
 
