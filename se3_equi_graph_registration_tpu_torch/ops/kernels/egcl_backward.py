@@ -17,6 +17,7 @@ feeds.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 from torch.nn import functional as F
@@ -45,18 +46,12 @@ def head_block_mask(c: int, head_width: int, device=None) -> torch.Tensor:
     return heads[:, None] == heads[None, :]
 
 
-def egcl_backward_plain(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
-                        p: EGCLParams, dagg_m: torch.Tensor, dagg_x: torch.Tensor,
-                        accurate: bool = True) -> tuple:
-    """Plain PyTorch version of the kernel, the chain rule written out on
-    [B,N,K,·] edge tensors (no autograd): the layer inputs h [B,N,C],
-    x [B,N,3], nbr [B,N,K] and the cotangents dagg_m [B,N,C], dagg_x [B,N,3]
-    → (dh, dx, {name: gradient} for EDGE_PARAMS)."""
+def _edge_chain(h, x, nbr, p, dagg_m, dagg_x, accurate):
+    """The forward recompute and the backward down to du, per edge, on
+    [B,N,K,·] tensors: a namespace of every intermediate."""
     r = egcl._round(not accurate)
     mm = lambda a, w: torch.matmul(r(a), r(w).T)      # a · wᵀ, w [out, in]
     mmT = lambda a, w: torch.matmul(r(a), r(w))       # a · w: back through w
-    outer = lambda a, v: torch.einsum("...o,...i->oi", r(a), r(v))
-    total = lambda t: t.reshape(-1, t.shape[-1]).sum(0)
     b, n, k = nbr.shape
     c = h.shape[-1]
     flat = nbr.reshape(b, n * k).long()[..., None]
@@ -103,23 +98,49 @@ def egcl_backward_plain(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
     dv = sig * (g - torch.mean(g, -1, keepdim=True)
                 - vhat * torch.mean(g * vhat, -1, keepdim=True))
     du = _dsilu(u) * mmT(dv, p.w2)
+    return SimpleNamespace(**locals())
+
+
+def backward_stages_plain(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
+                          p: EGCLParams, dagg_m: torch.Tensor, dagg_x: torch.Tensor,
+                          accurate: bool = True) -> tuple:
+    """The backward's cotangents per edge, as `egcl_backward_plain` computes
+    them: (dcm_in, the coord layer's pre-activation; dv, the head layer's
+    output; du, the first layer's pre-activation), each [B,N,K,C]."""
+    e = _edge_chain(h, x, nbr, p, dagg_m, dagg_x, accurate)
+    return e.dcm_in, e.dv, e.du
+
+
+def egcl_backward_plain(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
+                        p: EGCLParams, dagg_m: torch.Tensor, dagg_x: torch.Tensor,
+                        accurate: bool = True) -> tuple:
+    """Plain PyTorch version of the kernels, the chain rule written out on
+    [B,N,K,·] edge tensors (no autograd): the layer inputs h [B,N,C],
+    x [B,N,3], nbr [B,N,K] and the cotangents dagg_m [B,N,C], dagg_x [B,N,3]
+    → (dh, dx, {name: gradient} for EDGE_PARAMS)."""
+    e = _edge_chain(h, x, nbr, p, dagg_m, dagg_x, accurate)
+    r, mmT, du = e.r, e.mmT, e.du
+    outer = lambda a, v: torch.einsum("...o,...i->oi", r(a), r(v))
+    total = lambda t: t.reshape(-1, t.shape[-1]).sum(0)
+    b, n, c = e.b, e.n, e.c
     grads = dict(
         w1_hrow=torch.einsum("bnko,bni->oi", r(du), r(h)),
-        w1_hcol=outer(du, h_col), w1_geo=outer(du, geo), b1=total(du),
-        w2=outer(dv, s1) * head_block_mask(c, p.head_width, h.device), b2=total(dv),
-        ln_scale=total(dm * vhat), ln_bias=total(dm),
-        wc0=outer(dcm_in, m), bc0=total(dcm_in), wc1=outer(dscale, cm))
+        w1_hcol=outer(du, e.h_col), w1_geo=outer(du, e.geo), b1=total(du),
+        w2=outer(e.dv, e.s1) * head_block_mask(c, p.head_width, h.device), b2=total(e.dv),
+        ln_scale=total(e.dm * e.vhat), ln_bias=total(e.dm),
+        wc0=outer(e.dcm_in, e.m), bc0=total(e.dcm_in), wc1=outer(e.dscale, e.cm))
 
     # --- geometry ---
     dgeo = mmT(du, p.w1_geo)                                # [B, N, K, 12]
-    dso3 = dgeo[..., 3:] * (~degen).to(dgeo.dtype)          # degenerate → constant
-    da = dso3[..., 0::3] + torch.linalg.cross(bv, dso3[..., 2::3], dim=-1)
-    db = dso3[..., 1::3] + torch.linalg.cross(dso3[..., 2::3], a, dim=-1)
-    dcr = _normalize_bwd(cr, n_cr, inv_cr, db)
-    drel = (dax * scale + _normalize_bwd(rel, n_rel, inv_rel, da)
-            + 2.0 * rel * dgeo[..., 0:1] + (rel / dist) * dgeo[..., 1:2])
-    dx_row = drel + x_col * dgeo[..., 2:3] + torch.linalg.cross(x_col, dcr, dim=-1)
-    dx_col = -drel + x_row * dgeo[..., 2:3] + torch.linalg.cross(dcr, x_row, dim=-1)
+    dso3 = dgeo[..., 3:] * (~e.degen).to(dgeo.dtype)        # degenerate → constant
+    da = dso3[..., 0::3] + torch.linalg.cross(e.bv, dso3[..., 2::3], dim=-1)
+    db = dso3[..., 1::3] + torch.linalg.cross(dso3[..., 2::3], e.a, dim=-1)
+    dcr = _normalize_bwd(e.cr, e.n_cr, e.inv_cr, db)
+    rel = e.rel
+    drel = (e.dax * e.scale + _normalize_bwd(rel, e.n_rel, e.inv_rel, da)
+            + 2.0 * rel * dgeo[..., 0:1] + (rel / e.dist) * dgeo[..., 1:2])
+    dx_row = drel + e.x_col * dgeo[..., 2:3] + torch.linalg.cross(e.x_col, dcr, dim=-1)
+    dx_col = -drel + e.x_row * dgeo[..., 2:3] + torch.linalg.cross(dcr, e.x_row, dim=-1)
 
     # --- onto centers (sum over K) and onto neighbors (scatter) ---
     rows = (nbr.long() + n * torch.arange(b, device=nbr.device)[:, None, None]).reshape(-1)

@@ -14,6 +14,7 @@
 #include <barrier>
 #include <functional>
 #include <memory>
+#include <atomic>
 #define __device__
 #define __global__
 #define __forceinline__ inline
@@ -27,7 +28,9 @@ inline float2 make_float2(float a, float b) { return {a, b}; }
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
 typedef int cudaError_t; typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaDevAttrMultiProcessorCount = 16 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaDevAttrMultiProcessorCount = 16,
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
 inline int cudaGetLastError() { return 0; }
@@ -45,6 +48,10 @@ template <class T> inline T __shfl_xor_sync(unsigned m, T v, int x) { return __s
 inline float __fdividef(float a, float b) { return a / b; }
 inline float __expf(float a) { return std::exp(a); }
 inline float rsqrtf(float a) { return 1.0f / std::sqrt(a); }
+// atomicAdd on float, global or shared memory alike
+inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
+// the block's dynamic shared memory (`extern __shared__`), set by emulated_launch
+inline thread_local void* emulated_dynamic_shared = nullptr;
 inline float bf2f(uint16_t b) { uint32_t u = (uint32_t)b << 16; float f; std::memcpy(&f, &u, 4); return f; }
 inline void emulated_mma(float (&d)[4], const uint32_t (&a)[4], uint2 b) {
   int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -67,14 +74,19 @@ inline void emulated_mma(float (&d)[4], const uint32_t (&a)[4], uint2 b) {
   d[0] += dot(g, 2*t); d[1] += dot(g, 2*t+1); d[2] += dot(g+8, 2*t); d[3] += dot(g+8, 2*t+1);
   warp_ctx->bar.arrive_and_wait();
 }
-template <class F> void emulated_launch(int grid, int block, F body) {
+template <class F> void emulated_launch(int grid, int block, int shared_bytes, F body) {
   for (int b = 0; b < grid; ++b) {
     std::barrier<> bb(block); int nw = (block + 31) / 32;
     std::vector<std::unique_ptr<WarpCtx>> ws; for (int i = 0; i < nw; ++i) ws.emplace_back(new WarpCtx);
+    std::vector<uint32_t> dyn((shared_bytes + 3) / 4 + 4, 0xffffffffu);  // garbage, as on the card
     std::vector<std::thread> th;
     for (int i = 0; i < block; ++i) th.emplace_back([&, i] {
       threadIdx.x = i; blockIdx.x = b; blockDim.x = block; gridDim.x = grid;
-      warp_ctx = ws[i / 32].get(); block_bar = &bb; body(); });
+      warp_ctx = ws[i / 32].get(); block_bar = &bb;
+      emulated_dynamic_shared = reinterpret_cast<void*>(
+          (reinterpret_cast<uintptr_t>(dyn.data()) + 15) & ~uintptr_t(15));
+      body(); });
     for (auto& t : th) t.join();
   }
 }
+template <class F> void emulated_launch(int grid, int block, F body) { emulated_launch(grid, block, 0, body); }
