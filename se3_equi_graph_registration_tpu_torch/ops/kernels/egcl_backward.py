@@ -1,5 +1,7 @@
-"""Backward of the fused EGCL layer: the CUDA kernel `csrc/egcl_backward.cu`,
-its plain version, and `EGCLFunction`, the layer as a differentiable
+"""Backward of the fused EGCL layer: the CUDA kernels
+`csrc/egcl_backward_tile.cu` (fast mode at C=32, on the tensor cores) and
+`csrc/egcl_backward.cu` (accurate mode and every other width), their plain
+version, and `EGCLFunction`, the layer as a differentiable
 function (counterpart of `ops/pallas/egcl_backward.py`: `egcl_backward_pallas`
 and the custom VJP `egcl_fused_diff`).
 
@@ -165,43 +167,117 @@ def _unpack_grads(flat: torch.Tensor, c: int) -> dict:
     return out
 
 
-def egcl_backward(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
-                  p: EGCLParams, dagg_m: torch.Tensor, dagg_x: torch.Tensor,
-                  accurate: bool = True, packed: egcl.Packed | None = None) -> tuple:
-    """Backward of the edge program → (dh_edge [B,N,C], dx_edge [B,N,3],
-    {name: gradient} for EDGE_PARAMS). A CPU tensor takes the plain version;
-    a CUDA tensor launches `csrc/egcl_backward.cu`, whose neighbor and
-    parameter sums are atomic (their order changes from run to run)."""
-    if h.device.type == "cpu":
-        return egcl_backward_plain(h, x, nbr, p, dagg_m, dagg_x, accurate)
-    if h.device.type != "cuda":
-        raise ValueError(f"unsupported device {h.device}")
-    egcl.check_inputs(h, x, nbr, p.head_width)
+def _check_cotangents(h, dagg_m, dagg_x):
     b, n, c = h.shape
     for name, t, shape in (("dagg_m", dagg_m, (b, n, c)), ("dagg_x", dagg_x, (b, n, 3))):
         if (t.device != h.device or t.dtype != torch.float32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous float32 {shape} on {h.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    simt = egcl.pack_params(p).to(h.device) if packed is None else packed.simt
+
+
+def _launch(h, x, nbr, p, packed, dagg_m, dagg_x, variant, accurate, dbg=None):
+    """Launch `csrc/egcl_backward_tile.cu` ('tile'; fills dbg if given) or
+    `csrc/egcl_backward.cu` ('simt') → (dh_edge, dx_edge, packed grads)."""
+    b, n, c = h.shape
     dh, dx = torch.empty_like(h), torch.empty_like(x)
     dh_nbr, dx_nbr = torch.zeros_like(h), torch.zeros_like(x)
     grads = torch.zeros(5 * c * c + 18 * c, dtype=torch.float32, device=h.device)
-    fn = build.load("egcl_backward").egcl_backward_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    outs = [dh, dx, dh_nbr, dx_nbr, grads]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    if variant == "tile":
+        tile = egcl.pack_params_tile(p).to(h.device) if packed is None else packed.tile
+        tile_bwd = (egcl.pack_params_tile_bwd(p).to(h.device) if packed is None
+                    else packed.tile_bwd)
+        name = "egcl_backward_tile_launch"
+        ptrs = [h, x, nbr, tile, tile_bwd, dagg_m, dagg_x, *outs, dbg]
+        ints = [b, n, nbr.shape[-1], p.head_width]
+        fn = build.load("egcl_backward_tile").egcl_backward_tile_launch
+    else:
+        simt = egcl.pack_params(p).to(h.device) if packed is None else packed.simt
+        name = "egcl_backward_launch"
+        ptrs = [h, x, nbr, simt, dagg_m, dagg_x, *outs]
+        ints = [b, n, nbr.shape[-1], c, p.head_width, int(not accurate)]
+        fn = build.load("egcl_backward").egcl_backward_launch
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), simt.data_ptr(),
-                 dagg_m.data_ptr(), dagg_x.data_ptr(), dh.data_ptr(), dx.data_ptr(),
-                 dh_nbr.data_ptr(), dx_nbr.data_ptr(), grads.data_ptr(),
-                 b, n, nbr.shape[-1], c, p.head_width, int(not accurate), stream)
-    build.check(err, "egcl_backward_launch")
+        err = fn(*(ptr(t) for t in ptrs), *ints, stream)
+    build.check(err, name)
+    return dh.add_(dh_nbr), dx.add_(dx_nbr), grads
+
+
+def egcl_backward(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
+                  p: EGCLParams, dagg_m: torch.Tensor, dagg_x: torch.Tensor,
+                  accurate: bool = True, packed: egcl.Packed | None = None,
+                  variant: str | None = None) -> tuple:
+    """Backward of the edge program → (dh_edge [B,N,C], dx_edge [B,N,3],
+    {name: gradient} for EDGE_PARAMS). A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel that `egcl.egcl_variant` names for
+    its shape and mode, as the forward does: `csrc/egcl_backward_tile.cu`
+    ('tile', bf16 mma.sync, fast mode at C=32 with whole heads) or
+    `csrc/egcl_backward.cu` ('simt', accurate mode and every other width).
+    `variant='simt'` asks for the SIMT kernel where the tile kernel would
+    run (to compare the two); 'tile' where the shape has no tile kernel
+    raises. Both kernels' neighbor and parameter sums are atomic (their
+    order changes from run to run)."""
+    if h.device.type == "cpu":
+        return egcl_backward_plain(h, x, nbr, p, dagg_m, dagg_x, accurate)
+    if h.device.type != "cuda":
+        raise ValueError(f"unsupported device {h.device}")
+    egcl.check_inputs(h, x, nbr, p.head_width)
+    _check_cotangents(h, dagg_m, dagg_x)
+    by_shape = egcl.egcl_variant(h.shape[-1], nbr.shape[-1], p.head_width, accurate)
+    variant = by_shape if variant is None else variant
+    if variant not in ("tile", "simt") or (variant == "tile" and by_shape != "tile"):
+        raise ValueError(f"no {variant!r} EGCL backward kernel for C={h.shape[-1]}, "
+                         f"head width {p.head_width}, accurate={accurate}")
+    dh, dx, grads = _launch(h, x, nbr, p, packed, dagg_m, dagg_x, variant, accurate)
     egcl_backward.launches += 1
-    return dh.add_(dh_nbr), dx.add_(dx_nbr), _unpack_grads(grads, c)
+    egcl_backward.launches_by_variant[variant] += 1
+    return dh, dx, _unpack_grads(grads, h.shape[-1])
 
 
 egcl_backward.launches = 0
+egcl_backward.launches_by_variant = {"tile": 0, "simt": 0}
+
+
+def egcl_backward_tile_stages(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
+                              p: EGCLParams, dagg_m: torch.Tensor, dagg_x: torch.Tensor
+                              ) -> tuple:
+    """The tile kernel's per-edge cotangents on the card, (dcm_in, dv, du) as
+    `backward_stages_plain` names them, each [B,N,K,32]: a check of the
+    backward's fragment plumbing stage by stage. Not a path of the layer
+    and not counted."""
+    egcl.check_inputs(h, x, nbr, p.head_width)
+    _check_cotangents(h, dagg_m, dagg_x)
+    if h.device.type != "cuda" or egcl.egcl_variant(h.shape[-1], nbr.shape[-1], p.head_width,
+                                                    False) != "tile":
+        raise ValueError("the tile kernel takes CUDA tensors at C=32 with whole heads")
+    dbg = torch.zeros(*nbr.shape, 3 * egcl.TILE_C, dtype=torch.float32, device=h.device)
+    _launch(h, x, nbr, p, None, dagg_m, dagg_x, "tile", False, dbg)
+    c = egcl.TILE_C
+    return dbg[..., :c], dbg[..., c:2 * c], dbg[..., 2 * c:]
+
+
+def bwd_tile_probe(d: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """One transposed-operand product on the card as the tile kernel's
+    parameter gradients run it: d, a [16, 32] bf16 ([edge][channel]) →
+    d.T @ a [32, 32] f32."""
+    for t in (d, a):
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16 or tuple(t.shape) != (16, 32):
+            raise ValueError("d and a must be CUDA bf16 [16,32] tensors")
+    d, a = d.contiguous(), a.contiguous()
+    out = torch.empty(32, 32, dtype=torch.float32, device=d.device)
+    fn = build.load("egcl_backward_tile").egcl_backward_tile_probe
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(d.device):
+        err = fn(d.data_ptr(), a.data_ptr(), out.data_ptr(),
+                 torch.cuda.current_stream(d.device).cuda_stream)
+    build.check(err, "egcl_backward_tile_probe")
+    return out
 
 
 class EGCLFunction(torch.autograd.Function):

@@ -20,6 +20,7 @@ from torch.nn import functional as F
 from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
 from se3_equi_graph_registration_tpu_torch.ops.kernels import build
 from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl as tk
+from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
 from se3_equi_graph_registration_tpu_torch.ops.knn import knn_graph
 from se3_equi_graph_registration_tpu_torch.train import engine
 
@@ -196,6 +197,36 @@ def test_egcl_variant_routes_by_shape_and_mode():
     assert tk.egcl_variant(32, 16, 12, False) == "simt"      # heads must tile 32
 
 
+@pytest.mark.parametrize("k", [1, 3, 12, 16, 20])
+@pytest.mark.parametrize("head_width", [1, 8, 32])
+def test_the_backward_routes_fast_c32_to_the_tile_kernel(k, head_width):
+    """`egcl_backward` picks its kernel with the forward's `egcl_variant`:
+    fast mode at C=32 with whole heads is 'tile' at any K, the rest 'simt'."""
+    assert tk.egcl_variant(32, k, head_width, False) == "tile"
+    assert tk.egcl_variant(32, k, head_width, True) == "simt"
+    assert tk.egcl_variant(33, k, 33 if head_width == 32 else 1, False) == "simt"
+    assert tk.egcl_variant(64, k, head_width, False) == "simt"
+
+
+def test_backward_stages_plain_are_the_cotangents_of_the_plain_backward():
+    p = _layer(8, seed=6)
+    h, x, nbr = _inputs(16, seed=6)
+    rng = np.random.default_rng(6)
+    dagg_m = torch.from_numpy(rng.standard_normal((B, N, C)).astype(np.float32))
+    dagg_x = torch.from_numpy(rng.standard_normal((B, N, 3)).astype(np.float32))
+    dcm, dv, du = eb.backward_stages_plain(h, x, nbr, p, dagg_m, dagg_x, accurate=False)
+    _, _, grads = eb.egcl_backward_plain(h, x, nbr, p, dagg_m, dagg_x, accurate=False)
+    total = lambda t: t.reshape(-1, C).sum(0)
+    assert torch.equal(grads["bc0"], total(dcm))
+    assert torch.equal(grads["b2"], total(dv))
+    assert torch.equal(grads["b1"], total(du))
+    bf = lambda t: t.to(torch.bfloat16).to(torch.float32)
+    h_col = torch.take_along_dim(h, nbr.reshape(B, -1).long()[..., None], 1).reshape(B, N, 16, C)
+    ref = torch.einsum("bnko,bnki->oi", bf(du), bf(h_col))
+    assert torch.allclose(grads["w1_hcol"], ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    assert all(t.shape == (B, N, 16, C) for t in (dcm, dv, du))
+
+
 def test_kernel_params_keeps_both_buffers_and_counters_start_at_zero():
     egnn = EGNN(in_node_nf=C, hidden_nf=C, out_node_nf=C, n_layers=2, num_heads=4)
     kp = tk.kernel_params(egnn)
@@ -203,12 +234,18 @@ def test_kernel_params_keeps_both_buffers_and_counters_start_at_zero():
     for packed, p in zip(kp.packed, kp.layers):
         assert torch.equal(packed.simt, tk.pack_params(p))
         assert torch.equal(packed.tile, tk.pack_params_tile(p))
+        assert torch.equal(packed.tile_bwd, tk.pack_params_tile_bwd(p))
     h, x, nbr = _inputs(16, seed=1)
     before = dict(tk.egcl_layer.launches_by_variant)
+    before_bwd = dict(eb.egcl_backward.launches_by_variant)
     with torch.no_grad():
         tk.egnn_forward(kp, h, x, nbr, accurate=False)      # CPU: the plain version
     assert tk.egcl_layer.launches_by_variant == before       # counts launches only
     assert set(before) == {"tile", "simt"}
+    p = kp.layers[0]
+    eb.egcl_backward(h, x, nbr, p, torch.ones(B, N, C), torch.ones(B, N, 3), False, kp.packed[0])
+    assert eb.egcl_backward.launches_by_variant == before_bwd
+    assert set(before_bwd) == {"tile", "simt"}
 
 
 def test_library_name_follows_the_source_and_every_header(tmp_path, monkeypatch):
