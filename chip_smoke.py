@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases egcl,serve,train,fpfh]
+    python3 chip_smoke.py [--phases egcl,serve,bwd,train,fpfh]
 
 Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
-version on the card at the main paths' shapes; the EGCL forward has two
-kernels (the bf16 tensor-core tile kernel for fast mode at C=32, the SIMT
-kernel for accurate mode and other widths) and both are held. Then it
-drives the three main paths, each with the launch counters set to 0 just
-before it and read just after (`--phases` runs a subset: `egcl` is the
-k-NN and EGCL forward kernel checks alone, for iterating on a kernel; with
-no argument everything runs):
+version on the card at the main paths' shapes; the EGCL forward and
+backward each have two kernels (a bf16 tensor-core tile kernel for fast
+mode at C=32, a SIMT kernel for accurate mode and other widths) and all
+four are held. Then it drives the three main paths, each with the launch
+counters set to 0 just before it and read just after (`--phases` runs a
+subset: `egcl` is the k-NN and EGCL forward kernel checks alone, `bwd` the
+EGCL backward kernel checks alone, for iterating on a kernel; with no
+argument everything runs):
 - serving at the full `fast_tpu_config` (N=2048, k=16, C=32, 3 layers, 4
   heads, top_k=128), seeded random weights: `Registrar.register` and
   `BatchingServer`, checked against the same Registrar on the CPU;
 - training: `make_train_step` with Adam at B=64 (2 knn, 6 EGCL forward and
-  6 EGCL backward launches per step), an accurate step checked against the
+  6 EGCL backward launches per step, all on the tile kernels in fast
+  mode), an accurate step (SIMT kernels) checked against the
   same step on the CPU, and fast-against-accurate gradients printed;
 - the checkpoint-free pipeline at full width (N=2048, k_normals 30, k_fpfh
   60, tile 128, window 768, chunked keys, top_m 512, 512 hypotheses, 5 IRLS
@@ -63,7 +65,16 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   O(1/√C) instead of the init's 1e-3 gain). At the seeded weights the
   terms through the coordinate MLP (dm += Wc0ᵀ·dcm_in, drel += dax·scale)
   move every tensor by 1e-5 to 4e-4 of its scale, under the tolerances; in
-  the second case they carry all of it.
+  the second case they carry all of it. Fast mode holds both kernels in
+  both cases.
+- egcl_backward tile kernel: one bare transposed-operand product (Dᵀ·A over
+  16 edges, as the parameter gradients run it) against a matrix product of
+  the same bf16 values, 1e-5 of its scale; its per-edge cotangents dcm_in,
+  dv and du against the plain version's at 2e-2 of the scale, as the
+  forward's stages (measured ≤ 8.3e-4 in the CPU emulation); the backward
+  at fast 5e-3 in every case (K=12, 16, 20, head widths 8 and 32, repeated
+  points, B=1); tile against SIMT (the same function in two orders of
+  summation) at 1e-2 of the scale.
 - train, accurate step at B=2, card vs CPU: loss within 1e-4 relative;
   every parameter's gradient at cosine ≥ 0.9999 and relative L2 ≤ 1e-4
   (measured 1.6e-6); post-Adam parameters within 1e-6 where the gradient
@@ -182,13 +193,14 @@ def egcl_errors(torch, got, ref, x, accurate):
     return eh, eu, sh, su
 
 
-def backward_errors(got, ref, accurate, what):
+def backward_errors(got, ref, accurate, what, tol=None):
     """{name: (max|Δ|, max|ref|)} over dh, dx and the 11 parameter gradients
-    of egcl_backward against its plain version; raises beyond the stated
-    tolerances (module docstring)."""
+    of egcl_backward against its plain version (or another kernel, at
+    `tol`); raises beyond the stated tolerances (module docstring)."""
     (gh, gx, gg), (rh, rx, rg) = got, ref
     pairs = dict(dh=(gh, rh), dx=(gx, rx), **{k: (gg[k], rg[k]) for k in rg})
-    tol = BWD_TOL_ACCURATE if accurate else BWD_TOL_FAST
+    if tol is None:
+        tol = BWD_TOL_ACCURATE if accurate else BWD_TOL_FAST
     errs = {}
     for name, (a, b) in pairs.items():
         scale = b.abs().max().item()
@@ -201,11 +213,85 @@ def backward_errors(got, ref, accurate, what):
     return errs
 
 
+def reset_backward_counters(eb):
+    eb.egcl_backward.launches = 0
+    eb.egcl_backward.launches_by_variant = {"tile": 0, "simt": 0}
+
+
+def log_backward_errors(errs, what):
+    worst = max(errs, key=lambda q: errs[q][0] / errs[q][1])
+    log(f"egcl_backward[{what}]: worst {worst} rel {errs[worst][0] / errs[worst][1]:.3g}; rel "
+        "per tensor " + ", ".join(f"{q} {e / s_:.2g}" for q, (e, s_) in errs.items()))
+
+
+def egcl_backward_tile_checks(torch, p, h, xs, nbr, gen):
+    """The backward tile kernel from the bottom up: one bare transposed-
+    operand product against d.T @ a, its per-edge cotangents (dcm_in, dv,
+    du) against the plain version's, then the backward in every case the
+    kernel has a path for."""
+    from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+
+    dev = h.device
+    d = torch.randn(16, 32, generator=gen).to(torch.bfloat16).to(dev)
+    a = torch.randn(16, 32, generator=gen).to(torch.bfloat16).to(dev)
+    got = eb.bwd_tile_probe(d, a)
+    torch.cuda.synchronize()
+    ref = d.double().T @ a.double()
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    check(err <= 1e-5 * scale, f"transposed mma tile: max|Δ| {err} against scale {scale}")
+    log(f"egcl_backward tile: one transposed-operand product (Dᵀ·A over 16 edges) vs matmul "
+        f"max|Δ| {err:.3g} (scale {scale:.3g})")
+
+    b8 = min(8, h.shape[0])
+    h8, x8, nbr8 = h[:b8].contiguous(), xs[:b8].contiguous(), nbr[:b8].contiguous()
+    dm8 = torch.randn(*h8.shape, generator=gen).to(dev)
+    dx8 = torch.randn(*x8.shape, generator=gen).to(dev)
+    stages = eb.egcl_backward_tile_stages(h8, x8, nbr8, p, dm8, dx8)
+    torch.cuda.synchronize()
+    refs = eb.backward_stages_plain(h8, x8, nbr8, p, dm8, dx8, accurate=False)
+    for name, g_, r_ in zip(("dcm_in", "dv", "du"), stages, refs):
+        err, scale = (g_ - r_).abs().max().item(), r_.abs().max().item()
+        check(scale > 0 and err <= 2e-2 * scale,
+              f"egcl_backward tile stage {name}: max|Δ| {err} against scale {scale}")
+        log(f"egcl_backward tile stage {name} B={b8}: max|Δ| {err:.3g} (rel {err / scale:.3g})")
+
+    p1 = egcl.params_from_layer(EGNN(in_node_nf=32, hidden_nf=32, out_node_nf=32, n_layers=1,
+                                     num_heads=1).to(dev).gcl_0)
+    x_dup = x8.clone()
+    x_dup[:, 1::2] = x_dup[:, ::2]                 # every point twice: degenerate frames
+    k = nbr.shape[-1]
+    wide = torch.cat([nbr8, nbr8.flip(1)[..., :4]], dim=-1).contiguous()
+    cases = [(f"K={k}, head width {p.head_width}", h8, x8, nbr8, p, dm8, dx8),
+             ("K=12", h8, x8, nbr8[..., :12].contiguous(), p, dm8, dx8),
+             (f"K={k + 4} (two row tiles)", h8, x8, wide, p, dm8, dx8),
+             ("head width 32", h8, x8, nbr8, p1, dm8, dx8),
+             ("repeated points", h8, x_dup, nbr8, p, dm8, dx8),
+             ("B=1", h8[:1].contiguous(), x8[:1].contiguous(), nbr8[:1].contiguous(), p,
+              dm8[:1].contiguous(), dx8[:1].contiguous())]
+    for name, h_, x_, nbr_, p_, dm_, dx_ in cases:
+        check(egcl.egcl_variant(32, nbr_.shape[-1], p_.head_width, False) == "tile",
+              f"egcl_backward tile case {name} is not routed to the tile kernel")
+        reset_backward_counters(eb)
+        got = eb.egcl_backward(h_, x_, nbr_, p_, dm_, dx_, False)
+        torch.cuda.synchronize()
+        check(eb.egcl_backward.launches_by_variant == {"tile": 1, "simt": 0},
+              f"egcl_backward tile case {name} launched {eb.egcl_backward.launches_by_variant}")
+        check(all(bool(torch.isfinite(t_).all()) for t_ in (got[0], got[1], *got[2].values())),
+              f"egcl_backward tile case {name}: non-finite output")
+        errs = backward_errors(got, eb.egcl_backward_plain(h_, x_, nbr_, p_, dm_, dx_, False),
+                               False, f"tile case {name}")
+        log_backward_errors(errs, f"tile case {name}, B={h_.shape[0]}")
+
+
 def egcl_backward_phase(torch, p, h, xs, nbr, gen):
     """B2 with agg_m (the tile kernel in fast mode, the SIMT kernel in
-    accurate), then B3 against their plain versions, both modes, at the main
-    path's shapes, on random cotangents and on the coordinate path
-    alone; then C=33 with one head. Returns the kernel row."""
+    accurate), then B3 against their plain versions at the main path's
+    shapes, on random cotangents and on the coordinate path alone: the
+    backward tile kernel from the bottom up; fast mode through both
+    kernels, tile against SIMT; accurate mode through the SIMT kernel; then
+    C=33 with one head. Returns the kernel row."""
     from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
@@ -213,6 +299,7 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
     dev = h.device
     b, n, c = h.shape
     k = nbr.shape[-1]
+    egcl_backward_tile_checks(torch, p, h, xs, nbr, gen)
     packed = egcl.pack_for_kernels(p)
     dagg_m = torch.randn(b, n, c, generator=gen).to(dev)
     dagg_x = torch.randn(b, n, 3, generator=gen).to(dev)
@@ -220,9 +307,8 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
     # dm = Wc0ᵀ·dcm_in, and drel's dax·scale term is at full weight
     pc = p._replace(wc1=torch.randn(1, c, generator=gen).to(dev) / c ** 0.5)
     packed_c, zero_m = egcl.pack_for_kernels(pc), torch.zeros_like(dagg_m)
-    stats = {}
+    stats, outs = {}, {}
     for accurate in (True, False):
-        name = "accurate" if accurate else "fast"
         gh, gx, gm = egcl.egcl_layer(h, xs, nbr, p, accurate, packed, return_aggm=True)
         torch.cuda.synchronize()
         rh, rx, rm = egcl.egcl_layer_plain(h, xs, nbr, p, accurate, return_aggm=True)
@@ -230,28 +316,37 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
         em, sm = (gm - rm).abs().max().item(), rm.abs().max().item()
         check(em <= (1e-4 if accurate else 2e-2) * sm,
               f"egcl agg_m accurate={accurate}: max|Δ| {em} against scale {sm}")
-        got = eb.egcl_backward(h, xs, nbr, p, dagg_m, dagg_x, accurate, packed)
-        torch.cuda.synchronize()
-        ref = eb.egcl_backward_plain(h, xs, nbr, p, dagg_m, dagg_x, accurate)
-        errs = backward_errors(got, ref, accurate, "random cotangents")
-        errs_c = backward_errors(
-            eb.egcl_backward(h, xs, nbr, pc, zero_m, dagg_x, accurate, packed_c),
-            eb.egcl_backward_plain(h, xs, nbr, pc, zero_m, dagg_x, accurate), accurate,
-            "coordinate path")
         ms_aggm = cuda_ms(torch, lambda: egcl.egcl_layer(h, xs, nbr, p, accurate, packed,
                                                           return_aggm=True), 10)
-        ms = cuda_ms(torch, lambda: eb.egcl_backward(h, xs, nbr, p, dagg_m, dagg_x,
-                                                      accurate, packed), 5)
+        log(f"egcl with agg_m accurate={accurate}: max|Δ| {em:.3g} (rel {em / sm:.3g}), "
+            f"{ms_aggm:.3f} ms")
+        ref = eb.egcl_backward_plain(h, xs, nbr, p, dagg_m, dagg_x, accurate)
+        ref_c = eb.egcl_backward_plain(h, xs, nbr, pc, zero_m, dagg_x, accurate)
         plain = cuda_ms(torch, lambda: eb.egcl_backward_plain(h, xs, nbr, p, dagg_m,
                                                                dagg_x, accurate), 2)
-        stats[name] = (ms, plain, max(e for e, _ in (*errs.values(), *errs_c.values())))
-        for case, es in (("random cotangents", errs), ("coordinate path", errs_c)):
-            worst = max(es, key=lambda q: es[q][0] / es[q][1])
-            log(f"egcl_backward[{name}, {case}] B={b} N={n} C={c} K={k}: worst {worst} "
-                f"rel {es[worst][0] / es[worst][1]:.3g}; rel per tensor "
-                + ", ".join(f"{q} {e / s_:.2g}" for q, (e, s_) in es.items()))
-        log(f"egcl_backward[{name}]: agg_m max|Δ| {em:.3g} (rel {em / sm:.3g}); kernel "
-            f"{ms:.3f} ms, plain {plain:.3f} ms; egcl with agg_m {ms_aggm:.3f} ms")
+        for variant in (("simt",) if accurate else ("tile", "simt")):
+            name = "accurate" if accurate else f"fast {variant}"
+            reset_backward_counters(eb)
+            got = eb.egcl_backward(h, xs, nbr, p, dagg_m, dagg_x, accurate, packed, variant)
+            torch.cuda.synchronize()
+            got_c = eb.egcl_backward(h, xs, nbr, pc, zero_m, dagg_x, accurate, packed_c,
+                                     variant)
+            torch.cuda.synchronize()
+            check(eb.egcl_backward.launches_by_variant == {"tile": 0, "simt": 0, variant: 2},
+                  f"egcl_backward[{name}] launched {eb.egcl_backward.launches_by_variant}")
+            errs = backward_errors(got, ref, accurate, f"{name}, random cotangents")
+            errs_c = backward_errors(got_c, ref_c, accurate, f"{name}, coordinate path")
+            ms = cuda_ms(torch, lambda: eb.egcl_backward(h, xs, nbr, p, dagg_m, dagg_x,
+                                                          accurate, packed, variant), 5)
+            stats[name] = (ms, plain, max(e for e, _ in (*errs.values(), *errs_c.values())))
+            outs[name] = got
+            log_backward_errors(errs, f"{name}, random cotangents, B={b} N={n} C={c} K={k}")
+            log_backward_errors(errs_c, f"{name}, coordinate path")
+            log(f"egcl_backward[{name}]: kernel {ms:.3f} ms, plain {plain:.3f} ms")
+    # tile against SIMT: one function, two orders of summation
+    errs = backward_errors(outs["fast tile"], outs["fast simt"], False, "tile vs simt",
+                           tol=1e-2)
+    log_backward_errors(errs, "fast tile vs simt")
     wh = p.head_width
     fwd_edge = 2 * c * (c + 12) + 2 * c * wh + 2 * c * c + 2 * c + 12 * c
     bwd_edge = (2 * c * c * 4 + 2 * c * wh * 2 + 2 * 12 * c * 2 + 2 * c   # products
@@ -259,10 +354,12 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
     center = 3 * 2 * c * c
     ops = b * n * (k * (fwd_edge + bwd_edge) + center)
     nbytes = 4 * b * n * (2 * c + 6 + k) + 2 * 4 * b * n * (c + 3) + packed.simt.numel() * 4
-    ms, plain, err = stats["fast"]
+    ms, plain, err = stats["fast tile"]
     bb, bby = bound_ms(nbytes, ops, PEAK_BF16)
     log(f"egcl_backward bound: {ops / (b * n * k):.0f} FLOP/edge; fast vs bf16 peak "
-        f"{bb:.4f} ms, accurate vs fp32 peak {bound_ms(nbytes, ops, PEAK_FP32)[0]:.4f} ms")
+        f"{bb:.4f} ms, accurate vs fp32 peak {bound_ms(nbytes, ops, PEAK_FP32)[0]:.4f} ms; "
+        f"fast tile {ms:.3f} ms ({100 * bb / ms:.2f}% of the bound), fast simt "
+        f"{stats['fast simt'][0]:.3f} ms, accurate {stats['accurate'][0]:.3f} ms")
 
     m33 = EGNN(in_node_nf=33, hidden_nf=33, out_node_nf=33, n_layers=1, num_heads=1)
     p33 = egcl.params_from_layer(m33.to(dev).gcl_0)
@@ -272,18 +369,20 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
     dm33 = torch.randn(b33, n, 33, generator=gen).to(dev)
     dx33 = dagg_x[:b33].contiguous()
     for accurate in (True, False):
-        errs = backward_errors(
-            eb.egcl_backward(h33, x33, nbr33, p33, dm33, dx33, accurate),
-            eb.egcl_backward_plain(h33, x33, nbr33, p33, dm33, dx33, accurate), accurate,
-            "C=33")
-        worst = max(errs, key=lambda q: errs[q][0] / errs[q][1])
-        log(f"egcl_backward[C=33, 1 head, accurate={accurate}] B={b33}: worst {worst} "
-            f"rel {errs[worst][0] / errs[worst][1]:.3g}")
+        reset_backward_counters(eb)
+        got = eb.egcl_backward(h33, x33, nbr33, p33, dm33, dx33, accurate)
+        check(eb.egcl_backward.launches_by_variant == {"tile": 0, "simt": 1},
+              f"egcl_backward C=33 launched {eb.egcl_backward.launches_by_variant}")
+        errs = backward_errors(got, eb.egcl_backward_plain(h33, x33, nbr33, p33, dm33, dx33,
+                                                           accurate), accurate, "C=33")
+        log_backward_errors(errs, f"C=33, 1 head, accurate={accurate}, B={b33}")
     return dict(name="egcl_backward", route="cuda",
-                source="se3_equi_graph_registration_tpu_torch/csrc/egcl_backward.cu",
+                source="se3_equi_graph_registration_tpu_torch/csrc/egcl_backward_tile.cu",
                 replaces="se3_equi_graph_registration_tpu/ops/pallas/egcl_backward.py:53",
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bb,
-                bound_by=bby, library_ms=None)
+                bound_by=bby, library_ms=None, variant="tile",
+                simt_ms=stats["fast simt"][0], accurate_ms=stats["accurate"][0],
+                simt_source="se3_equi_graph_registration_tpu_torch/csrc/egcl_backward.cu")
 
 
 def knn_compare(x, ref, got, rel=2.0 ** -12):
@@ -305,7 +404,7 @@ def knn_compare(x, ref, got, rel=2.0 ** -12):
     return len(bad), float(np.abs(d_ref - d_got).max())
 
 
-PHASES = ("egcl", "serve", "train", "fpfh")
+PHASES = ("egcl", "serve", "bwd", "train", "fpfh")
 ROW_ORDER = ("knn_window", "egcl_layer", "egcl_backward", "knn_chunked", "spfh")
 
 
@@ -398,8 +497,9 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
         rows["egcl_layer"] = egcl_phase(torch, p, h, xs, nbr, gen)
     if "serve" in phases:
         serve_phase(torch, dev, cfg, bsz, sd, rows)
-    if "train" in phases:
+    if "bwd" in phases:
         rows["egcl_backward"] = egcl_backward_phase(torch, p, h, xs, nbr, gen)
+    if "train" in phases:
         train_phase(torch, dev, cfg, bsz, rows)
     if "fpfh" in phases:
         for row in fpfh_kernel_phase(torch, dev, bsz):
@@ -692,6 +792,7 @@ def train_phase(torch, dev, cfg, bsz, rows):
     for fn in counters:
         fn.launches = 0
     reset_egcl_counters(egcl)
+    eb.egcl_backward.launches_by_variant = {"tile": 0, "simt": 0}
     per_step, totals = [], []
     t0 = time.perf_counter()
     for i in range(5):
@@ -712,11 +813,16 @@ def train_phase(torch, dev, cfg, bsz, rows):
     want = "simt" if cfg.egnn_accurate else "tile"
     check(by_variant[want] == launches[1] and sum(by_variant.values()) == launches[1],
           f"train: EGCL launches by kernel {by_variant}, want all {launches[1]} {want}")
+    bwd_by_variant = dict(eb.egcl_backward.launches_by_variant)
+    check(bwd_by_variant[want] == launches[2] and sum(bwd_by_variant.values()) == launches[2],
+          f"train: EGCL backward launches by kernel {bwd_by_variant}, want all {launches[2]} "
+          f"{want}")
     record_launches(rows, "train", dict(zip(("knn_window", "egcl_layer", "egcl_backward"),
                                             launches)))
     log(f"train B={bsz}: 5 steps in {dt:.3f} s, {5 * bsz / dt:.1f} pairs/s (host clock, "
         f"synchronized at the end), losses {[round(float(v), 4) for v in losses]}; launches "
-        f"knn {launches[0]} egcl {launches[1]} ({by_variant}) egcl_backward {launches[2]}; peak memory of "
+        f"knn {launches[0]} egcl {launches[1]} ({by_variant}) egcl_backward {launches[2]} "
+        f"({bwd_by_variant}); peak memory of "
         f"the 6 steps {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # --- the accurate step on the card against the same step on the CPU ---
