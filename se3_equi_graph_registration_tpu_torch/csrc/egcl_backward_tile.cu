@@ -27,8 +27,8 @@
 //     [W1hc | W1hr], dgeo = du W1g; the transposed weights are ready B
 //     fragments (ops/kernels/egcl.py::pack_params_tile_bwd);
 //   - the LayerNorm backward reduces inside a quad, as the forward does;
-//   - dh_col goes onto the neighbor by atomicAdd; dh_row stays in
-//     accumulators across the center's row tiles and is written once;
+//   - dh_col goes onto the neighbor by atomicAdd; dh_row is summed over each
+//     tile's rows by shuffles and written once a center;
 //   - the geometry backward is scalar, one lane an edge, from a per-warp fp32
 //     dgeo scratch; dx of the center sums by shuffles, of the neighbor by
 //     atomicAdd;
@@ -37,8 +37,9 @@
 //     D and A read as 16-bit pairs from the [edge][channel] tiles (dcm, dv, du;
 //     m, s1, the staged h_col and geometry; h_i from registers); the results
 //     go into one block-wide fp32 copy by shared-memory atomics and are
-//     flushed once a block by global atomics; the vector gradients sum in
-//     registers.
+//     flushed once a block by global atomics; the vector gradients (fp32)
+//     are summed over each tile's rows by recursive halving across lanes,
+//     one register a lane a vector, so that 16 warps fit at 128 registers.
 // K other than 16 runs as row tiles of 16; a row at or beyond K is staged
 // from the center with dscale = 0 and dagg_m = 0, so each of its cotangents is
 // exactly 0 and it adds nothing; its scatter and geometry backward are skipped.
@@ -49,8 +50,17 @@ namespace {
 
 using namespace egcl_tile;
 
-constexpr int kWarps = 8;        // warps (centers in flight) per block
-constexpr int kBlocksPerSM = 1;  // the shared memory below allows one block an SM
+// Warps (centers in flight) per block, and blocks an SM. Latency bounds the
+// kernel, so warps in flight set its pace. The first build of this kernel
+// held the vector gradients and dh_row in registers across the tile loop:
+// 237 registers, 8 warps, 1.773 ms a launch at B=64; this one holds 16
+// warps at 128 registers with no spill: 1.142 ms (chip_smoke.py, separate
+// calls, NVIDIA H100 80GB HBM3 at 700 W). A sweep of warps a block in a
+// scratch copy ran 12 warps between the two, and the 237-register source
+// forced to 16 warps spilled and ran slower than this one. The shared memory
+// below (195 KB at 16 warps) allows one block an SM.
+constexpr int kWarps = 16;
+constexpr int kBlocksPerSM = 1;
 constexpr int kXS = 40;   // row stride (bf16) of the [edge][channel] operand tiles:
                           // a fragment's 16-bit loads hit 32 distinct banks
 constexpr int kGS = 36;   // row stride (fp32) of the block's [in][out] gradient copies:
@@ -93,6 +103,23 @@ struct Smem {
   static constexpr int total = warps + kWarps * per_warp;
 };
 static_assert(Smem::warps % 4 == 0 && Smem::per_warp % 4 == 0, "16-byte aligned tiles");
+
+// The sum over the 8 row groups g (lanes xor 4, 8, 16) of a lane's 8 values
+// v[2n + q] of channels 8n + 2t + q, by recursive halving: lane (g, t)
+// returns channel 8 (g >> 1) + 2t + (g & 1) of the sum: 7 shuffles for 8
+// values, and one register a lane to hold the result instead of 8.
+__device__ __forceinline__ float group_sum(const float (&v)[8], int lane) {
+  const int g = lane >> 2;
+  const bool h2 = g & 4, h1 = g & 2, h0 = g & 1;
+  float a[4], b[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = (h2 ? v[i + 4] : v[i]) + __shfl_xor_sync(kFull, h2 ? v[i] : v[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    b[i] = (h1 ? a[i + 2] : a[i]) + __shfl_xor_sync(kFull, h1 ? a[i] : a[i + 2], 8);
+  return (h0 ? b[1] : b[0]) + __shfl_xor_sync(kFull, h0 ? b[0] : b[1], 4);
+}
 
 __device__ __forceinline__ float dsilu(float v) {
   const float s = __fdividef(1.0f, 1.0f + __expf(-v));
@@ -268,12 +295,11 @@ egcl_bwd_tile_kernel(const float* __restrict__ h, const float* __restrict__ x,
   __nv_bfloat16* DU = DV + kRows * kXS;
   float* dgs = reinterpret_cast<float*>(mine + Smem::dgeo);
 
-  // vector gradients of this lane's channels 8n + 2t (+1), rows g and g + 8
-  float vg[kVecs][kNT][2];
+  // vector gradients of channel 8 (g >> 1) + 2t + (g & 1), over the warp's centers
+  float vg[kVecs];
 #pragma unroll
-  for (int v = 0; v < kVecs; ++v)
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) vg[v][n][0] = vg[v][n][1] = 0.f;
+  for (int v = 0; v < kVecs; ++v) vg[v] = 0.f;
+  const int my_c = 8 * (g >> 1) + 2 * t + (g & 1);
 
   for (int center = blockIdx.x * kWarps + warp; center < total;
        center += gridDim.x * kWarps) {
@@ -284,24 +310,18 @@ egcl_bwd_tile_kernel(const float* __restrict__ h, const float* __restrict__ x,
     const float dax0 = dagg_x[(size_t)center * 3 + 0];
     const float dax1 = dagg_x[(size_t)center * 3 + 1];
     const float dax2 = dagg_x[(size_t)center * 3 + 2];
-    float2 hr[kNT], dm0[kNT];
-    uint32_t bhi[kNT];    // B fragment of h_i repeated along the edges: bf16 (h_i[8n+g]) twice
+    float2 hr[kNT];
     {
       float2 hi[kNT];
 #pragma unroll
-      for (int n = 0; n < kNT; ++n) {
+      for (int n = 0; n < kNT; ++n)
         hi[n] = *reinterpret_cast<const float2*>(h + (size_t)center * kC + 8 * n + 2 * t);
-        dm0[n] = *reinterpret_cast<const float2*>(dagg_m + (size_t)center * kC + 8 * n + 2 * t);
-        const float v = h[(size_t)center * kC + 8 * n + g];
-        bhi[n] = pack2(v, v);
-      }
       uint32_t ahi[2][4];
       row_to_a(hi, ahi);
       hrow_block(ahi, w, lane, hr);
     }
-    float dhr[kNT][4];    // dh_row = du W1hr, rows kept apart until the center ends
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) dhr[n][0] = dhr[n][1] = dhr[n][2] = dhr[n][3] = 0.f;
+    // dh_row = sum over the edges of du W1hr: channels 8g + 2t (+1) in lanes g < 4
+    float2 dhs = make_float2(0.f, 0.f);
     float dxi[3] = {0.f, 0.f, 0.f};
 
     for (int row0 = 0; row0 < K; row0 += kRows) {
@@ -339,17 +359,28 @@ egcl_bwd_tile_kernel(const float* __restrict__ h, const float* __restrict__ x,
       const float dsr_lo = round_bf16(__shfl_sync(kFull, ds_e, g));
       const float dsr_hi = round_bf16(__shfl_sync(kFull, ds_e, g + 8));
       float d[kNT][4];    // dcm_in, then dm, then dv, then du
+      {
+        float sb[8], sw[8];   // this tile's rows g, g + 8 of the bc0 and wc1 sums
 #pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        const float2 wc = vec2(w, Layout::wc1, n, t);
+        for (int n = 0; n < kNT; ++n) {
+          const float2 wc = vec2(w, Layout::wc1, n, t);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float ds = q < 2 ? dsr_lo : dsr_hi;
-          const float c = cm[n][q];
-          d[n][q] = dsilu(c) * ((q & 1 ? wc.y : wc.x) * ds);
-          vg[kVBc0][n][q & 1] += d[n][q];
-          vg[kVWc1][n][q & 1] = fmaf(ds, round_bf16(silu(c)), vg[kVWc1][n][q & 1]);
+          for (int q = 0; q < 4; ++q) {
+            const float ds = q < 2 ? dsr_lo : dsr_hi;
+            const float c = cm[n][q];
+            d[n][q] = dsilu(c) * ((q & 1 ? wc.y : wc.x) * ds);
+            const float pw = ds * round_bf16(silu(c));
+            if (q < 2) {
+              sb[2 * n + q] = d[n][q];
+              sw[2 * n + q] = pw;
+            } else {
+              sb[2 * n + q - 2] += d[n][q];
+              sw[2 * n + q - 2] += pw;
+            }
+          }
         }
+        vg[kVBc0] += group_sum(sb, lane);
+        vg[kVWc1] += group_sum(sw, lane);
       }
       store_rows(d, DC, lane);
       if (DBG) {
@@ -368,10 +399,12 @@ egcl_bwd_tile_kernel(const float* __restrict__ h, const float* __restrict__ x,
         to_a(d, a);
 #pragma unroll
         for (int n = 0; n < kNT; ++n) {
-          d[n][0] = v_lo ? dm0[n].x : 0.f;
-          d[n][1] = v_lo ? dm0[n].y : 0.f;
-          d[n][2] = v_hi ? dm0[n].x : 0.f;
-          d[n][3] = v_hi ? dm0[n].y : 0.f;
+          const float2 dm0 =
+              *reinterpret_cast<const float2*>(dagg_m + (size_t)center * kC + 8 * n + 2 * t);
+          d[n][0] = v_lo ? dm0.x : 0.f;
+          d[n][1] = v_lo ? dm0.y : 0.f;
+          d[n][2] = v_hi ? dm0.x : 0.f;
+          d[n][3] = v_hi ? dm0.y : 0.f;
         }
         product<2>(d, a, wb, BwdLayout::wc0, lane);
       }
@@ -379,15 +412,23 @@ egcl_bwd_tile_kernel(const float* __restrict__ h, const float* __restrict__ x,
       // ---- LayerNorm backward: dv = r (dm·lns - mean(dm·lns) - vhat mean(dm·lns·vhat)) ----
       {
         float sg_lo = 0.f, sg_hi = 0.f, sv_lo = 0.f, sv_hi = 0.f;
+        {
+          float ss[8], sb[8];   // this tile's ln_scale and ln_bias sums
+#pragma unroll
+          for (int n = 0; n < kNT; ++n)
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              ss[2 * n + q] = d[n][q] * vh[n][q] + d[n][q + 2] * vh[n][q + 2];
+              sb[2 * n + q] = d[n][q] + d[n][q + 2];
+            }
+          vg[kVLns] += group_sum(ss, lane);
+          vg[kVLnb] += group_sum(sb, lane);
+        }
 #pragma unroll
         for (int n = 0; n < kNT; ++n) {
           const float2 sc = vec2(w, Layout::lns, n, t);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            vg[kVLns][n][q & 1] = fmaf(d[n][q], vh[n][q], vg[kVLns][n][q & 1]);
-            vg[kVLnb][n][q & 1] += d[n][q];
-            d[n][q] *= (q & 1) ? sc.y : sc.x;
-          }
+          for (int q = 0; q < 4; ++q) d[n][q] *= (q & 1) ? sc.y : sc.x;
           sg_lo += d[n][0] + d[n][1];
           sg_hi += d[n][2] + d[n][3];
           sv_lo += d[n][0] * vh[n][0] + d[n][1] * vh[n][1];
@@ -395,6 +436,7 @@ egcl_bwd_tile_kernel(const float* __restrict__ h, const float* __restrict__ x,
         }
         const float mg_lo = quad_sum(sg_lo) * (1.0f / kC), mg_hi = quad_sum(sg_hi) * (1.0f / kC);
         const float mv_lo = quad_sum(sv_lo) * (1.0f / kC), mv_hi = quad_sum(sv_hi) * (1.0f / kC);
+        float sb[8];
 #pragma unroll
         for (int n = 0; n < kNT; ++n)
 #pragma unroll
@@ -402,8 +444,12 @@ egcl_bwd_tile_kernel(const float* __restrict__ h, const float* __restrict__ x,
             const bool lo = q < 2;
             d[n][q] = (lo ? r_lo : r_hi) *
                       (d[n][q] - (lo ? mg_lo : mg_hi) - vh[n][q] * (lo ? mv_lo : mv_hi));
-            vg[kVB2][n][q & 1] += d[n][q];
           }
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) sb[2 * n + q] = d[n][q] + d[n][q + 2];
+        vg[kVB2] += group_sum(sb, lane);
       }
       store_rows(d, DV, lane);
       if (DBG) {
@@ -430,13 +476,18 @@ egcl_bwd_tile_kernel(const float* __restrict__ h, const float* __restrict__ x,
           product<2>(d, a, wb, BwdLayout::w2, lane);
         }
       }
+      {
+        float sb[8];
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
+        for (int n = 0; n < kNT; ++n)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          d[n][q] *= dsilu(u[n][q]);
-          vg[kVB1][n][q & 1] += d[n][q];
-        }
+          for (int q = 0; q < 4; ++q) d[n][q] *= dsilu(u[n][q]);
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) sb[2 * n + q] = d[n][q] + d[n][q + 2];
+        vg[kVB1] += group_sum(sb, lane);
+      }
       store_rows(d, DU, lane);
       if (DBG) {
         float* lo = dbg + ((size_t)center * K + row0 + g) * 96 + 64 + 2 * t;
@@ -453,9 +504,11 @@ egcl_bwd_tile_kernel(const float* __restrict__ h, const float* __restrict__ x,
         uint32_t a[2][4];
         to_a(d, a);
         float dg[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-        float dhc[kNT][4];
+        float dhc[kNT][4], dhr[kNT][4];
 #pragma unroll
-        for (int n = 0; n < kNT; ++n) dhc[n][0] = dhc[n][1] = dhc[n][2] = dhc[n][3] = 0.f;
+        for (int n = 0; n < kNT; ++n)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) dhc[n][q] = dhr[n][q] = 0.f;
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
 #pragma unroll
@@ -464,6 +517,20 @@ egcl_bwd_tile_kernel(const float* __restrict__ h, const float* __restrict__ x,
           for (int n = 0; n < kNT; ++n) {
             mma(dhc[n], a[j], b_frag_nt<8>(wb, BwdLayout::w1h, j, n, lane));
             mma(dhr[n], a[j], b_frag_nt<8>(wb, BwdLayout::w1h, j, n + kNT, lane));
+          }
+        }
+        // dh_row: the tile's 16 rows, then the 8 quads; lanes g < 4 keep n-tile g
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          float2 s = make_float2(dhr[n][0] + dhr[n][2], dhr[n][1] + dhr[n][3]);
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) {
+            s.x += __shfl_xor_sync(kFull, s.x, o);
+            s.y += __shfl_xor_sync(kFull, s.y, o);
+          }
+          if (g == n) {
+            dhs.x += s.x;
+            dhs.y += s.y;
           }
         }
 #pragma unroll
@@ -519,8 +586,9 @@ egcl_bwd_tile_kernel(const float* __restrict__ h, const float* __restrict__ x,
         grad_product<4>(gW1hc, ad, tile, kStride, 0, false, lane);
         grad_product<2>(gW1g, ad, tile, kStride, kC, false, lane);
 #pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const uint2 b = make_uint2(bhi[nt], bhi[nt]);
+        for (int nt = 0; nt < kNT; ++nt) {   // B of h_i repeated along the edges
+          const float hv = h[(size_t)center * kC + 8 * nt + g];
+          const uint2 b = make_uint2(pack2(hv, hv), pack2(hv, hv));
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
             float dd[4] = {0.f, 0.f, 0.f, 0.f};
@@ -531,17 +599,7 @@ egcl_bwd_tile_kernel(const float* __restrict__ h, const float* __restrict__ x,
       }
     }
 
-    // dh_row: the 16 rows, then the 8 quads; quad n writes n-tile n
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      float2 s = make_float2(dhr[n][0] + dhr[n][2], dhr[n][1] + dhr[n][3]);
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        s.x += __shfl_xor_sync(kFull, s.x, o);
-        s.y += __shfl_xor_sync(kFull, s.y, o);
-      }
-      if (g == n) *reinterpret_cast<float2*>(dh_center + (size_t)center * kC + 8 * n + 2 * t) = s;
-    }
+    if (g < kNT) *reinterpret_cast<float2*>(dh_center + (size_t)center * kC + 8 * g + 2 * t) = dhs;
 #pragma unroll
     for (int o = 8; o > 0; o >>= 1) {
       dxi[0] += __shfl_xor_sync(kFull, dxi[0], o);
@@ -555,19 +613,10 @@ egcl_bwd_tile_kernel(const float* __restrict__ h, const float* __restrict__ x,
     }
   }
 
-  // ---- flush: vector gradients over the row groups into the block's copy,
-  // then the block's copy into grads, one global atomic an entry ----
+  // ---- flush: the warps' vector gradients into the block's copy, then the
+  // block's copy into grads, one global atomic an entry ----
 #pragma unroll
-  for (int v = 0; v < kVecs; ++v)
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float s = vg[v][n][q];
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) s += __shfl_xor_sync(kFull, s, o);
-        if (g == 0) atomicAdd(gvec + v * kC + 8 * n + 2 * t + q, s);
-      }
+  for (int v = 0; v < kVecs; ++v) atomicAdd(gvec + v * kC + my_c, vg[v]);
   __syncthreads();
   for (int i = threadIdx.x; i < GradOut::total; i += blockDim.x) {
     float s;
