@@ -108,7 +108,7 @@ class Packed(NamedTuple):
     tile kernel."""
     simt: torch.Tensor
     tile: torch.Tensor | None
-    tile_bwd: torch.Tensor | None = None
+    tile_bwd: torch.Tensor | None
 
 
 def egcl_variant(c: int, k: int, head_width: int, accurate: bool) -> str:
@@ -154,9 +154,9 @@ def pack_params_tile(p: EGCLParams) -> torch.Tensor:
 
 
 # the backward's B-fragment matrices, in the order of `BwdLayout` in
-# csrc/egcl_backward_tile.cu, with their n-tiles: each is the weight a
+# csrc/egcl_backward_tile.cu (4, 4, 8 and 2 n-tiles): each is the weight a
 # cotangent is multiplied by on its way back, B = the weight itself
-TILE_BWD_MATRICES = (("wc0", 4), ("w2", 4), ("w1_h", 8), ("w1_geo", 2))
+TILE_BWD_MATRICES = ("wc0", "w2", "w1_h", "w1_geo")
 
 
 def pack_params_tile_bwd(p: EGCLParams) -> torch.Tensor:
@@ -176,7 +176,7 @@ def pack_params_tile_bwd(p: EGCLParams) -> torch.Tensor:
     mats = dict(wc0=f32(p.wc0).T, w2=f32(p.w2).T,
                 w1_h=torch.cat([f32(p.w1_hcol).T, f32(p.w1_hrow).T]),
                 w1_geo=torch.cat([geo_t, torch.zeros_like(geo_t[:4])]))
-    frags = torch.cat([b_fragments(mats[name]) for name, _ in TILE_BWD_MATRICES])
+    frags = torch.cat([b_fragments(mats[name]) for name in TILE_BWD_MATRICES])
     return frags.contiguous().view(torch.float32)
 
 
