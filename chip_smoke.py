@@ -1,39 +1,44 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases egcl,serve,bwd,train,fpfh]
+    python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh]
 
 Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
-version on the card at the main paths' shapes; the EGCL forward and
-backward each have two kernels (a bf16 tensor-core tile kernel for fast
-mode at C=32, a SIMT kernel for accurate mode and other widths) and all
-four are held. Then it drives the three main paths, each with the launch
-counters set to 0 just before it and read just after (`--phases` runs a
-subset: `egcl` is the k-NN and EGCL forward kernel checks alone, `bwd` the
-EGCL backward kernel checks alone, for iterating on a kernel; with no
-argument everything runs):
+version on the card at the main paths' shapes. B1 packed and B4 each have
+two kernels (warp-a-query on the main paths, the thread-a-query kernel
+kept to compare), and so have the EGCL forward and backward (a bf16
+tensor-core tile kernel for fast mode at C=32, a SIMT kernel for accurate
+mode and other widths); all are held, and each pair is timed in the same
+run. Then it drives the three main paths, each with the launch counters
+set to 0 just before it and read just after (`--phases` runs a subset:
+`knn` is the k-NN kernel checks alone, `egcl` the EGCL forward's, `bwd`
+the EGCL backward's, for iterating on a kernel; with no argument
+everything runs):
 - serving at the full `fast_tpu_config` (N=2048, k=16, C=32, 3 layers, 4
   heads, top_k=128), seeded random weights: `Registrar.register` and
-  `BatchingServer`, checked against the same Registrar on the CPU;
+  `BatchingServer`, checked against the same Registrar on the CPU, every
+  k-NN launch on the warp kernel;
 - training: `make_train_step` with Adam at B=64 (2 knn, 6 EGCL forward and
-  6 EGCL backward launches per step, all on the tile kernels in fast
-  mode), an accurate step (SIMT kernels) checked against the
+  6 EGCL backward launches per step, on the warp k-NN and the tile
+  kernels in fast mode), an accurate step (SIMT kernels) checked against the
   same step on the CPU, and fast-against-accurate gradients printed;
 - the checkpoint-free pipeline at full width (N=2048, k_normals 30, k_fpfh
   60, tile 128, window 768, chunked keys, top_m 512, 512 hypotheses, 5 IRLS
   and 10 ICP steps, quaternion Kabsch): `register_fpfh` at 4 branches and 1
-  (2 chunked k-NN and 2 SPFH launches per call, no B1) against the same
+  (2 chunked k-NN launches, all warp, and 2 SPFH per call, no B1) against the same
   call on the CPU on a seeded bumpy surface pair, then
   `register_fpfh_batch` at B=8 and 32, and a profile of one b=1 call.
 Any failed check raises (non-zero exit, no result line). The last line is
 one JSON object with the device.
 
 Tolerances (kernel vs its plain version, same inputs, on the card):
-- knn: neighbor sets equal row by row up to near-ties (d² within 2⁻¹²
-  relative of the row's k-th d²); the two compute d² with the same
-  round-to-nearest operations in the same order, so sets normally match
-  exactly.
+- knn, B1 packed (k=16/W=384 and k=60/W=768) and B4 (k=60/W=768), at B=64
+  and at one cloud, and the CPU emulation's edge cases at small size: the
+  warp kernel, the thread kernel and the plain version give identical
+  lists (the same integer keys from the same round-to-nearest d², unique
+  within a query). B1 exact (thread kernel only): neighbor sets equal row
+  by row up to near-ties (d² within 2⁻¹² relative of the row's k-th d²).
 - egcl, h′: max |Δ| ≤ tol · max|ref h′|; coordinates through their update
   u = x′ − x: max |Δu| ≤ tol · max|ref u| + ε₃₂ · max|x|, the last term
   being the fp32 spacing at which x′ = x + u can be read back. The update
@@ -85,9 +90,6 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   At these untrained weights the similarity softmax saturates, and the two
   modes are different functions (the reference's gradient budget,
   BASELINE.md); the table is printed.
-- knn_chunked (B4): lists identical to the plain version (same integer keys
-  from the same round-to-nearest d²). Its neighbor-set agreement with B1
-  packed is printed. B1 at k=60, W=768: as above (near-ties).
 - spfh (B5), both modes: distances within 1e-6 relative; at most 1e-4 of
   the edge-channels in another bin (fp noise at a boundary); SPFH values
   within 1e-3 (of 100 per channel) where a center's counts all agree.
@@ -404,7 +406,7 @@ def knn_compare(x, ref, got, rel=2.0 ** -12):
     return len(bad), float(np.abs(d_ref - d_got).max())
 
 
-PHASES = ("egcl", "serve", "bwd", "train", "fpfh")
+PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh")
 ROW_ORDER = ("knn_window", "egcl_layer", "egcl_backward", "knn_chunked", "spfh")
 
 
@@ -454,12 +456,32 @@ def main(argv=None) -> int:
     return 0
 
 
-def record_launches(rows, path, launches):
-    """Write one path's launch counts {kernel name: n} into the rows."""
+def record_launches(rows, path, launches, by_variant=None):
+    """Write one path's launch counts {kernel name: n}, and for the k-NN
+    rows {kernel name: {variant: n}}, into the rows."""
     for name, n in launches.items():
         if name in rows:
             rows[name].setdefault("launches_by_path", {})[path] = n
             rows[name]["launches"] = sum(rows[name]["launches_by_path"].values())
+    for name, counts in (by_variant or {}).items():
+        if name in rows:
+            for v, n in counts.items():
+                rows[name]["launches_by_variant"][v] += n
+
+
+def check_knn_warp(fn, what):
+    """Every launch of the k-NN wrapper `fn` since its counters were reset
+    was the warp kernel; returns its counts by variant."""
+    counts = dict(fn.launches_by_variant)
+    check(fn.launches > 0 and counts == {"warp": fn.launches, "thread": 0},
+          f"{what}: k-NN launches by kernel {counts}, want all {fn.launches} 'warp'")
+    return counts
+
+
+def reset_knn_counters(knn):
+    for fn in (knn.knn_window, knn.knn_chunked):
+        fn.launches = 0
+        fn.launches_by_variant = {"warp": 0, "thread": 0}
 
 
 def reset_egcl_counters(egcl):
@@ -492,8 +514,9 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
     nbr = knn.knn_window(xs, k, tile=tile, window=window, packed=True)
     rows = {}
 
+    if "knn" in phases:
+        rows["knn_window"], rows["knn_chunked"] = knn_phase(torch, xs, k, tile, window)
     if "egcl" in phases:
-        rows["knn_window"] = knn_phase(torch, xs, k, tile, window)
         rows["egcl_layer"] = egcl_phase(torch, p, h, xs, nbr, gen)
     if "serve" in phases:
         serve_phase(torch, dev, cfg, bsz, sd, rows)
@@ -502,37 +525,154 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
     if "train" in phases:
         train_phase(torch, dev, cfg, bsz, rows)
     if "fpfh" in phases:
-        for row in fpfh_kernel_phase(torch, dev, bsz):
-            rows[row["name"]] = row
+        rows["spfh"] = fpfh_kernel_phase(torch, dev, bsz)
         register_fpfh_phase(torch, dev, rows)
     return [rows[name] for name in ROW_ORDER if name in rows]
 
 
+# The emulated test's edge cases (tests/test_torch_knn_warp_emulated.py) at
+# small size: (kernel, b, n, k, tile, window, include_self, cloud kind)
+KNN_EDGE_CASES = (
+    ("window", 2, 128, 1, 128, 128, True, "uniform"),
+    ("window", 1, 768, 60, 128, 768, True, "uniform"),
+    ("window", 1, 1024, 30, 128, 1024, True, "uniform"),
+    ("window", 1, 512, 16, 128, 384, False, "uniform"),
+    ("window", 1, 384, 16, 128, 384, True, "repeated"),
+    ("window", 1, 384, 16, 128, 384, True, "offset"),
+    ("window", 1, 128, 128, 128, 128, True, "uniform"),
+    ("window", 1, 384, 16, 64, 320, True, "uniform"),
+    ("chunked", 2, 128, 16, 128, 128, True, "uniform"),
+    ("chunked", 1, 512, 1, 128, 256, True, "uniform"),
+    ("chunked", 1, 512, 30, 128, 384, True, "uniform"),
+    ("chunked", 1, 1024, 60, 128, 1024, True, "uniform"),
+    ("chunked", 1, 384, 16, 128, 384, False, "uniform"),
+    ("chunked", 1, 384, 30, 128, 384, True, "repeated"),
+    ("chunked", 1, 384, 16, 128, 384, True, "offset"),
+    ("chunked", 1, 384, 30, 128, 384, True, "class0"),
+)
+
+
+def edge_cloud(torch, dev, seed, b, n, kind):
+    """The emulated test's clouds: uniform in a 3 m cube, curve-sorted;
+    'repeated' (every point twice), 'offset' (moved by 1e3: d² lost to
+    cancellation), 'class0' (unsorted, every 3rd point near the origin)."""
+    from se3_equi_graph_registration_tpu_torch.ops import morton
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.5, 1.5, (b, n, 3)).astype(np.float32)
+    if kind == "class0":
+        x = rng.uniform(0.5, 1.0, (b, n, 3)).astype(np.float32)
+        x[:, ::3] = rng.uniform(-0.1, 0.1, (b, len(range(0, n, 3)), 3))
+        return torch.from_numpy(x).to(dev)
+    if kind == "repeated":
+        x[:, 1::2] = x[:, ::2]
+    if kind == "offset":
+        x += np.float32(1e3)
+    _, xs, _ = morton.sort_by_curve(torch.zeros(b, n, 0), torch.from_numpy(x))
+    return xs.contiguous().to(dev)
+
+
+def surface_clouds(torch, dev, bsz):
+    """`bsz` curve-sorted bumpy-surface clouds at FPFH_N points, posed: the
+    checkpoint-free path's k-NN input."""
+    from se3_equi_graph_registration_tpu_torch.ops import morton
+
+    x = torch.from_numpy(np.stack([p[0] @ p[2].T for p in surface_pairs(bsz, 100)])).to(dev)
+    _, xs, _ = morton.sort_by_curve(x[..., :0], x)
+    return xs.contiguous()
+
+
+def knn_pair(torch, fn, plain, x, what, **kw):
+    """The warp and the thread kernel of one k-NN on x, each launched once
+    and counted by variant; both must equal the plain version bit for bit."""
+    counts = fn.launches_by_variant
+    before = dict(counts)
+    warp = fn(x, **kw)
+    thread = fn(x, variant="thread", **kw)
+    torch.cuda.synchronize()
+    check({v: counts[v] - before[v] for v in counts} == {"warp": 1, "thread": 1},
+          f"{what}: launches by kernel {counts} (before {before})")
+    ref = plain(x, **kw)
+    check(torch.equal(warp, ref), f"{what}: the warp kernel's lists differ from the plain version")
+    check(torch.equal(thread, ref),
+          f"{what}: the thread kernel's lists differ from the plain version")
+
+
 def knn_phase(torch, xs, k, tile, window):
-    """B1 against its plain version, packed (served) then exact; its row."""
+    """B1 and B4, each kernel pair against its plain version and each other
+    (bit for bit) and timed in the same run, at B=64 and at one cloud: B1
+    packed at the served k=16/W=384 and at the checkpoint-free k=60/W=768,
+    B4 at k=60/W=768, then the edge cases; B1 exact (thread kernel only).
+    Returns the knn_window and knn_chunked rows."""
     from se3_equi_graph_registration_tpu_torch.ops.kernels import knn
 
+    dev = xs.device
     bsz, n, _ = xs.shape
-    knn_stats = {}
-    for mode in ("packed", "exact"):
-        kw = dict(tile=tile, window=window, packed=mode == "packed")
-        got = knn.knn_window(xs, k, **kw)
-        torch.cuda.synchronize()
-        ref = knn.knn_window_plain(xs, k, **kw)
-        n_bad, err = knn_compare(xs, ref, got)
-        ms = cuda_ms(torch, lambda: knn.knn_window(xs, k, **kw), 20)
-        plain = cuda_ms(torch, lambda: knn.knn_window_plain(xs, k, **kw), 5)
-        knn_stats[mode] = (ms, plain, err)
-        log(f"knn[{mode}] B={bsz} N={n} k={k} T={tile} W={window}: rows differing "
-            f"{n_bad} (near-ties), max|Δd²| {err:.3g}, kernel {ms:.4f} ms, plain {plain:.3f} ms")
-    nbytes = xs.numel() * 4 + bsz * n * k * 4
-    kb, kby = bound_ms(nbytes, bsz * n * window * 8, PEAK_FP32)
-    ms, plain, err = knn_stats["packed"]
-    return dict(name="knn_window", route="cuda",
-                source="se3_equi_graph_registration_tpu_torch/csrc/knn.cu",
-                replaces="se3_equi_graph_registration_tpu/ops/pallas/knn_kernel.py:26",
-                launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=kb, bound_by=kby, library_ms=None)
+    surf = surface_clouds(torch, dev, bsz)
+    w1 = knn.knn_window
+    cases = {
+        "B1 packed": (w1, knn.knn_window_plain, xs, dict(k=k, tile=tile, window=window,
+                                                          packed=True)),
+        "B1 packed on surfaces": (w1, knn.knn_window_plain, surf,
+                                  dict(k=FPFH_K, tile=FPFH_TILE, window=FPFH_WINDOW,
+                                       packed=True)),
+        "B4": (knn.knn_chunked, knn.knn_chunked_plain, surf, dict(k=FPFH_K, tile=FPFH_TILE,
+                                                                   window=FPFH_WINDOW)),
+    }
+    stats = {}
+    for name, (fn, plain, data, kw) in cases.items():
+        for b in (bsz, 1):
+            x = data[:b].contiguous()
+            what = f"{name} B={b} k={kw['k']} W={kw['window']}"
+            knn_pair(torch, fn, plain, x, what, **kw)
+            ms = cuda_ms(torch, lambda: fn(x, **kw), 20)
+            thread = cuda_ms(torch, lambda: fn(x, variant="thread", **kw), 20)
+            plain_ms = cuda_ms(torch, lambda: plain(x, **kw), 3) if b == bsz else None
+            bb, bby = bound_ms(x.numel() * 4 + x.shape[1] * b * kw["k"] * 4,
+                               x.shape[1] * b * kw["window"] * 8, PEAK_FP32)
+            stats[name, b] = dict(ms=ms, thread_ms=thread, plain_ms=plain_ms, bound_ms=bb,
+                                  bound_by=bby)
+            log(f"knn {what}: warp and thread kernels identical to the plain version; warp "
+                f"{ms:.4f} ms, thread {thread:.4f} ms ({thread / ms:.2f}x)"
+                + (f", plain {plain_ms:.3f} ms" if plain_ms else "")
+                + f", bound {bb:.4f} ms ({bby}; warp at {100 * bb / ms:.2f}%, thread at "
+                f"{100 * bb / thread:.2f}%)")
+    for i, (kind, b, n_, k_, t_, w_, inc, cloud) in enumerate(KNN_EDGE_CASES):
+        x = edge_cloud(torch, dev, i, b, n_, cloud)
+        kw = dict(k=k_, tile=t_, window=w_, include_self=inc)
+        if kind == "window":
+            knn_pair(torch, w1, knn.knn_window_plain, x, f"edge case {i}", packed=True, **kw)
+        else:
+            knn_pair(torch, knn.knn_chunked, knn.knn_chunked_plain, x, f"edge case {i}", **kw)
+    log(f"knn edge cases: {len(KNN_EDGE_CASES)} (W 128-1024, k 1-128, no self, repeated points, "
+        "offset 1e3, class 0, B=1 and 2): warp and thread kernels identical to the plain version")
+
+    kw = dict(tile=tile, window=window, packed=False)
+    got = w1(xs, k, **kw)
+    torch.cuda.synchronize()
+    n_bad, err = knn_compare(xs, knn.knn_window_plain(xs, k, **kw), got)
+    ms = cuda_ms(torch, lambda: w1(xs, k, **kw), 20)
+    log(f"knn[exact] B={bsz} N={n} k={k} T={tile} W={window} (thread kernel): rows differing "
+        f"{n_bad} (near-ties), max|Δd²| {err:.3g}, kernel {ms:.4f} ms")
+
+    def row(name, source, thread_source, replaces, case, extra):
+        big, one = stats[case, bsz], stats[case, 1]
+        return dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
+                    max_abs_err=0.0, ms=big["ms"], plain_ms=big["plain_ms"],
+                    bound_ms=big["bound_ms"], bound_by=big["bound_by"], library_ms=None,
+                    variant="warp", thread_ms=big["thread_ms"], ms_b1=one["ms"],
+                    thread_ms_b1=one["thread_ms"], bound_ms_b1=one["bound_ms"],
+                    launches_by_variant={"warp": 0, "thread": 0},
+                    thread_source=thread_source, **extra)
+
+    src = "se3_equi_graph_registration_tpu_torch/csrc/"
+    k60 = stats["B1 packed on surfaces", bsz]
+    return (row("knn_window", src + "knn_warp.cu", src + "knn.cu",
+                "se3_equi_graph_registration_tpu/ops/pallas/knn_kernel.py:26", "B1 packed",
+                dict(exact_thread_ms=ms, k60_w768_ms=k60["ms"],
+                     k60_w768_thread_ms=k60["thread_ms"], k60_w768_bound_ms=k60["bound_ms"])),
+            row("knn_chunked", src + "knn_chunked_warp.cu", src + "knn_chunked.cu",
+                "se3_equi_graph_registration_tpu/ops/pallas/knn_kernel.py:93", "B4", {}))
 
 
 def egcl_tile_checks(torch, p, h, xs, nbr, gen):
@@ -697,7 +837,7 @@ def serve_phase(torch, dev, cfg, bsz, sd, rows):
               f"{what}: card vs CPU dR {dR} dt {dt} dcov {dc} dsim {ds}")
         return dR, dt
 
-    knn.knn_window.launches = 0
+    reset_knn_counters(knn)
     reset_egcl_counters(egcl)
     per_call = []
 
@@ -730,8 +870,9 @@ def serve_phase(torch, dev, cfg, bsz, sd, rows):
         rates[b] = b * reps / (time.perf_counter() - t1)
     launches = (knn.knn_window.launches, egcl.egcl_layer.launches)
     by_variant = dict(egcl.egcl_layer.launches_by_variant)
+    knn_by_variant = check_knn_warp(knn.knn_window, "serve")
     log(f"serve: main path run {time.perf_counter() - t_serve:.1f} s, launches knn "
-        f"{launches[0]} egcl {launches[1]} ({by_variant})")
+        f"{launches[0]} ({knn_by_variant}) egcl {launches[1]} ({by_variant})")
     for kd, ed in per_call:
         check(kd == 2 and ed == 2 * cfg.n_layers,
               f"register() launched knn {kd}, egcl {ed} (want 2, {2 * cfg.n_layers})")
@@ -739,7 +880,8 @@ def serve_phase(torch, dev, cfg, bsz, sd, rows):
     want = "simt" if cfg.egnn_accurate else "tile"
     check(by_variant[want] == launches[1] and sum(by_variant.values()) == launches[1],
           f"serve: EGCL launches by kernel {by_variant}, want all {launches[1]} {want}")
-    record_launches(rows, "serve", dict(knn_window=launches[0], egcl_layer=launches[1]))
+    record_launches(rows, "serve", dict(knn_window=launches[0], egcl_layer=launches[1]),
+                    dict(knn_window=knn_by_variant))
 
     other_configs(torch, dev, cfg, sd, args, same)
 
@@ -791,6 +933,7 @@ def train_phase(torch, dev, cfg, bsz, rows):
     counters = (knn.knn_window, egcl.egcl_layer, eb.egcl_backward)
     for fn in counters:
         fn.launches = 0
+    reset_knn_counters(knn)
     reset_egcl_counters(egcl)
     eb.egcl_backward.launches_by_variant = {"tile": 0, "simt": 0}
     per_step, totals = [], []
@@ -817,11 +960,13 @@ def train_phase(torch, dev, cfg, bsz, rows):
     check(bwd_by_variant[want] == launches[2] and sum(bwd_by_variant.values()) == launches[2],
           f"train: EGCL backward launches by kernel {bwd_by_variant}, want all {launches[2]} "
           f"{want}")
+    knn_by_variant = check_knn_warp(knn.knn_window, "train")
     record_launches(rows, "train", dict(zip(("knn_window", "egcl_layer", "egcl_backward"),
-                                            launches)))
+                                            launches)), dict(knn_window=knn_by_variant))
     log(f"train B={bsz}: 5 steps in {dt:.3f} s, {5 * bsz / dt:.1f} pairs/s (host clock, "
         f"synchronized at the end), losses {[round(float(v), 4) for v in losses]}; launches "
-        f"knn {launches[0]} egcl {launches[1]} ({by_variant}) egcl_backward {launches[2]} "
+        f"knn {launches[0]} ({knn_by_variant}) egcl {launches[1]} ({by_variant}) "
+        f"egcl_backward {launches[2]} "
         f"({bwd_by_variant}); peak memory of "
         f"the 6 steps {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -944,39 +1089,15 @@ def spfh_bin_flips(spfh, ref, dist_ref):
 
 
 def fpfh_kernel_phase(torch, dev, bsz):
-    """B4 and B5 against their plain versions, and B1 at the pipeline's
-    k=60/W=768, on `bsz` curve-sorted surface clouds at full width. Returns
-    the B4 and B5 rows."""
-    from se3_equi_graph_registration_tpu_torch.ops import fpfh, morton
+    """B5 against its plain version in both modes on `bsz` curve-sorted
+    surface clouds at full width, on B4's lists; the TF32 pin. Returns the
+    B5 row."""
+    from se3_equi_graph_registration_tpu_torch.ops import fpfh
     from se3_equi_graph_registration_tpu_torch.ops.kernels import knn, spfh
 
     n, k, tile, w = FPFH_N, FPFH_K, FPFH_TILE, FPFH_WINDOW
-    x = torch.from_numpy(np.stack([p[0] @ p[2].T for p in surface_pairs(bsz, 100)])).to(dev)
-    _, xs, _ = morton.sort_by_curve(x[..., :0], x)
-    xs = xs.contiguous()
-
+    xs = surface_clouds(torch, dev, bsz)
     got = knn.knn_chunked(xs, k, tile, w)
-    torch.cuda.synchronize()
-    ref = knn.knn_chunked_plain(xs, k, tile, w)
-    check(torch.equal(got, ref), "knn_chunked: the kernel's lists differ from its plain version")
-    packed = knn.knn_window(xs, k, tile, w, packed=True)
-    same_sets = torch.all(torch.sort(got, -1).values == torch.sort(packed, -1).values, -1)
-    ms4 = cuda_ms(torch, lambda: knn.knn_chunked(xs, k, tile, w), 20)
-    plain4 = cuda_ms(torch, lambda: knn.knn_chunked_plain(xs, k, tile, w), 3)
-    b4, b4by = bound_ms(xs.numel() * 4 + bsz * n * k * 4, bsz * n * w * 8, PEAK_FP32)
-    log(f"knn_chunked B={bsz} N={n} k={k} T={tile} W={w} (C={w // 128}, S_pc="
-        f"{min(2 * -(-k // (w // 128)), 128 // (w // 128))}): identical to the plain version; "
-        f"neighbor sets equal to B1 packed on {float(same_sets.float().mean()):.6f} of rows; "
-        f"kernel {ms4:.4f} ms, plain {plain4:.3f} ms, bound {b4:.4f} ms ({b4by})")
-    for mode in ("packed", "exact"):
-        kw = dict(tile=tile, window=w, packed=mode == "packed")
-        g1 = knn.knn_window(xs, k, **kw)
-        torch.cuda.synchronize()
-        n_bad, err = knn_compare(xs, knn.knn_window_plain(xs, k, **kw), g1)
-        ms1 = cuda_ms(torch, lambda: knn.knn_window(xs, k, **kw), 20)
-        log(f"knn[{mode}] at the pipeline's shape B={bsz} N={n} k={k} W={w}: rows differing "
-            f"{n_bad} (near-ties), max|Δd²| {err:.3g}, kernel {ms1:.4f} ms")
-
     normals = fpfh.estimate_normals_window(xs, got[..., :FPFH_KN]).contiguous()
     edges = bsz * n * k
     stats = {}
@@ -1004,16 +1125,11 @@ def fpfh_kernel_phase(torch, dev, bsz):
         f"{b5:.4f} ms ({b5by})")
     tf32_check(torch, xs, got)
     ms5, plain5, serr = stats["accurate"]
-    return [dict(name="knn_chunked", route="cuda",
-                 source="se3_equi_graph_registration_tpu_torch/csrc/knn_chunked.cu",
-                 replaces="se3_equi_graph_registration_tpu/ops/pallas/knn_kernel.py:93",
-                 launches=0, max_abs_err=0.0, ms=ms4, plain_ms=plain4, bound_ms=b4,
-                 bound_by=b4by, library_ms=None),
-            dict(name="spfh", route="cuda",
-                 source="se3_equi_graph_registration_tpu_torch/csrc/spfh.cu",
-                 replaces="se3_equi_graph_registration_tpu/ops/pallas/spfh_kernel.py:62",
-                 launches=0, max_abs_err=serr, ms=ms5, plain_ms=plain5, bound_ms=b5,
-                 bound_by=b5by, library_ms=None)]
+    return dict(name="spfh", route="cuda",
+                source="se3_equi_graph_registration_tpu_torch/csrc/spfh.cu",
+                replaces="se3_equi_graph_registration_tpu/ops/pallas/spfh_kernel.py:62",
+                launches=0, max_abs_err=serr, ms=ms5, plain_ms=plain5, bound_ms=b5,
+                bound_by=b5by, library_ms=None)
 
 
 def tf32_check(torch, xs, nbr):
@@ -1071,6 +1187,7 @@ def register_fpfh_phase(torch, dev, rows):
                     egcl_backward=eb.egcl_backward, knn_chunked=knn.knn_chunked, spfh=spfh.spfh)
     for fn in counters.values():
         fn.launches = 0
+    reset_knn_counters(knn)
 
     rates = {}
     t0 = time.perf_counter()
@@ -1125,12 +1242,14 @@ def register_fpfh_phase(torch, dev, rows):
         log(f"register_fpfh_batch B={b}: {ok}/{b} pairs within 0.5 deg / 5 mm; launches {d}; "
             f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     launches = {k_: fn.launches for k_, fn in counters.items()}
-    log(f"register_fpfh path: run {time.perf_counter() - t0:.1f} s, launches {launches}")
+    chunked_by_variant = check_knn_warp(knn.knn_chunked, "register_fpfh")
+    log(f"register_fpfh path: run {time.perf_counter() - t0:.1f} s, launches {launches}; "
+        f"knn_chunked by kernel {chunked_by_variant}")
     log("register_fpfh pairs/s (host clock incl. sampling, H2D, noise draw and result copy; "
         "robust = 4 branches): " + ", ".join(f"{k_}: {r:.2f}" for k_, r in rates.items()))
     for name in ("knn_chunked", "spfh"):
         check(launches[name] > 0, f"{name} never launched on the register_fpfh path")
-    record_launches(rows, "register_fpfh", launches)
+    record_launches(rows, "register_fpfh", launches, dict(knn_chunked=chunked_by_variant))
     profile_call(torch, lambda: registration.register_fpfh(src, tgt, **kw), "register_fpfh b=1")
 
 
@@ -1156,18 +1275,21 @@ def other_configs(torch, dev, cfg, sd, args, same):
     for name, kw in variants.items():
         vcfg = engine.EngineConfig(**dict(base, **kw))
         reg = serving.Registrar(sd, vcfg, device=dev)
-        knn.knn_window.launches = 0
+        reset_knn_counters(knn)
         reset_egcl_counters(egcl)
         res = reg.register(*args(slice(0, 2)))
         kd, ed = knn.knn_window.launches, egcl.egcl_layer.launches
         by_variant = dict(egcl.egcl_layer.launches_by_variant)
         check(kd == 2 and ed == 2 * vcfg.n_layers,
               f"config {name}: register() launched knn {kd}, egcl {ed}")
+        check(knn.knn_window.launches_by_variant == {"warp": 0, "thread": 2},
+              f"config {name}: k-NN launches by kernel {knn.knn_window.launches_by_variant} "
+              "(exact keys and the whole cloud run the thread kernel)")
         check(by_variant["simt" if vcfg.egnn_accurate else "tile"] == ed,
               f"config {name}: EGCL launches by kernel {by_variant}")
         dR, dt = same(res, serving.Registrar(sd, vcfg, device="cpu").register(
             *args(slice(0, 2))), f"config {name}")
-        log(f"config {name}: launches knn {kd} egcl {ed} ({by_variant}); card vs CPU "
+        log(f"config {name}: launches knn {kd} (thread kernel) egcl {ed} ({by_variant}); card vs CPU "
             f"max‖ΔR‖/√2 {dR:.3g}, max|Δt| {dt:.3g} m")
 
 

@@ -1,22 +1,27 @@
-// Exact / packed-key k-NN over Hilbert windows, for Hopper (sm_90a).
+// Exact / packed-key k-NN over Hilbert windows or the whole cloud, one thread
+// a query, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel se3_equi_graph_registration_tpu/ops/pallas/
-// knn_kernel.py::_knn_kernel (wrapper knn_pallas). Same function, not the
-// same blocks: the TPU kernel builds a [T, W] distance tile and runs K
-// min-reduction sweeps over it because its vector unit likes wide sweeps.
-// Here one thread owns one query and keeps its K best keys sorted by
-// insertion while it streams the window once.
+// knn_kernel.py:26 `_knn_kernel` (wrapper knn_pallas) in exact mode and over
+// the whole cloud (window = N). Packed mode over a window runs on the
+// warp-a-query csrc/knn_warp.cu on the main paths; this kernel's packed mode
+// stays for comparison (`variant='thread'` in ops/kernels/knn.py). Same
+// function as the TPU kernel, not the same blocks: the TPU kernel builds a
+// [T, W] distance tile and runs K min-reduction sweeps over it because its
+// vector unit likes wide sweeps. Here one thread owns one query and keeps
+// its K best keys sorted by insertion while it streams the window once.
 //
-// What bounds it on this card: neither bytes nor FLOPs. Per query it reads
-// W candidates (from shared memory) and does 8 flops each, so at the
-// served shape (B = 64 clouds per call, N = 2048, W = 384) the work is
-// ~0.4 GFLOP of fp32 and ~10 MB of coordinates in and indices out — a few
-// microseconds at peak. What costs is instruction throughput: the
-// compare/insert per candidate. The design keeps the
-// candidate coordinates and ‖c‖² in shared memory (broadcast reads, no
-// bank conflicts), the sorted list in shared memory columns (thread t owns
-// column t: conflict-free), and the current K-th key in a register so the
-// common case — candidate rejected — is one compare.
+// What bounds it on this card: neither bytes nor FLOPs (8 flops per query
+// and candidate; at B = 64 clouds, N = 2048, W = 384, ~0.4 GFLOP and ~10 MB,
+// a few microseconds at peak) but instruction issue, and this design spends
+// it badly: an accepted candidate shifts up to K entries through shared
+// memory, divergently across the warp, and one cloud makes N/T = 16 blocks
+// for 132 SMs. What it does about it: candidate coordinates and ‖c‖² in
+// shared memory (broadcast reads, no bank conflicts), the sorted list in
+// shared-memory columns (thread t owns column t: conflict-free), the
+// current K-th key in a register so a rejected candidate costs one compare.
+// Exact mode keeps (d², id) pairs, which the warp kernel's unique packed keys
+// do not cover; it is not redesigned yet (ROADMAP).
 //
 // Numerics: d² = (‖q‖² − 2·q·c) + ‖c‖², each product and sum rounded on its
 // own (__fmul_rn/__fadd_rn, no FMA contraction), in the fixed order of the

@@ -1,7 +1,9 @@
-// Two-level (chunked) packed-key k-NN over Hilbert windows, for Hopper (sm_90a).
+// Two-level (chunked) packed-key k-NN over Hilbert windows, one thread a
+// query, for Hopper (sm_90a): kept to compare against the main-path kernel
+// csrc/knn_chunked_warp.cu (`variant='thread'` in ops/kernels/knn.py).
 //
 // Replaces the TPU kernel se3_equi_graph_registration_tpu/ops/pallas/
-// knn_kernel.py::_knn_kernel_chunked (wrapper knn_pallas(chunked=True)).
+// knn_kernel.py:93 `_knn_kernel_chunked` (wrapper knn_pallas(chunked=True)).
 // The function, which differs from packed mode's: every window candidate at
 // offset r gets the key (bits(d²) & ~0x3FF) | r, compared as signed int32;
 // the W candidates fall into C = W/128 residue classes c = r mod C; the
@@ -10,17 +12,19 @@
 // (key & 0x3FF) + S. A neighbor is lost only when one class holds more
 // than S_pc of the true K nearest.
 //
-// Design: the TPU kernel min-reduces a [128, C, T] key tile S_pc times and
-// then the shortlist K times, because its vector unit likes wide sweeps.
-// Here one thread owns one query, as in csrc/knn.cu: it streams the window
+// Design: one thread owns one query, as in csrc/knn.cu: it streams the window
 // once from shared memory, and keeps C sorted insertion lists of S_pc keys
 // (in shared memory, column t for thread t: conflict-free) with each list's
 // largest key in a register, so a rejected candidate costs one compare. A
 // C-way merge of the sorted lists then writes the K smallest in order.
 //
 // What bounds it: not bytes (x in, indices out: ~32 MB at B = 64 clouds,
-// N = 2048, K = 60) and not the 8 flops per (query, candidate); the
-// compare/insert instructions per candidate, as in B1.
+// N = 2048, K = 60) and not the 8 flops per (query, candidate), but the
+// issue of the compare/insert instructions, which this design spends
+// badly: divergent insertions (far candidates come first in a window centred
+// on the query, and are evicted later), 73 KB of lists a block at W = 768
+// (3 blocks an SM to hide the dependent shared-memory loads), the C-way
+// merge's K·C dependent reads, and 16 blocks for one cloud of N = 2048.
 //
 // Numerics: d² = (‖c‖² − 2·c·q) + ‖q‖², the TPU kernel's order (the reverse
 // of B1's), each product and sum rounded on its own (no FMA contraction), in

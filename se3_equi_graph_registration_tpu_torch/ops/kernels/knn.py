@@ -1,8 +1,7 @@
-"""Window / whole-cloud k-NN: the CUDA kernels `csrc/knn.cu` (B1) and
-`csrc/knn_chunked.cu` (B4) with their plain versions (counterpart of
-`ops/pallas/knn_kernel.py`, `knn_pallas`).
+"""Window / whole-cloud k-NN: the plain versions and the wrappers of four
+CUDA kernels, counterparts of `ops/pallas/knn_kernel.py` (`knn_pallas`).
 
-`knn_window`, the two modes of `_knn_kernel`:
+`knn_window` (B1, `_knn_kernel`, knn_kernel.py:26), two modes:
 
 - exact: order by (d², global id) — the lowest-index tie-break of
   `lax.top_k`;
@@ -11,14 +10,30 @@
   against the exact order (near-tie noise).
 
 d² = (‖q‖² − 2·q·c) + ‖c‖², summed in a fixed order with no fused
-multiply-adds, so the kernel and the plain version agree bit for bit.
+multiply-adds, so every kernel and the plain version agree bit for bit.
 
-`knn_chunked`, `_knn_kernel_chunked` (`knn_pallas(chunked=True)`), a
-different function: packed keys with the window offset r, split into
-C = W/128 residue classes c = r mod C; the S_pc = min(2·⌈K/C⌉, 128/C)
-smallest keys of each class form a shortlist, whose K smallest keys,
-ascending, are the neighbors. d² = (‖c‖² − 2·c·q) + ‖q‖², the TPU kernel's
-order, so near-tie keys differ from packed mode's.
+`knn_chunked` (B4, `_knn_kernel_chunked`, knn_kernel.py:93,
+`knn_pallas(chunked=True)`), a different function: packed keys with the
+window offset r, split into C = W/128 residue classes c = r mod C; the
+S_pc = min(2·⌈K/C⌉, 128/C) smallest keys of each class form a shortlist,
+whose K smallest keys, ascending, are the neighbors. d² = (‖c‖² − 2·c·q) +
+‖q‖², the TPU kernel's order, so near-tie keys differ from packed mode's.
+
+The kernels, picked by `knn_variant` before the launch and counted in each
+wrapper's `launches_by_variant`:
+
+- 'warp', packed keys (B1 packed: `csrc/knn_warp.cu`; B4:
+  `csrc/knn_chunked_warp.cu`; both on `csrc/knn_select.cuh`): one warp a
+  query. Neither bytes nor the 8 flops per (query, candidate) bound these
+  on an H100, but instruction issue; so each lane computes its candidates'
+  keys into registers from a window staged once a block, and the warp
+  selects by counting (a radix search for a threshold with exactly K keys
+  below it), never by divergent insertion. A block of 4 warps covers 4
+  queries of a tile (16 from 64 k queries on), so one cloud fills the card.
+- 'thread' (B1 exact and whole cloud: `csrc/knn.cu`; B4 for comparison:
+  `csrc/knn_chunked.cu`): one thread a query, sorted insertion lists in
+  shared memory. `variant='thread'` launches them where the warp kernel
+  would run, for `chip_smoke.py` to compare and time the two.
 """
 from __future__ import annotations
 
@@ -72,41 +87,86 @@ def knn_window_plain(x: torch.Tensor, k: int, tile: int = 128,
     return idx.reshape(x.shape[:-1] + (k,)).to(torch.int32)
 
 
-def knn_window(x: torch.Tensor, k: int, tile: int = 128,
-               window: Optional[int] = None, packed: bool = False,
-               include_self: bool = True) -> torch.Tensor:
-    """k-NN of curve-sorted clouds x [B, N, 3] f32 → nbr [B, N, K] int32.
+def knn_variant(packed: bool | str, window: Optional[int]) -> str:
+    """Which hand-written kernel runs a k-NN: 'warp' for packed keys over a
+    window of at most 1024 (`csrc/knn_warp.cu`) and for chunked keys
+    (`packed='chunked'`, `csrc/knn_chunked_warp.cu`); 'thread' for exact keys
+    and the whole cloud (`csrc/knn.cu`). A choice by shape, made before the
+    launch; a launch that fails raises."""
+    if packed == "chunked" or (packed and window is not None and window <= 1024):
+        return "warp"
+    return "thread"
 
-    `window=None` searches the whole cloud. A CPU tensor takes the plain
-    version; a CUDA tensor launches `csrc/knn.cu`.
-    """
+
+def _queries_per_warp(b: int, n: int) -> int:
+    """Queries a warp takes in turn: one while the batch is small, so that one
+    cloud spreads over every SM; four from 64 k queries on, where the card
+    is full either way and each block stages its window for 16 queries."""
+    return 4 if b * n >= 65536 else 1
+
+
+def _check_call(x: torch.Tensor, tile: int, variant: Optional[str], by_shape: str) -> None:
+    """The checks every wrapper makes before it picks a path."""
     if x.dim() != 3 or x.shape[-1] != 3 or x.dtype != torch.float32:
         raise ValueError(f"x must be float32 [B, N, 3], got {x.dtype} {tuple(x.shape)}")
+    if variant not in (None, "warp", "thread") or (variant == "warp" and by_shape != "warp"):
+        raise ValueError(f"no {variant!r} k-NN kernel for this mode and window")
     if x.device.type == "cpu":
-        return knn_window_plain(x, k, tile, window, packed, include_self)
+        if variant is not None:
+            raise ValueError("a CPU tensor takes the plain version; variant names a CUDA kernel")
+        return
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     if tile > 1024:
         raise ValueError(f"tile={tile} exceeds the 1024 threads of a block")
-    b, n, _ = x.shape
-    w, pad_tiles, max_tile = _geometry(n, tile, window, packed, k)
-    out = torch.empty((b, n, k), dtype=torch.int32, device=x.device)
-    lib = build.load("knn")
-    fn = lib.knn_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def _launch(source: str, symbol: str, x: torch.Tensor, out: torch.Tensor, *ints: int) -> None:
+    """Launch `symbol` of `csrc/<source>.cu` on x's current stream; raises on
+    a failed launch."""
+    fn = getattr(build.load(source), symbol)
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), b, n, k, tile, w, pad_tiles,
-                 max_tile, int(packed), int(include_self), stream)
-    build.check(err, "knn_launch")
+        err = fn(x.data_ptr(), out.data_ptr(), *ints, stream)
+    build.check(err, symbol)
+
+
+def knn_window(x: torch.Tensor, k: int, tile: int = 128,
+               window: Optional[int] = None, packed: bool = False,
+               include_self: bool = True, variant: Optional[str] = None) -> torch.Tensor:
+    """k-NN of curve-sorted clouds x [B, N, 3] f32 → nbr [B, N, K] int32.
+
+    `window=None` searches the whole cloud. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel `knn_variant` names.
+    `variant='thread'` asks for `csrc/knn.cu` where the warp kernel would run
+    (to compare the two); 'warp' where there is none, or any variant on a
+    CPU tensor, raises.
+    """
+    by_shape = knn_variant(packed, window)
+    _check_call(x, tile, variant, by_shape)
+    if x.device.type == "cpu":
+        return knn_window_plain(x, k, tile, window, packed, include_self)
+    b, n, _ = x.shape
+    w, pad_tiles, max_tile = _geometry(n, tile, window, packed, k)
+    out = torch.empty((b, n, k), dtype=torch.int32, device=x.device)
+    variant = variant or by_shape
+    if variant == "warp":
+        _launch("knn_warp", "knn_warp_launch", x, out, b, n, k, tile, w, pad_tiles, max_tile,
+                int(include_self), _queries_per_warp(b, n))
+    else:
+        _launch("knn", "knn_launch", x, out, b, n, k, tile, w, pad_tiles, max_tile,
+                int(packed), int(include_self))
     knn_window.launches += 1
+    knn_window.launches_by_variant[variant] += 1
     return out
 
 
 knn_window.launches = 0
+knn_window.launches_by_variant = {"warp": 0, "thread": 0}
 
 
 def _chunked_geometry(n: int, tile: int, window: int, k: int
@@ -145,33 +205,28 @@ def knn_chunked_plain(x: torch.Tensor, k: int, tile: int = 128, window: int = 76
 
 
 def knn_chunked(x: torch.Tensor, k: int, tile: int = 128, window: int = 768,
-                include_self: bool = True) -> torch.Tensor:
+                include_self: bool = True, variant: Optional[str] = None) -> torch.Tensor:
     """Chunked packed-key k-NN (B4) of curve-sorted clouds x [B, N, 3] f32 →
     nbr [B, N, K] int32. A CPU tensor takes the plain version; a CUDA tensor
-    launches `csrc/knn_chunked.cu`."""
-    if x.dim() != 3 or x.shape[-1] != 3 or x.dtype != torch.float32:
-        raise ValueError(f"x must be float32 [B, N, 3], got {x.dtype} {tuple(x.shape)}")
+    launches `csrc/knn_chunked_warp.cu`, or with `variant='thread'` the
+    thread-a-query `csrc/knn_chunked.cu` (to compare the two)."""
+    _check_call(x, tile, variant, knn_variant("chunked", window))
     if x.device.type == "cpu":
         return knn_chunked_plain(x, k, tile, window, include_self)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    if tile > 1024:
-        raise ValueError(f"tile={tile} exceeds the 1024 threads of a block")
     b, n, _ = x.shape
     pad_tiles, max_tile, _, s_pc = _chunked_geometry(n, tile, window, k)
     out = torch.empty((b, n, k), dtype=torch.int32, device=x.device)
-    fn = build.load("knn_chunked").knn_chunked_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), b, n, k, tile, window, s_pc, pad_tiles,
-                 max_tile, int(include_self), stream)
-    build.check(err, "knn_chunked_launch")
+    variant = variant or "warp"
+    if variant == "warp":
+        _launch("knn_chunked_warp", "knn_chunked_warp_launch", x, out, b, n, k, tile, window,
+                s_pc, pad_tiles, max_tile, int(include_self), _queries_per_warp(b, n))
+    else:
+        _launch("knn_chunked", "knn_chunked_launch", x, out, b, n, k, tile, window, s_pc,
+                pad_tiles, max_tile, int(include_self))
     knn_chunked.launches += 1
+    knn_chunked.launches_by_variant[variant] += 1
     return out
 
 
 knn_chunked.launches = 0
+knn_chunked.launches_by_variant = {"warp": 0, "thread": 0}

@@ -77,6 +77,27 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
     assert np.all(np.isfinite(R)) and abs(np.linalg.det(R) - 1) < 1e-4
 
 
+def test_knn_wrappers_reject_a_kernel_variant_as_they_reject_a_bad_geometry():
+    """`variant` names a CUDA kernel (to compare the warp and thread kernels
+    on the card): on a CPU tensor, or where that kernel does not exist, the
+    wrappers raise ValueError before any work, as for a bad geometry."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn
+
+    x = torch.zeros(1, 512, 3)
+    with pytest.raises(ValueError):
+        knn.knn_window(x, 8, 100, 200, packed=True)                 # bad geometry
+    for variant in ("thread", "warp"):
+        with pytest.raises(ValueError, match="CPU tensor"):
+            knn.knn_window(x, 8, 128, 384, packed=True, variant=variant)
+        with pytest.raises(ValueError, match="CPU tensor"):
+            knn.knn_chunked(x, 8, 128, 256, variant=variant)
+    with pytest.raises(ValueError, match="no 'warp'"):
+        knn.knn_window(x, 8, 128, 384, packed=False, variant="warp")  # exact mode
+    with pytest.raises(ValueError, match="no 'simt'"):
+        knn.knn_chunked(x, 8, 128, 256, variant="simt")
+    assert knn.knn_window(x, 8, 128, 384, packed=True).shape == (1, 512, 8)
+
+
 def test_engine_rejects_unported_modes():
     from se3_equi_graph_registration_tpu_torch.train import engine
 

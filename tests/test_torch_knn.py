@@ -57,3 +57,27 @@ def test_wrapper_rejects_bad_inputs():
         knn_window(x, 8, tile=128, window=None, packed=True)   # packed needs a window
     with pytest.raises(ValueError):
         knn_window(x, 8, tile=100, window=200)
+
+
+@pytest.mark.parametrize("packed,window,want", [
+    (True, 384, "warp"), (True, 1024, "warp"), (True, 128, "warp"),
+    ("chunked", 768, "warp"), ("chunked", 128, "warp"),
+    (False, 384, "thread"), (False, None, "thread"), (True, None, "thread"),
+], ids=["packed-384", "packed-1024", "packed-128", "chunked-768", "chunked-128", "exact-384",
+        "exact-whole-cloud", "packed-whole-cloud"])
+def test_knn_variant_routes_packed_windows_and_chunked_keys_to_the_warp_kernels(
+        packed, window, want):
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn as kk
+
+    assert kk.knn_variant(packed, window) == want
+
+
+def test_knn_counters_by_variant_exist_and_start_at_zero():
+    """CPU tensors never launch a kernel, so the counters stay at 0 here."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn as kk
+
+    x = torch.zeros(1, 256, 3)
+    kk.knn_window(x, 8, 128, 256, packed=True)
+    kk.knn_chunked(x, 8, 128, 256)
+    for fn in (kk.knn_window, kk.knn_chunked):
+        assert fn.launches == 0 and fn.launches_by_variant == {"warp": 0, "thread": 0}

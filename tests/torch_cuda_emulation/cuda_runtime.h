@@ -1,10 +1,12 @@
-// Host emulation of the CUDA the port's tensor-core kernels use, for CPU tests
-// (tests/test_torch_egcl_tile_emulated.py): a block runs as one std::thread per
-// CUDA thread, blocks one after another; __syncthreads, __syncwarp, the warp
-// shuffles and mma.sync.m16n8k16 (bf16 operands, fp32 accumulation, the PTX
-// fragment layouts) are collectives over std::barrier. Slow and exact enough to
-// check a kernel's indexing, masking and fragment plumbing without a card; it
-// says nothing about what nvcc accepts or how fast anything is.
+// Host emulation of the CUDA the port's hand-written kernels use, for CPU tests
+// (tests/test_torch_egcl_tile_emulated.py, tests/test_torch_knn_warp_emulated.py):
+// a block runs as one std::thread per CUDA thread, blocks one after another;
+// __syncthreads, __syncwarp, the warp shuffles, votes and reductions and
+// mma.sync.m16n8k16 (bf16 operands, fp32 accumulation, the PTX fragment
+// layouts) are collectives over std::barrier. The _rn arithmetic is plain float
+// arithmetic: compile with -ffp-contract=off so nothing fuses. Slow and exact
+// enough to check a kernel's indexing, masking and fragment plumbing without a
+// card; it says nothing about what nvcc accepts or how fast anything is.
 #pragma once
 #include <cmath>
 #include <cstdint>
@@ -15,6 +17,8 @@
 #include <functional>
 #include <memory>
 #include <atomic>
+#include <algorithm>
+using std::min; using std::max;
 #define __device__
 #define __global__
 #define __forceinline__ inline
@@ -35,7 +39,21 @@ inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
 inline int cudaGetLastError() { return 0; }
 extern thread_local dim3m threadIdx, blockIdx, blockDim, gridDim;
-struct WarpCtx { std::barrier<> bar{32}; uint32_t buf[32][10]; };
+// a warp's 32 lanes meet at every collective: they spin, yielding, rather than sleep
+struct SpinBarrier {
+  explicit SpinBarrier(int n) : n(n) {}
+  void arrive_and_wait() {
+    const unsigned g = gen.load(std::memory_order_acquire);
+    if (count.fetch_add(1, std::memory_order_acq_rel) == n - 1) {
+      count.store(0, std::memory_order_relaxed);
+      gen.fetch_add(1, std::memory_order_release);
+    } else {
+      while (gen.load(std::memory_order_acquire) == g) std::this_thread::yield();
+    }
+  }
+  const int n; std::atomic<int> count{0}; std::atomic<unsigned> gen{0};
+};
+struct WarpCtx { SpinBarrier bar{32}; uint32_t buf[32][10]; };
 extern thread_local WarpCtx* warp_ctx;
 extern thread_local std::barrier<>* block_bar;
 inline void __syncthreads() { block_bar->arrive_and_wait(); }
@@ -45,6 +63,28 @@ template <class T> inline T __shfl_sync(unsigned, T v, int src) {
   warp_ctx->bar.arrive_and_wait(); T r; std::memcpy(&r, &warp_ctx->buf[src & 31][0], 4);
   warp_ctx->bar.arrive_and_wait(); return r; }
 template <class T> inline T __shfl_xor_sync(unsigned m, T v, int x) { return __shfl_sync(m, v, (threadIdx.x & 31) ^ x); }
+// votes and reductions over the warp: each lane posts its value, all read all.
+// One barrier each: consecutive gathers alternate between two slots, and a lane
+// can write a slot again only after every lane has passed the barrier between.
+inline thread_local unsigned emulated_gathers = 0;
+inline void emulated_gather(uint32_t v, uint32_t (&all)[32]) {
+  const int lane = threadIdx.x & 31, slot = 8 + (emulated_gathers++ & 1);
+  warp_ctx->buf[lane][slot] = v;
+  warp_ctx->bar.arrive_and_wait();
+  for (int l = 0; l < 32; ++l) all[l] = warp_ctx->buf[l][slot]; }
+inline unsigned __ballot_sync(unsigned, int p) {
+  uint32_t all[32]; emulated_gather(p != 0, all); unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r |= all[l] << l;
+  return r; }
+inline int __reduce_add_sync(unsigned, int v) {
+  uint32_t all[32]; emulated_gather(static_cast<uint32_t>(v), all); uint32_t r = 0;
+  for (int l = 0; l < 32; ++l) r += all[l];
+  return static_cast<int>(r); }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline float __fdividef(float a, float b) { return a / b; }
 inline float __expf(float a) { return std::exp(a); }
 inline float rsqrtf(float a) { return 1.0f / std::sqrt(a); }
