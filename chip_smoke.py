@@ -117,6 +117,7 @@ import numpy as np
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+SLEEP_CYCLES_PER_CALL = 400_000   # ~0.2 ms at the H100's clocks, above a wrapper's host time
 BWD_TOL_ACCURATE = 1e-4
 BWD_TOL_FAST = 5e-3
 # csrc/spfh.cu, fp32 operations per edge: d and d² (8), sqrt and d̂ (5), the
@@ -140,10 +141,14 @@ def check(cond, what):
 
 
 def cuda_ms(torch, fn, reps):
+    """Device ms a call of fn, over `reps` calls. The timed calls queue up
+    behind a device-side sleep that outlasts their enqueue, so a kernel
+    shorter than its host launch path is timed on the device, not the host."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
     e0.record()
     for _ in range(reps):
         fn()
@@ -445,7 +450,7 @@ def main(argv=None) -> int:
     log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s (parallel nvcc, sm_90a)")
     for name, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}] {line.strip()}")
 
     rows = run(torch, dev, engine.fast_tpu_config(), bsz=64, phases=phases)
@@ -544,7 +549,7 @@ KNN_EDGE_CASES = (
     ("chunked", 2, 128, 16, 128, 128, True, "uniform"),
     ("chunked", 1, 512, 1, 128, 256, True, "uniform"),
     ("chunked", 1, 512, 30, 128, 384, True, "uniform"),
-    ("chunked", 1, 1024, 60, 128, 1024, True, "uniform"),
+    ("chunked", 1, 1024, 30, 128, 1024, True, "uniform"),
     ("chunked", 1, 384, 16, 128, 384, False, "uniform"),
     ("chunked", 1, 384, 30, 128, 384, True, "repeated"),
     ("chunked", 1, 384, 16, 128, 384, True, "offset"),
@@ -593,9 +598,13 @@ def knn_pair(torch, fn, plain, x, what, **kw):
     check({v: counts[v] - before[v] for v in counts} == {"warp": 1, "thread": 1},
           f"{what}: launches by kernel {counts} (before {before})")
     ref = plain(x, **kw)
-    check(torch.equal(warp, ref), f"{what}: the warp kernel's lists differ from the plain version")
-    check(torch.equal(thread, ref),
-          f"{what}: the thread kernel's lists differ from the plain version")
+    for name, got in (("warp", warp), ("thread", thread)):
+        if not torch.equal(got, ref):
+            bad = torch.nonzero(torch.any(got != ref, -1))
+            b, q = bad[0].tolist()
+            check(False, f"{what}: the {name} kernel's lists differ from the plain version in "
+                  f"{len(bad)} rows; first (cloud {b}, query {q}): {got[b, q].tolist()} against "
+                  f"{ref[b, q].tolist()}")
 
 
 def knn_phase(torch, xs, k, tile, window):

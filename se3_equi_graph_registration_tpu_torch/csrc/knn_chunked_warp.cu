@@ -20,13 +20,13 @@
 // - a block of 4 warps stages its tile's window once, offset r = q·C + c at
 //   [c][q], so lane l reading class c's q ∈ {l, l+32, l+64, l+96} is
 //   stride-1; 14 KB a block at W = 768;
-// - per class the lane's 4 keys stay in registers; a warp radix select
-//   finds t_c with exactly S_pc keys ≤ t_c, and the class's shortlist is
-//   appended to a per-warp buffer;
-// - the shortlist (≤ 128 keys, 4 a lane) is selected again for K, and the K
-//   winners are ranked by counting and written in ascending order;
-// - every branch is warp-uniform, and a block covers 4·qpw queries of a
-//   tile, so one cloud of N = 2048 launches 512 blocks (qpw = 1).
+// - per class the lane's 4 keys stay in registers, sorted; S_pc warp-min
+//   steps per class (the C classes interleaved) extract each class's
+//   shortlist in ascending order into a per-warp buffer [i][c];
+// - lane c then walks class c's list, and K warp-min steps over the C
+//   heads merge the shortlists into the K smallest, written in order;
+// - a block covers 4·qpw queries of a tile, so one cloud of N = 2048
+//   launches 512 blocks (qpw = 1).
 //
 // Numerics: d² = (‖c‖² − 2·c·q) + ‖q‖², the TPU kernel's order (the reverse
 // of B1's), each product and sum rounded on its own (no FMA contraction), in
@@ -54,7 +54,7 @@ knn_chunked_warp_kernel(const float* __restrict__ x, int* __restrict__ out, int 
   float* cy = cx + W;
   float* cz = cy + W;
   float* c2 = cz + W;
-  unsigned* buf = reinterpret_cast<unsigned*>(c2 + W) + (threadIdx.x >> 5) * kClassLen;
+  int* lists = reinterpret_cast<int*>(c2 + W) + (threadIdx.x >> 5) * kClassLen;
   const int lane = threadIdx.x & 31;
 
   const BlockQueries bq = block_queries(N, T, qpw);
@@ -67,9 +67,9 @@ knn_chunked_warp_kernel(const float* __restrict__ x, int* __restrict__ out, int 
     const int q = bq.tile * T + ql;
     const float qx = xb[q * 3 + 0], qy = xb[q * 3 + 1], qz = xb[q * 3 + 2];
     const float q2 = sqnorm(qx, qy, qz);
+    int u[C][4];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      unsigned u[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qc = lane + 32 * j, s = c * kClassLen + qc, r = qc * C + c;
@@ -77,21 +77,22 @@ knn_chunked_warp_kernel(const float* __restrict__ x, int* __restrict__ out, int 
                                       __fmul_rn(cz[s], qz));
         float d2 = __fadd_rn(__fsub_rn(c2[s], __fmul_rn(2.0f, cross)), q2);
         if (!include_self && S + r == q) d2 = CUDART_INF_F;
-        u[j] = order_key(d2, r);
+        u[c][j] = order_key(d2, r);
       }
-      compact(u, select_threshold(u, S_pc), buf + c * S_pc, S_pc);
+      sort_keys(u[c]);
     }
-    __syncwarp();
-    unsigned sh[4];
+    // the S_pc smallest of each class, ascending: entry i of class c at
+    // lists[c + i·C], so that lane c walks class c's list below
+    for (int i = 0; i < S_pc; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = lane + 32 * j;
-      sh[j] = i < S_pc * C ? buf[i] : kPad;
+      for (int c = 0; c < C; ++c) {
+        const int g = next_key(u[c]);
+        if (lane == 0) lists[c + i * C] = g;
+      }
     }
     __syncwarp();
-    compact(sh, select_threshold(sh, K), buf, K);
-    __syncwarp();
-    write_sorted(buf, K, out + (static_cast<size_t>(bq.b) * N + q) * K, S);
+    extract_to(lists, C, lane < C ? S_pc : 0, lane < C ? lists[lane] : kPad, K,
+               out + (static_cast<size_t>(bq.b) * N + q) * K, S);
     __syncwarp();
   }
 }

@@ -4,23 +4,23 @@
 //
 // One warp owns one query. Its block has staged the query tile's window
 // once in shared memory (`stage_window`); each lane computes the keys of its
-// own candidates into registers, and the warp selects by counting, never by
-// insertion:
+// own candidates into registers, and the warp selects without insertion:
+// - each lane sorts its keys in registers (`sort_keys`, Batcher's odd-even
+//   merge network: fixed compare-exchanges, no branch);
 // - keys are unique within a query (the low 10 bits hold the window offset),
-//   so a threshold t with exactly M keys ≤ t selects exactly the M smallest;
-// - `select_threshold` finds such a t by a radix search from the top bit:
-//   each round counts the keys ≤ a trial value (a compare a key, one
-//   __reduce_add_sync a round) and fixes one bit. It stops at the first
-//   trial that counts exactly M: ~12-14 rounds on the served and
-//   checkpoint-free clouds instead of 32, every branch warp-uniform;
-// - `compact` appends the selected keys to a per-warp buffer (ballot and
-//   popc prefix), `write_sorted` ranks each by counting the smaller ones
-//   and writes the neighbor (key & 0x3FF) + S at its rank: ascending order.
+//   so the smallest of the lanes' heads (`__reduce_min_sync`, one
+//   instruction) is the next key in ascending order, and exactly one lane
+//   advances its list (`next_key`). M steps extract the M smallest in order,
+//   with no threshold to search for and nothing to rank afterwards.
+// A first build selected by counting (a radix search for a threshold with
+// exactly M keys at or below it, ~12-14 rounds of a compare and a
+// __reduce_add_sync per key and round, then a compaction and a ranking by
+// counting): on an H100 it measured slower at every shape (PERF.md).
 //
-// Keys live in unsigned order: the packed key (bits(d²) & ~0x3FF) | r with
-// its sign bit flipped, so unsigned order is the signed int32 order of the
-// plain versions (a slightly negative d² from cancellation sorts first, as on
-// the TPU). Pads sit at 0xFFFFFFFF, above every key of a finite d².
+// Keys are the packed int32 (bits(d²) & ~0x3FF) | r, compared signed as the
+// plain versions compare them (a slightly negative d² from cancellation
+// sorts first, as on the TPU). Pads sit at INT_MAX, above every key of a
+// finite d².
 
 #pragma once
 #include <cuda_runtime.h>
@@ -29,8 +29,7 @@
 namespace knn_select {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned kSign = 0x80000000u;
-constexpr unsigned kPad = 0xffffffffu;
+constexpr int kPad = 0x7fffffff;
 constexpr int kWarps = 4;                 // warps a block: one query each at a time
 constexpr int kThreads = 32 * kWarps;
 
@@ -44,10 +43,9 @@ __device__ __forceinline__ int window_start(int tile, int pad_tiles, int max_til
   return max(0, min(tile - pad_tiles, max_tile)) * T;
 }
 
-// The packed key of window offset r in unsigned order.
-__device__ __forceinline__ unsigned order_key(float d2, int r) {
-  return ((static_cast<unsigned>(__float_as_int(d2)) & ~0x3FFu) | static_cast<unsigned>(r)) ^
-         kSign;
+// The packed key of window offset r.
+__device__ __forceinline__ int order_key(float d2, int r) {
+  return (__float_as_int(d2) & ~0x3FF) | r;
 }
 
 // Where a block's queries are: blocks enumerate (cloud, tile, sub) with sub
@@ -88,49 +86,70 @@ __device__ __forceinline__ void stage_window(const float* __restrict__ xb, int S
   }
 }
 
-// A threshold t with exactly m of the warp's keys ≤ t (1 ≤ m ≤ the number
-// of keys that are not pads). Radix search from the top bit; the result is
-// warp-uniform.
-template <int NJ>
-__device__ __forceinline__ unsigned select_threshold(const unsigned (&u)[NJ], int m) {
-  unsigned prefix = 0, bit = kSign;
-  for (int round = 0; round < 32; ++round, bit >>= 1) {
-    const unsigned trial = prefix | (bit - 1u);
-    int c = 0;
+// One pass of Batcher's odd-even merge sort over N keys: merge runs of P at
+// distance K, then K/2, ... 1. Every bound is a template constant, so the
+// loops unroll into fixed compare-exchanges on registers. N need not be a
+// power of two: the network of the next power of two, with the comparators
+// that reach past N dropped, sorts N keys (those positions would hold +inf).
+template <int N, int P, int K>
+__device__ __forceinline__ void merge_pass(int (&u)[N]) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) c += u[j] <= trial;
-    const int total = __reduce_add_sync(kFull, c);
-    if (total == m) return trial;
-    if (total < m) prefix |= bit;
+  for (int j = K % P; j + K < N; j += 2 * K) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      if (i + j + K < N && (i + j) / (2 * P) == (i + j + K) / (2 * P)) {
+        const int a = u[i + j], b = u[i + j + K];
+        u[i + j] = min(a, b);
+        u[i + j + K] = max(a, b);
+      }
+    }
   }
-  return prefix;                     // the m-th smallest key itself
+  if constexpr (K > 1) merge_pass<N, P, K / 2>(u);
 }
 
-// Append this lane's keys ≤ t to the warp's buffer, at most m of them.
-template <int NJ>
-__device__ __forceinline__ void compact(const unsigned (&u)[NJ], unsigned t, unsigned* buf,
-                                       int m) {
-  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
-  int base = 0;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const bool p = u[j] <= t;
-    const unsigned ballot = __ballot_sync(kFull, p);
-    const int pos = base + __popc(ballot & below);
-    if (p && pos < m) buf[pos] = u[j];
-    base += __popc(ballot);
+// Sort a lane's N keys ascending, in registers.
+template <int N, int P = 1>
+__device__ __forceinline__ void sort_keys(int (&u)[N]) {
+  if constexpr (P < N) {
+    merge_pass<N, P, P>(u);
+    sort_keys<N, 2 * P>(u);
   }
 }
 
-// The m keys of buf in ascending order: out[rank] = (key & 0x3FF) + S, the
-// rank of a key being the number of smaller keys.
-__device__ __forceinline__ void write_sorted(const unsigned* buf, int m, int* __restrict__ out,
-                                             int S) {
-  for (int i = threadIdx.x & 31; i < m; i += 32) {
-    const unsigned key = buf[i];
-    int rank = 0;
-    for (int j = 0; j < m; ++j) rank += buf[j] < key;
-    out[rank] = static_cast<int>(key & 0x3FFu) + S;
+// One extraction step over lists held in registers: the warp's smallest
+// head; the lane that holds it shifts its list up by one.
+template <int N>
+__device__ __forceinline__ int next_key(int (&u)[N]) {
+  const int g = __reduce_min_sync(kFull, u[0]);
+  const bool hit = u[0] == g;
+#pragma unroll
+  for (int j = 0; j + 1 < N; ++j) u[j] = hit ? u[j + 1] : u[j];
+  u[N - 1] = hit ? kPad : u[N - 1];
+  return g;
+}
+
+// Extract m keys in ascending order from lists in shared memory, lane l
+// walking list l: entry j of it at list[l + j * stride], n entries, head
+// already loaded; the i-th key goes to out[i] as the neighbor
+// (key & 0x3FF) + S, each run of 32 written by 32 lanes at once.
+__device__ __forceinline__ void extract_to(const int* list, int stride, int n, int head,
+                                          int m, int* __restrict__ out, int S) {
+  const int lane = threadIdx.x & 31;
+  int mine = 0;
+  int pos = 0;
+  for (int i = 0; i < m; ++i) {
+    // every lane loads its next entry before the step: a form that loaded it
+    // inside the divergent `if (hit)` lost entries on an H100 (PERF.md)
+    const int next = pos + 1 < n ? list[lane + (pos + 1) * stride] : kPad;
+    const int g = __reduce_min_sync(kFull, head);
+    const bool hit = head == g;
+    head = hit ? next : head;
+    pos += hit;
+    if (lane == (i & 31)) mine = g;
+    if ((i & 31) == 31 || i + 1 == m) {
+      const int at = (i & ~31) + lane;
+      if (at <= i) out[at] = (mine & 0x3FF) + S;
+    }
   }
 }
 

@@ -18,11 +18,11 @@
 // - a block of 4 warps stages its tile's window once, offset r at [r], so
 //   lane l reading r ∈ {l, l+32, …} is stride-1;
 // - each lane computes its ⌈W/32⌉ keys into registers (NJ, rounded up to a
-//   multiple of 4, pads above every key), a warp radix select finds t with
-//   exactly K keys ≤ t, and the K winners are appended to a per-warp buffer,
-//   ranked by counting and written in ascending order;
-// - every branch is warp-uniform, and a block covers 4·qpw queries of a
-//   tile, so one cloud of N = 2048 launches 512 blocks (qpw = 1).
+//   multiple of 4, pads above every key) and sorts them there; the sorted
+//   lists go to a per-warp buffer [j][lane], and K warp-min steps extract the
+//   K smallest keys in ascending order, each step advancing one lane's list;
+// - a block covers 4·qpw queries of a tile, so one cloud of N = 2048
+//   launches 512 blocks (qpw = 1).
 //
 // Numerics: d² = (‖q‖² − 2·q·c) + ‖c‖², each product and sum rounded on its
 // own (no FMA contraction), in the order of the plain version
@@ -46,7 +46,7 @@ knn_warp_kernel(const float* __restrict__ x, int* __restrict__ out, int N, int K
   float* cy = cx + W;
   float* cz = cy + W;
   float* c2 = cz + W;
-  unsigned* buf = reinterpret_cast<unsigned*>(c2 + W) + (threadIdx.x >> 5) * K;
+  int* lists = reinterpret_cast<int*>(c2 + W) + (threadIdx.x >> 5) * (32 * NJ);
   const int lane = threadIdx.x & 31;
 
   const BlockQueries bq = block_queries(N, T, qpw);
@@ -59,7 +59,7 @@ knn_warp_kernel(const float* __restrict__ x, int* __restrict__ out, int N, int K
     const int q = bq.tile * T + ql;
     const float qx = xb[q * 3 + 0], qy = xb[q * 3 + 1], qz = xb[q * 3 + 2];
     const float q2 = sqnorm(qx, qy, qz);
-    unsigned u[NJ];
+    int u[NJ];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int r = lane + 32 * j;
@@ -72,9 +72,11 @@ knn_warp_kernel(const float* __restrict__ x, int* __restrict__ out, int N, int K
         u[j] = order_key(d2, r);
       }
     }
-    compact(u, select_threshold(u, K), buf, K);
+    sort_keys(u);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) lists[lane + 32 * j] = u[j];
     __syncwarp();
-    write_sorted(buf, K, out + (static_cast<size_t>(bq.b) * N + q) * K, S);
+    extract_to(lists, 32, NJ, u[0], K, out + (static_cast<size_t>(bq.b) * N + q) * K, S);
     __syncwarp();
   }
 }
@@ -82,7 +84,7 @@ knn_warp_kernel(const float* __restrict__ x, int* __restrict__ out, int N, int K
 template <int NJ>
 int launch(const float* x, int* out, int B, int N, int K, int T, int W, int pad_tiles,
            int max_tile, int include_self, int qpw, cudaStream_t stream) {
-  const int smem = (4 * W + kWarps * K) * 4;
+  const int smem = (4 * W + kWarps * 32 * NJ) * 4;
   const int per_block = kWarps * qpw;
   const int blocks = B * (N / T) * ((T + per_block - 1) / per_block);
   knn_warp_kernel<NJ><<<blocks, kThreads, smem, stream>>>(x, out, N, K, T, W, pad_tiles,

@@ -125,7 +125,7 @@ CHUNKED_CASES = {
     "W256-K1": (1, 512, 1, 128, 256, True, "uniform", 4),
     "W384-K30": (1, 512, 30, 128, 384, True, "uniform", 4),
     "W768-K60": (1, 768, 60, 128, 768, True, "uniform", 4),
-    "W1024-K60": (1, 1024, 60, 128, 1024, True, "uniform", 4),
+    "W1024-K30": (1, 1024, 30, 128, 1024, True, "uniform", 4),
     "W384-K16-no-self": (1, 384, 16, 128, 384, False, "uniform", 1),
     "W384-K30-repeated": (1, 384, 30, 128, 384, True, "repeated", 4),
     "W384-K16-offset-1e3": (1, 384, 16, 128, 384, True, "offset", 1),

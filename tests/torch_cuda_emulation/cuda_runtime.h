@@ -80,6 +80,11 @@ inline int __reduce_add_sync(unsigned, int v) {
   uint32_t all[32]; emulated_gather(static_cast<uint32_t>(v), all); uint32_t r = 0;
   for (int l = 0; l < 32; ++l) r += all[l];
   return static_cast<int>(r); }
+inline int __reduce_min_sync(unsigned, int v) {
+  uint32_t all[32]; emulated_gather(static_cast<uint32_t>(v), all);
+  int r = static_cast<int>(all[0]);
+  for (int l = 1; l < 32; ++l) r = std::min(r, static_cast<int>(all[l]));
+  return r; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
