@@ -26,10 +26,11 @@ wrapper's `launches_by_variant`:
   `csrc/knn_chunked_warp.cu`; both on `csrc/knn_select.cuh`): one warp a
   query. Neither bytes nor the 8 flops per (query, candidate) bound these
   on an H100, but instruction issue; so each lane computes its candidates'
-  keys into registers from a window staged once a block, and the warp
-  selects by counting (a radix search for a threshold with exactly K keys
-  below it), never by divergent insertion. A block of 4 warps covers 4
-  queries of a tile (16 from 64 k queries on), so one cloud fills the card.
+  keys into registers from a window staged once a block and sorts them
+  there, and warp-min steps (`__reduce_min_sync`) extract the smallest keys
+  in ascending order, never by divergent insertion. A block of 4 warps
+  covers 4 queries of a tile (16 from 64 k queries on), so one cloud fills
+  the card.
 - 'thread' (B1 exact and whole cloud: `csrc/knn.cu`; B4 for comparison:
   `csrc/knn_chunked.cu`): one thread a query, sorted insertion lists in
   shared memory. `variant='thread'` launches them where the warp kernel

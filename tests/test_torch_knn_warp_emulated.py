@@ -1,13 +1,14 @@
 """The warp-a-query k-NN kernels' own sources on the CPU: `csrc/knn_warp.cu`
 (B1 packed) and `csrc/knn_chunked_warp.cu` (B4) with `csrc/knn_select.cuh`,
 compiled with g++ against the host emulation in `tests/torch_cuda_emulation`
-(threads for lanes; barriers for the warp votes and reductions; a per-block
+(threads for lanes; a barrier for the warp min reduction; a per-block
 buffer for the dynamic shared memory; `-ffp-contract=off`, so the _rn
 arithmetic rounds each operation as the card does). Run at small shapes and
 held `torch.equal` to the plain versions `knn_window_plain(packed=True)` and
-`knn_chunked_plain`: the staging layouts, the radix select, the compaction,
-the ranking and the window starts, except what only nvcc and the card can
-say (`chip_smoke.py`). Skipped where there is no g++.
+`knn_chunked_plain`: the staging layouts, the per-lane sorting networks, the
+warp-min extraction, the per-warp lists and the window starts, except what
+only nvcc and the card can say (`chip_smoke.py`). Skipped where there is no
+g++.
 
 The sources are rewritten in two places only: `extern __shared__` becomes a
 pointer to the emulated block's buffer, and each `<<<...>>>` launch a call of

@@ -1,9 +1,9 @@
 // Host emulation of the CUDA the port's hand-written kernels use, for CPU tests
 // (tests/test_torch_egcl_tile_emulated.py, tests/test_torch_knn_warp_emulated.py):
 // a block runs as one std::thread per CUDA thread, blocks one after another;
-// __syncthreads, __syncwarp, the warp shuffles, votes and reductions and
+// __syncthreads, __syncwarp, the warp shuffles, the warp min reduction and
 // mma.sync.m16n8k16 (bf16 operands, fp32 accumulation, the PTX fragment
-// layouts) are collectives over std::barrier. The _rn arithmetic is plain float
+// layouts) are collectives over barriers. The _rn arithmetic is plain float
 // arithmetic: compile with -ffp-contract=off so nothing fuses. Slow and exact
 // enough to check a kernel's indexing, masking and fragment plumbing without a
 // card; it says nothing about what nvcc accepts or how fast anything is.
@@ -63,29 +63,17 @@ template <class T> inline T __shfl_sync(unsigned, T v, int src) {
   warp_ctx->bar.arrive_and_wait(); T r; std::memcpy(&r, &warp_ctx->buf[src & 31][0], 4);
   warp_ctx->bar.arrive_and_wait(); return r; }
 template <class T> inline T __shfl_xor_sync(unsigned m, T v, int x) { return __shfl_sync(m, v, (threadIdx.x & 31) ^ x); }
-// votes and reductions over the warp: each lane posts its value, all read all.
-// One barrier each: consecutive gathers alternate between two slots, and a lane
-// can write a slot again only after every lane has passed the barrier between.
-inline thread_local unsigned emulated_gathers = 0;
-inline void emulated_gather(uint32_t v, uint32_t (&all)[32]) {
-  const int lane = threadIdx.x & 31, slot = 8 + (emulated_gathers++ & 1);
-  warp_ctx->buf[lane][slot] = v;
-  warp_ctx->bar.arrive_and_wait();
-  for (int l = 0; l < 32; ++l) all[l] = warp_ctx->buf[l][slot]; }
-inline unsigned __ballot_sync(unsigned, int p) {
-  uint32_t all[32]; emulated_gather(p != 0, all); unsigned r = 0;
-  for (int l = 0; l < 32; ++l) r |= all[l] << l;
-  return r; }
-inline int __reduce_add_sync(unsigned, int v) {
-  uint32_t all[32]; emulated_gather(static_cast<uint32_t>(v), all); uint32_t r = 0;
-  for (int l = 0; l < 32; ++l) r += all[l];
-  return static_cast<int>(r); }
+// the warp min reduction: each lane posts its value, all read all. One barrier:
+// consecutive reductions alternate between two slots, and a lane can write a
+// slot again only after every lane has passed the barrier between.
+inline thread_local unsigned emulated_reductions = 0;
 inline int __reduce_min_sync(unsigned, int v) {
-  uint32_t all[32]; emulated_gather(static_cast<uint32_t>(v), all);
-  int r = static_cast<int>(all[0]);
-  for (int l = 1; l < 32; ++l) r = std::min(r, static_cast<int>(all[l]));
+  const int lane = threadIdx.x & 31, slot = 8 + (emulated_reductions++ & 1);
+  warp_ctx->buf[lane][slot] = static_cast<uint32_t>(v);
+  warp_ctx->bar.arrive_and_wait();
+  int r = v;
+  for (int l = 0; l < 32; ++l) r = std::min(r, static_cast<int>(warp_ctx->buf[l][slot]));
   return r; }
-inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
