@@ -36,8 +36,6 @@ from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as e
 from se3_equi_graph_registration_tpu_torch.ops.knn import knn_graph
 
 EMULATION = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_cuda_emulation")
-GLOBALS = ("\nthread_local dim3m threadIdx, blockIdx, blockDim, gridDim;\n"
-           "thread_local WarpCtx* warp_ctx;\nthread_local std::barrier<>* block_bar;\n")
 TOL = 5e-3
 
 
@@ -58,7 +56,7 @@ def lib(tmp_path_factory):
                         "uint32_t* smem = static_cast<uint32_t*>(emulated_dynamic_shared);", source)
     assert n == 1
     (out / "egcl_tile.cuh").write_text(header)
-    (out / "egcl_backward_tile.cpp").write_text(source + GLOBALS)
+    (out / "egcl_backward_tile.cpp").write_text(source)
     res = subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                           "-I", str(out), "-I", EMULATION, "-o", str(out / "libbwd.so"),
                           str(out / "egcl_backward_tile.cpp")],

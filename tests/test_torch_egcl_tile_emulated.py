@@ -31,8 +31,6 @@ from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl as tk
 from se3_equi_graph_registration_tpu_torch.ops.knn import knn_graph
 
 EMULATION = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_cuda_emulation")
-GLOBALS = ("\nthread_local dim3m threadIdx, blockIdx, blockDim, gridDim;\n"
-           "thread_local WarpCtx* warp_ctx;\nthread_local std::barrier<>* block_bar;\n")
 
 
 @pytest.fixture(scope="module")
@@ -49,7 +47,7 @@ def lib(tmp_path_factory):
                             r"emulated_launch(\2, \3, [&] { \1(\4); });", f.read(), flags=re.S)
     assert n == 2
     (out / "egcl_tile.cuh").write_text(header)
-    (out / "egcl_tile.cpp").write_text(source + GLOBALS)
+    (out / "egcl_tile.cpp").write_text(source)
     res = subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                           "-I", str(out), "-I", EMULATION, "-o", str(out / "libegcl_tile.so"),
                           str(out / "egcl_tile.cpp")], capture_output=True, text=True, timeout=300)

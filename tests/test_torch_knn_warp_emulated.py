@@ -38,8 +38,6 @@ from se3_equi_graph_registration_tpu_torch.ops.kernels import build
 from se3_equi_graph_registration_tpu_torch.ops.kernels import knn as tknn
 
 EMULATION = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_cuda_emulation")
-GLOBALS = ("\nthread_local dim3m threadIdx, blockIdx, blockDim, gridDim;\n"
-           "thread_local WarpCtx* warp_ctx;\nthread_local std::barrier<>* block_bar;\n")
 SOURCES = ("knn_warp", "knn_chunked_warp")
 
 
@@ -58,7 +56,7 @@ def lib(tmp_path_factory):
         source, n = re.subn(r"extern __shared__ float smem\[\];",
                             "float* smem = static_cast<float*>(emulated_dynamic_shared);", source)
         assert n == 1
-        (out / f"{name}.cpp").write_text(source + (GLOBALS if name == SOURCES[0] else ""))
+        (out / f"{name}.cpp").write_text(source)
     res = subprocess.run(["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
                           "-pthread", "-I", str(out), "-I", EMULATION, "-o",
                           str(out / "libknn_warp.so")] + [str(out / f"{s}.cpp") for s in SOURCES],

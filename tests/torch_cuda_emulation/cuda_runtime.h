@@ -1,22 +1,22 @@
 // Host emulation of the CUDA the port's hand-written kernels use, for CPU tests
-// (tests/test_torch_egcl_tile_emulated.py, tests/test_torch_knn_warp_emulated.py):
-// a block runs as one std::thread per CUDA thread, blocks one after another;
-// __syncthreads, __syncwarp, the warp shuffles, the warp min reduction and
-// mma.sync.m16n8k16 (bf16 operands, fp32 accumulation, the PTX fragment
-// layouts) are collectives over barriers. The _rn arithmetic is plain float
-// arithmetic: compile with -ffp-contract=off so nothing fuses. Slow and exact
-// enough to check a kernel's indexing, masking and fragment plumbing without a
-// card; it says nothing about what nvcc accepts or how fast anything is.
+// (tests/test_torch_*_emulated.py): a block runs its CUDA threads as fibers
+// (ucontext) on the calling thread, blocks one after another; __syncthreads,
+// __syncwarp, the warp shuffles, the warp min reduction and mma.sync.m16n8k16
+// (bf16 operands, fp32 accumulation, the PTX fragment layouts) are
+// collectives over barriers at which a fiber yields until its peers arrive.
+// One OS thread does all the work, so a loaded machine slows it in proportion
+// and no more. The _rn arithmetic is plain float arithmetic: compile with
+// -ffp-contract=off so nothing fuses. Slow and exact enough to check a
+// kernel's indexing, masking and fragment plumbing without a card; it says
+// nothing about what nvcc accepts or how fast anything is.
 #pragma once
 #include <cmath>
 #include <cstdint>
 #include <cstring>
-#include <thread>
+#include <ucontext.h>
 #include <vector>
-#include <barrier>
 #include <functional>
 #include <memory>
-#include <atomic>
 #include <algorithm>
 using std::min; using std::max;
 #define __device__
@@ -38,24 +38,30 @@ template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
 inline int cudaGetLastError() { return 0; }
-extern thread_local dim3m threadIdx, blockIdx, blockDim, gridDim;
-// a warp's 32 lanes meet at every collective: they spin, yielding, rather than sleep
-struct SpinBarrier {
-  explicit SpinBarrier(int n) : n(n) {}
+inline dim3m threadIdx, blockIdx, blockDim, gridDim;
+// the fiber running now and the scheduler it yields to
+struct EmulatedFiber { ucontext_t ctx; int tid = 0; struct WarpCtx* warp = nullptr;
+                       unsigned reductions = 0; bool done = false; };
+inline ucontext_t emulated_scheduler;
+inline EmulatedFiber* emulated_current = nullptr;
+inline std::function<void()>* emulated_body = nullptr;
+inline unsigned emulated_reductions = 0;   // the running fiber's count of min reductions
+inline void emulated_yield() {
+  emulated_current->reductions = emulated_reductions;
+  swapcontext(&emulated_current->ctx, &emulated_scheduler);
+}
+struct FiberBarrier {
+  explicit FiberBarrier(int n) : n(n) {}
   void arrive_and_wait() {
-    const unsigned g = gen.load(std::memory_order_acquire);
-    if (count.fetch_add(1, std::memory_order_acq_rel) == n - 1) {
-      count.store(0, std::memory_order_relaxed);
-      gen.fetch_add(1, std::memory_order_release);
-    } else {
-      while (gen.load(std::memory_order_acquire) == g) std::this_thread::yield();
-    }
+    const unsigned g = gen;
+    if (++count == n) { count = 0; ++gen; return; }
+    while (gen == g) emulated_yield();
   }
-  const int n; std::atomic<int> count{0}; std::atomic<unsigned> gen{0};
+  const int n; int count = 0; unsigned gen = 0;
 };
-struct WarpCtx { SpinBarrier bar{32}; uint32_t buf[32][10]; };
-extern thread_local WarpCtx* warp_ctx;
-extern thread_local std::barrier<>* block_bar;
+struct WarpCtx { FiberBarrier bar{32}; uint32_t buf[32][10]; };
+inline WarpCtx* warp_ctx = nullptr;
+inline FiberBarrier* block_bar = nullptr;
 inline void __syncthreads() { block_bar->arrive_and_wait(); }
 inline void __syncwarp() { warp_ctx->bar.arrive_and_wait(); }
 template <class T> inline T __shfl_sync(unsigned, T v, int src) {
@@ -66,7 +72,6 @@ template <class T> inline T __shfl_xor_sync(unsigned m, T v, int x) { return __s
 // the warp min reduction: each lane posts its value, all read all. One barrier:
 // consecutive reductions alternate between two slots, and a lane can write a
 // slot again only after every lane has passed the barrier between.
-inline thread_local unsigned emulated_reductions = 0;
 inline int __reduce_min_sync(unsigned, int v) {
   const int lane = threadIdx.x & 31, slot = 8 + (emulated_reductions++ & 1);
   warp_ctx->buf[lane][slot] = static_cast<uint32_t>(v);
@@ -82,9 +87,9 @@ inline float __fdividef(float a, float b) { return a / b; }
 inline float __expf(float a) { return std::exp(a); }
 inline float rsqrtf(float a) { return 1.0f / std::sqrt(a); }
 // atomicAdd on float, global or shared memory alike
-inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
+inline float atomicAdd(float* p, float v) { float o = *p; *p = o + v; return o; }
 // the block's dynamic shared memory (`extern __shared__`), set by emulated_launch
-inline thread_local void* emulated_dynamic_shared = nullptr;
+inline void* emulated_dynamic_shared = nullptr;
 inline float bf2f(uint16_t b) { uint32_t u = (uint32_t)b << 16; float f; std::memcpy(&f, &u, 4); return f; }
 inline void emulated_mma(float (&d)[4], const uint32_t (&a)[4], uint2 b) {
   int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -107,19 +112,39 @@ inline void emulated_mma(float (&d)[4], const uint32_t (&a)[4], uint2 b) {
   d[0] += dot(g, 2*t); d[1] += dot(g, 2*t+1); d[2] += dot(g+8, 2*t); d[3] += dot(g+8, 2*t+1);
   warp_ctx->bar.arrive_and_wait();
 }
+inline void emulated_fiber_main() { (*emulated_body)(); emulated_current->done = true; }
 template <class F> void emulated_launch(int grid, int block, int shared_bytes, F body) {
+  constexpr size_t kStack = 256 << 10;
+  std::function<void()> fn = body;
+  emulated_body = &fn;
+  std::vector<char> stacks(static_cast<size_t>(block) * kStack);
+  std::vector<EmulatedFiber> fibers(block);
   for (int b = 0; b < grid; ++b) {
-    std::barrier<> bb(block); int nw = (block + 31) / 32;
+    FiberBarrier bb(block); int nw = (block + 31) / 32;
     std::vector<std::unique_ptr<WarpCtx>> ws; for (int i = 0; i < nw; ++i) ws.emplace_back(new WarpCtx);
     std::vector<uint32_t> dyn((shared_bytes + 3) / 4 + 4, 0xffffffffu);  // garbage, as on the card
-    std::vector<std::thread> th;
-    for (int i = 0; i < block; ++i) th.emplace_back([&, i] {
-      threadIdx.x = i; blockIdx.x = b; blockDim.x = block; gridDim.x = grid;
-      warp_ctx = ws[i / 32].get(); block_bar = &bb;
-      emulated_dynamic_shared = reinterpret_cast<void*>(
-          (reinterpret_cast<uintptr_t>(dyn.data()) + 15) & ~uintptr_t(15));
-      body(); });
-    for (auto& t : th) t.join();
+    blockIdx.x = b; blockDim.x = block; gridDim.x = grid; block_bar = &bb;
+    emulated_dynamic_shared = reinterpret_cast<void*>(
+        (reinterpret_cast<uintptr_t>(dyn.data()) + 15) & ~uintptr_t(15));
+    for (int i = 0; i < block; ++i) {
+      EmulatedFiber& f = fibers[i];
+      f = EmulatedFiber{};
+      f.tid = i; f.warp = ws[i / 32].get();
+      getcontext(&f.ctx);
+      f.ctx.uc_stack.ss_sp = stacks.data() + static_cast<size_t>(i) * kStack;
+      f.ctx.uc_stack.ss_size = kStack;
+      f.ctx.uc_link = &emulated_scheduler;
+      makecontext(&f.ctx, emulated_fiber_main, 0);
+    }
+    for (int left = block; left > 0;) {          // round robin until every fiber returned
+      for (EmulatedFiber& f : fibers) {
+        if (f.done) continue;
+        threadIdx.x = f.tid; warp_ctx = f.warp; emulated_reductions = f.reductions;
+        emulated_current = &f;
+        swapcontext(&emulated_scheduler, &f.ctx);
+        left -= f.done;
+      }
+    }
   }
 }
 template <class F> void emulated_launch(int grid, int block, F body) { emulated_launch(grid, block, 0, body); }
