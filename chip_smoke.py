@@ -5,9 +5,10 @@
 
 Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
-version on the card at the main paths' shapes. B1 packed and B4 each have
-two kernels (warp-a-query on the main paths, the thread-a-query kernel
-kept to compare), and so have the EGCL forward and backward (a bf16
+version on the card at the main paths' shapes. B1 packed, B1 exact (over a
+window and over the whole cloud) and B4 each have a warp-a-query kernel on
+the paths and the thread-a-query kernel kept to compare, and so have the
+EGCL forward and backward (a bf16
 tensor-core tile kernel for fast mode at C=32, a SIMT kernel for accurate
 mode and other widths); all are held, and each pair is timed in the same
 run. Then it drives the three main paths, each with the launch counters
@@ -18,7 +19,10 @@ everything runs):
 - serving at the full `fast_tpu_config` (N=2048, k=16, C=32, 3 layers, 4
   heads, top_k=128), seeded random weights: `Registrar.register` and
   `BatchingServer`, checked against the same Registrar on the CPU, every
-  k-NN launch on the warp kernel;
+  k-NN launch on the warp kernel; the engine's other configurations
+  (exact and approx whole-cloud graphs, a window with exact keys), each
+  k-NN launch on the exact warp kernel, and a profile of `register()` at
+  `EngineConfig()` defaults (whole-cloud exact k-NN, accurate EGCL) at B=64;
 - training: `make_train_step` with Adam at B=64 (2 knn, 6 EGCL forward and
   6 EGCL backward launches per step, on the warp k-NN and the tile
   kernels in fast mode), an accurate step (SIMT kernels) checked against the
@@ -28,17 +32,20 @@ everything runs):
   and 10 ICP steps, quaternion Kabsch): `register_fpfh` at 4 branches and 1
   (2 chunked k-NN launches, all warp, and 2 SPFH per call, no B1) against the same
   call on the CPU on a seeded bumpy surface pair, then
-  `register_fpfh_batch` at B=8 and 32, and a profile of one b=1 call.
+  `register_fpfh_batch` at B=8 and 32, and a profile of one b=1 call; then
+  `register_fpfh` at its defaults (knn_method='approx': 2 whole-cloud k-NN
+  launches at k=60 on the exact warp kernel, no B4 or B5) at 4 branches
+  against the CPU.
 Any failed check raises (non-zero exit, no result line). The last line is
 one JSON object with the device.
 
 Tolerances (kernel vs its plain version, same inputs, on the card):
-- knn, B1 packed (k=16/W=384 and k=60/W=768) and B4 (k=60/W=768), at B=64
+- knn, B1 packed (k=16/W=384 and k=60/W=768), B4 (k=60/W=768), B1 exact
+  (k=16/W=384, and the whole cloud of N=2048 at k=16 and k=60), at B=64
   and at one cloud, and the CPU emulation's edge cases at small size: the
   warp kernel, the thread kernel and the plain version give identical
-  lists (the same integer keys from the same round-to-nearest d², unique
-  within a query). B1 exact (thread kernel only): neighbor sets equal row
-  by row up to near-ties (d² within 2⁻¹² relative of the row's k-th d²).
+  lists (the same keys from the same round-to-nearest d²: unique within a
+  query in packed mode, ties to the lower id in exact mode).
 - egcl, h′: max |Δ| ≤ tol · max|ref h′|; coordinates through their update
   u = x′ − x: max |Δu| ≤ tol · max|ref u| + ε₃₂ · max|x|, the last term
   being the fp32 spacing at which x′ = x + u can be read back. The update
@@ -95,6 +102,16 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   within 1e-3 (of 100 per channel) where a center's counts all agree.
 - TF32 enabled: the normals and the branch verification equal their
   TF32-off values within 1e-6 (they use no matmul).
+- register_fpfh at its defaults (whole-cloud k-NN, gather FPFH): the k-NN
+  lists of the pair's two clouds identical card vs CPU; both poses within
+  0.5 deg and 5 mm of the ground truth; card vs CPU ‖ΔR‖_F/√2 ≤ 2e-3 and
+  |Δt| ≤ 2e-3 m with ICP run to its fixed point (60 steps: 3.79e-6 and
+  3.87e-6 m measured). At the default 10 steps pair 6 measured 2.73e-3 and
+  1.41e-3 m, printed and not held: the lists are identical and the normals
+  agree within 3e-7 with none oriented the other way, but the gather FPFH
+  does not (7630 of 135168 entries moved by more than 0.1, at most 27.9;
+  not traced further), so the matches differ and 10 ICP steps end short of
+  the fixed point (H100 80GB HBM3, 700 W).
 - register_fpfh card vs CPU, same seed: both within 0.5 deg and 5 mm of the
   ground truth; ‖ΔR‖_F/√2 ≤ 2e-3 and |Δt| ≤ 2e-3 m between them. The
   batch: all but at most one pair within 0.5 deg and 5 mm. The gap between
@@ -392,25 +409,6 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
                 simt_source="se3_equi_graph_registration_tpu_torch/csrc/egcl_backward.cu")
 
 
-def knn_compare(x, ref, got, rel=2.0 ** -12):
-    """Rows whose sets differ; raises unless every swap is a near-tie.
-    Also returns the largest |Δ d²| between the rows' sorted k-NN d²."""
-    xs, ref, got = x.cpu().double().numpy(), ref.cpu().numpy(), got.cpu().numpy()
-    rs, gs = np.sort(ref, -1), np.sort(got, -1)
-    bad = np.argwhere(np.any(rs != gs, -1))
-    for b, r in bad:
-        sym = list(set(ref[b, r].tolist()) ^ set(got[b, r].tolist()))
-        d2 = ((xs[b, sym] - xs[b, r]) ** 2).sum(-1)
-        kth = ((xs[b, ref[b, r]] - xs[b, r]) ** 2).sum(-1).max()
-        check(np.all(np.abs(d2 - kth) <= rel * max(kth, 1e-30)),
-              f"knn mismatch beyond near-ties at cloud {b} row {r}")
-    d_ref = np.sort(((np.take_along_axis(xs, ref.reshape(ref.shape[0], -1)[..., None], 1)
-                      .reshape(ref.shape + (3,)) - xs[:, :, None]) ** 2).sum(-1), -1)
-    d_got = np.sort(((np.take_along_axis(xs, got.reshape(got.shape[0], -1)[..., None], 1)
-                      .reshape(got.shape + (3,)) - xs[:, :, None]) ** 2).sum(-1), -1)
-    return len(bad), float(np.abs(d_ref - d_got).max())
-
-
 PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh")
 ROW_ORDER = ("knn_window", "egcl_layer", "egcl_backward", "knn_chunked", "spfh")
 
@@ -520,7 +518,7 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
     rows = {}
 
     if "knn" in phases:
-        rows["knn_window"], rows["knn_chunked"] = knn_phase(torch, xs, k, tile, window)
+        rows["knn_window"], rows["knn_chunked"] = knn_phase(torch, x, xs, k, tile, window)
     if "egcl" in phases:
         rows["egcl_layer"] = egcl_phase(torch, p, h, xs, nbr, gen)
     if "serve" in phases:
@@ -532,11 +530,14 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
     if "fpfh" in phases:
         rows["spfh"] = fpfh_kernel_phase(torch, dev, bsz)
         register_fpfh_phase(torch, dev, rows)
+        register_fpfh_default_phase(torch, dev, rows)
     return [rows[name] for name in ROW_ORDER if name in rows]
 
 
 # The emulated test's edge cases (tests/test_torch_knn_warp_emulated.py) at
-# small size: (kernel, b, n, k, tile, window, include_self, cloud kind)
+# small size, and a few more: (kernel, b, n, k, tile, window, include_self,
+# cloud kind). Exact keys over the whole cloud (window None) take the cloud
+# unsorted, as the whole-cloud paths do.
 KNN_EDGE_CASES = (
     ("window", 2, 128, 1, 128, 128, True, "uniform"),
     ("window", 1, 768, 60, 128, 768, True, "uniform"),
@@ -554,13 +555,31 @@ KNN_EDGE_CASES = (
     ("chunked", 1, 384, 30, 128, 384, True, "repeated"),
     ("chunked", 1, 384, 16, 128, 384, True, "offset"),
     ("chunked", 1, 384, 30, 128, 384, True, "class0"),
+    ("exact", 2, 256, 16, 128, 128, True, "uniform"),
+    ("exact", 1, 1024, 30, 128, 1024, True, "uniform"),
+    ("exact", 1, 512, 16, 128, 384, False, "uniform"),
+    ("exact", 1, 384, 30, 128, 384, True, "repeated"),
+    ("exact", 1, 384, 16, 128, 384, True, "offset"),
+    ("exact", 1, 384, 128, 128, 384, True, "uniform"),
+    ("exact", 1, 1280, 16, 128, None, True, "uniform"),
+    ("exact", 1, 2000, 60, 125, None, True, "uniform"),
+    ("exact", 1, 2039, 8, 1, None, True, "uniform"),
+    ("exact", 1, 640, 16, 128, None, False, "uniform"),
+    ("exact", 1, 1280, 16, 128, None, True, "repeated"),
+    ("exact", 1, 1280, 16, 128, None, True, "equal"),
+    ("exact", 1, 640, 16, 128, None, True, "offset"),
+    ("exact", 1, 640, 90, 128, None, True, "offset"),
+    ("exact", 2, 256, 1, 128, None, True, "uniform"),
+    ("exact", 1, 1152, 128, 128, None, True, "uniform"),
+    ("exact", 1, 3000, 128, 120, None, True, "uniform"),
 )
 
 
-def edge_cloud(torch, dev, seed, b, n, kind):
-    """The emulated test's clouds: uniform in a 3 m cube, curve-sorted;
-    'repeated' (every point twice), 'offset' (moved by 1e3: d² lost to
-    cancellation), 'class0' (unsorted, every 3rd point near the origin)."""
+def edge_cloud(torch, dev, seed, b, n, kind, sort=True):
+    """The emulated test's clouds: uniform in a 3 m cube, curve-sorted unless
+    `sort=False`; 'repeated' (every point twice), 'offset' (moved by 1e3: d²
+    lost to cancellation), 'equal' (one point n times), 'class0' (unsorted,
+    every 3rd point near the origin)."""
     from se3_equi_graph_registration_tpu_torch.ops import morton
 
     rng = np.random.default_rng(seed)
@@ -573,16 +592,23 @@ def edge_cloud(torch, dev, seed, b, n, kind):
         x[:, 1::2] = x[:, ::2]
     if kind == "offset":
         x += np.float32(1e3)
+    if kind == "equal":
+        x[:] = x[:, :1]
+    if not sort:
+        return torch.from_numpy(x).to(dev)
     _, xs, _ = morton.sort_by_curve(torch.zeros(b, n, 0), torch.from_numpy(x))
     return xs.contiguous().to(dev)
 
 
-def surface_clouds(torch, dev, bsz):
-    """`bsz` curve-sorted bumpy-surface clouds at FPFH_N points, posed: the
-    checkpoint-free path's k-NN input."""
+def surface_clouds(torch, dev, bsz, sort=True):
+    """`bsz` bumpy-surface clouds at FPFH_N points, posed: the checkpoint-
+    free path's k-NN input, curve-sorted (the fused path) or as sampled
+    (`sort=False`, the default 'approx' path's whole-cloud k-NN)."""
     from se3_equi_graph_registration_tpu_torch.ops import morton
 
     x = torch.from_numpy(np.stack([p[0] @ p[2].T for p in surface_pairs(bsz, 100)])).to(dev)
+    if not sort:
+        return x.contiguous()
     _, xs, _ = morton.sort_by_curve(x[..., :0], x)
     return xs.contiguous()
 
@@ -607,12 +633,15 @@ def knn_pair(torch, fn, plain, x, what, **kw):
                   f"{ref[b, q].tolist()}")
 
 
-def knn_phase(torch, xs, k, tile, window):
+def knn_phase(torch, x, xs, k, tile, window):
     """B1 and B4, each kernel pair against its plain version and each other
     (bit for bit) and timed in the same run, at B=64 and at one cloud: B1
     packed at the served k=16/W=384 and at the checkpoint-free k=60/W=768,
-    B4 at k=60/W=768, then the edge cases; B1 exact (thread kernel only).
-    Returns the knn_window and knn_chunked rows."""
+    B4 at k=60/W=768, B1 exact at k=16/W=384 on the served clouds (`xs`,
+    curve-sorted) and over the whole cloud at the engine default's k=16 on
+    the unsorted served clouds (`x`) and at register_fpfh's default k=60 on
+    unsorted surface clouds; then the edge cases. Returns the knn_window and
+    knn_chunked rows."""
     from se3_equi_graph_registration_tpu_torch.ops.kernels import knn
 
     dev = xs.device
@@ -627,18 +656,26 @@ def knn_phase(torch, xs, k, tile, window):
                                        packed=True)),
         "B4": (knn.knn_chunked, knn.knn_chunked_plain, surf, dict(k=FPFH_K, tile=FPFH_TILE,
                                                                    window=FPFH_WINDOW)),
+        "B1 exact": (w1, knn.knn_window_plain, xs, dict(k=k, tile=tile, window=window,
+                                                         packed=False)),
+        "B1 whole cloud": (w1, knn.knn_window_plain, x, dict(k=k, tile=tile, window=None,
+                                                              packed=False)),
+        "B1 whole cloud on surfaces": (w1, knn.knn_window_plain,
+                                       surface_clouds(torch, dev, bsz, sort=False),
+                                       dict(k=FPFH_K, tile=FPFH_TILE, window=None,
+                                            packed=False)),
     }
     stats = {}
     for name, (fn, plain, data, kw) in cases.items():
         for b in (bsz, 1):
-            x = data[:b].contiguous()
-            what = f"{name} B={b} k={kw['k']} W={kw['window']}"
-            knn_pair(torch, fn, plain, x, what, **kw)
-            ms = cuda_ms(torch, lambda: fn(x, **kw), 20)
-            thread = cuda_ms(torch, lambda: fn(x, variant="thread", **kw), 20)
-            plain_ms = cuda_ms(torch, lambda: plain(x, **kw), 3) if b == bsz else None
-            bb, bby = bound_ms(x.numel() * 4 + x.shape[1] * b * kw["k"] * 4,
-                               x.shape[1] * b * kw["window"] * 8, PEAK_FP32)
+            xb = data[:b].contiguous()
+            w = kw["window"] or n
+            what = f"{name} B={b} k={kw['k']} W={w}"
+            knn_pair(torch, fn, plain, xb, what, **kw)
+            ms = cuda_ms(torch, lambda: fn(xb, **kw), 20)
+            thread = cuda_ms(torch, lambda: fn(xb, variant="thread", **kw), 20)
+            plain_ms = cuda_ms(torch, lambda: plain(xb, **kw), 3) if b == bsz else None
+            bb, bby = bound_ms(xb.numel() * 4 + n * b * kw["k"] * 4, n * b * w * 8, PEAK_FP32)
             stats[name, b] = dict(ms=ms, thread_ms=thread, plain_ms=plain_ms, bound_ms=bb,
                                   bound_by=bby)
             log(f"knn {what}: warp and thread kernels identical to the plain version; warp "
@@ -647,22 +684,18 @@ def knn_phase(torch, xs, k, tile, window):
                 + f", bound {bb:.4f} ms ({bby}; warp at {100 * bb / ms:.2f}%, thread at "
                 f"{100 * bb / thread:.2f}%)")
     for i, (kind, b, n_, k_, t_, w_, inc, cloud) in enumerate(KNN_EDGE_CASES):
-        x = edge_cloud(torch, dev, i, b, n_, cloud)
+        x_ = edge_cloud(torch, dev, i, b, n_, cloud, sort=w_ is not None)
         kw = dict(k=k_, tile=t_, window=w_, include_self=inc)
-        if kind == "window":
-            knn_pair(torch, w1, knn.knn_window_plain, x, f"edge case {i}", packed=True, **kw)
+        what = f"edge case {i} ({kind} b={b} n={n_} k={k_} T={t_} W={w_} self={inc} {cloud})"
+        if kind == "chunked":
+            knn_pair(torch, knn.knn_chunked, knn.knn_chunked_plain, x_, what, **kw)
         else:
-            knn_pair(torch, knn.knn_chunked, knn.knn_chunked_plain, x, f"edge case {i}", **kw)
-    log(f"knn edge cases: {len(KNN_EDGE_CASES)} (W 128-1024, k 1-128, no self, repeated points, "
-        "offset 1e3, class 0, B=1 and 2): warp and thread kernels identical to the plain version")
-
-    kw = dict(tile=tile, window=window, packed=False)
-    got = w1(xs, k, **kw)
-    torch.cuda.synchronize()
-    n_bad, err = knn_compare(xs, knn.knn_window_plain(xs, k, **kw), got)
-    ms = cuda_ms(torch, lambda: w1(xs, k, **kw), 20)
-    log(f"knn[exact] B={bsz} N={n} k={k} T={tile} W={window} (thread kernel): rows differing "
-        f"{n_bad} (near-ties), max|Δd²| {err:.3g}, kernel {ms:.4f} ms")
+            knn_pair(torch, w1, knn.knn_window_plain, x_, what, packed=kind == "window", **kw)
+    log(f"knn edge cases: {len(KNN_EDGE_CASES)} (packed and chunked: W 128-1024, k 1-128, no "
+        "self, repeated points, offset 1e3, class 0, B=1 and 2; exact: W 128-1024 and the "
+        "whole cloud at N 256-3000 over 1-3 chunks, tiles 1, 120, 125 and 128, k 1-128, no self, "
+        "repeated and equal points, offset 1e3, B=1 and 2): warp and thread kernels identical "
+        "to the plain version")
 
     def row(name, source, thread_source, replaces, case, extra):
         big, one = stats[case, bsz], stats[case, 1]
@@ -674,12 +707,20 @@ def knn_phase(torch, xs, k, tile, window):
                     launches_by_variant={"warp": 0, "thread": 0},
                     thread_source=thread_source, **extra)
 
+    def shape(case):
+        big, one = stats[case, bsz], stats[case, 1]
+        return dict(ms=big["ms"], thread_ms=big["thread_ms"], plain_ms=big["plain_ms"],
+                    bound_ms=big["bound_ms"], ms_b1=one["ms"], thread_ms_b1=one["thread_ms"],
+                    bound_ms_b1=one["bound_ms"])
+
     src = "se3_equi_graph_registration_tpu_torch/csrc/"
-    k60 = stats["B1 packed on surfaces", bsz]
+    shapes = {"packed k=60 W=768": shape("B1 packed on surfaces"),
+              f"exact k={k} W={window}": shape("B1 exact"),
+              f"exact whole cloud k={k} N={n}": shape("B1 whole cloud"),
+              f"exact whole cloud k={FPFH_K} N={n}": shape("B1 whole cloud on surfaces")}
     return (row("knn_window", src + "knn_warp.cu", src + "knn.cu",
                 "se3_equi_graph_registration_tpu/ops/pallas/knn_kernel.py:26", "B1 packed",
-                dict(exact_thread_ms=ms, k60_w768_ms=k60["ms"],
-                     k60_w768_thread_ms=k60["thread_ms"], k60_w768_bound_ms=k60["bound_ms"])),
+                dict(exact_source=src + "knn_exact_warp.cu", shapes=shapes)),
             row("knn_chunked", src + "knn_chunked_warp.cu", src + "knn_chunked.cu",
                 "se3_equi_graph_registration_tpu/ops/pallas/knn_kernel.py:93", "B4", {}))
 
@@ -892,7 +933,7 @@ def serve_phase(torch, dev, cfg, bsz, sd, rows):
     record_launches(rows, "serve", dict(knn_window=launches[0], egcl_layer=launches[1]),
                     dict(knn_window=knn_by_variant))
 
-    other_configs(torch, dev, cfg, sd, args, same)
+    other_configs(torch, dev, cfg, sd, args, same, rows)
 
     for name, sl, res in results:
         t1 = time.perf_counter()
@@ -1262,11 +1303,89 @@ def register_fpfh_phase(torch, dev, rows):
     profile_call(torch, lambda: registration.register_fpfh(src, tgt, **kw), "register_fpfh b=1")
 
 
-def other_configs(torch, dev, cfg, sd, args, same):
+def register_fpfh_default_phase(torch, dev, rows):
+    """The checkpoint-free path at its defaults (knn_method='approx': the
+    whole-cloud exact k-NN at k = max(k_normals, k_fpfh) = 60, gather FPFH,
+    4 branches), b=1, N=2048, on the card against the same call on the CPU,
+    with the launch counters (2 knn_window launches, both on the exact warp
+    kernel, no B4 or B5); the k-NN lists of its two clouds card against CPU
+    (identical) and its descriptors (printed); both poses against the truth,
+    and card against CPU at 60 ICP steps (module docstring); pairs/s."""
+    from se3_equi_graph_registration_tpu_torch import registration
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn, spfh
+
+    (src, tgt, R, t), = surface_pairs(1, 6)
+    counters = dict(knn_window=knn.knn_window, knn_chunked=knn.knn_chunked, spfh=spfh.spfh)
+    for fn in counters.values():
+        fn.launches = 0
+    reset_knn_counters(knn)
+    t0 = time.perf_counter()
+    Rc, tc, ic = registration.register_fpfh(src, tgt)
+    torch.cuda.synchronize()
+    d = {k_: fn.launches for k_, fn in counters.items()}
+    check(d == dict(knn_window=2, knn_chunked=0, spfh=0),
+          f"register_fpfh at its defaults launched {d} (want knn_window 2, nothing else)")
+    knn_by_variant = check_knn_warp(knn.knn_window, "register_fpfh at its defaults")
+    record_launches(rows, "register_fpfh approx", dict(knn_window=d["knn_window"]),
+                    dict(knn_window=knn_by_variant))
+    t1 = time.perf_counter()
+    Rp, tp, _ = registration.register_fpfh(src, tgt, device="cpu")
+    cpu_s = time.perf_counter() - t1
+    dR = float(np.linalg.norm(Rc - Rp) / np.sqrt(2))
+    dt = float(np.abs(tc - tp).max())
+    (ec, etc), (ep, etp) = pose_err(Rc, tc, R, t), pose_err(Rp, tp, R, t)
+    log(f"register_fpfh at its defaults (approx, whole-cloud exact k-NN k=60, 4 branches) "
+        f"N={FPFH_N}: launches {d}, knn_window by kernel {knn_by_variant}; ground truth card "
+        f"{ec:.4f} deg {etc * 1e3:.3f} mm, CPU {ep:.4f} deg {etp * 1e3:.3f} mm; card vs CPU "
+        f"‖ΔR‖/√2 {dR:.3g}, |Δt| {dt:.3g} m (CPU run {cpu_s:.1f} s)")
+    # what the kernel hands the pipeline, card against CPU: the lists, then the descriptors
+    clouds = torch.from_numpy(np.stack([src, tgt])).to(dev)
+    kk = max(registration.DEFAULTS["k_normals"], registration.DEFAULTS["k_fpfh"])
+    lists = knn.knn_window(clouds, kk, FPFH_TILE, None)
+    lists_cpu = knn.knn_window(clouds.cpu(), kk, FPFH_TILE, None)
+    check(torch.equal(lists.cpu(), lists_cpu),
+          "register_fpfh at its defaults: the card's k-NN lists differ from the CPU's")
+    desc = registration._descriptors(clouds, kk, 30, 60, "approx", FPFH_WINDOW, False)
+    desc_cpu = registration._descriptors(clouds.cpu(), kk, 30, 60, "approx", FPFH_WINDOW, False)
+    dn = float(torch.minimum((desc[0].cpu() - desc_cpu[0]).abs(),
+                             (desc[0].cpu() + desc_cpu[0]).abs()).max())
+    flipped = int(((desc[0].cpu() * desc_cpu[0]).sum(-1) < 0).sum())
+    df = (desc[1].cpu() - desc_cpu[1]).abs()
+    log(f"register_fpfh at its defaults: k-NN lists of both clouds identical card vs CPU; "
+        f"normals max|Δ| {dn:.3g} up to sign, {flipped} of {2 * FPFH_N} oriented the other "
+        f"way; FPFH max|Δ| {float(df.max()):.3g}, entries off by more than 1e-3 of 100: "
+        f"{int((df > 0.1).sum())} of {df.numel()}")
+    check(all(np.isfinite(a).all() for a in (Rc, tc, ic["weights"], ic["pose_covariance"])),
+          "register_fpfh at its defaults: non-finite output")
+    check(ec < 0.5 and etc < 5e-3 and ep < 0.5 and etp < 5e-3,
+          f"register_fpfh at its defaults: ground truth missed, card {ec} deg {etc} m, "
+          f"CPU {ep} deg {etp} m")
+    Rc60, tc60, _ = registration.register_fpfh(src, tgt, icp_iters=60)
+    Rp60, tp60, _ = registration.register_fpfh(src, tgt, icp_iters=60, device="cpu")
+    dR60 = float(np.linalg.norm(Rc60 - Rp60) / np.sqrt(2))
+    dt60 = float(np.abs(tc60 - tp60).max())
+    log(f"register_fpfh at its defaults but 60 ICP steps: card vs CPU ‖ΔR‖/√2 {dR60:.3g}, "
+        f"|Δt| {dt60:.3g} m")
+    check(dR60 <= 2e-3 and dt60 <= 2e-3,
+          f"register_fpfh at its defaults but 60 ICP steps: card vs CPU dR {dR60} dt {dt60}")
+    reps = 5
+    t2 = time.perf_counter()
+    for _ in range(reps):
+        registration.register_fpfh(src, tgt)
+    rate = reps / (time.perf_counter() - t2)
+    log(f"register_fpfh at its defaults: {rate:.2f} pairs/s at b=1 (host clock incl. "
+        f"sampling, H2D, noise draw and result copy); path run "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def other_configs(torch, dev, cfg, sd, args, same, rows):
     """Every other configuration the engine accepts launches both kernels
     on the card and matches the CPU: the whole-cloud graph ('exact' and
     'approx', fp32 EGCL, SVD Kabsch) and the Morton-curve window with exact
-    keys. Two pairs each, counters reset per configuration."""
+    keys, every k-NN launch on the exact warp kernel. Two pairs each,
+    counters reset per configuration. Then a profile of `register()` at
+    `EngineConfig()` defaults (the whole-cloud exact graph and the accurate
+    EGCL kernels) at the largest batch."""
     import dataclasses
 
     from se3_equi_graph_registration_tpu_torch import serving
@@ -1291,15 +1410,23 @@ def other_configs(torch, dev, cfg, sd, args, same):
         by_variant = dict(egcl.egcl_layer.launches_by_variant)
         check(kd == 2 and ed == 2 * vcfg.n_layers,
               f"config {name}: register() launched knn {kd}, egcl {ed}")
-        check(knn.knn_window.launches_by_variant == {"warp": 0, "thread": 2},
-              f"config {name}: k-NN launches by kernel {knn.knn_window.launches_by_variant} "
-              "(exact keys and the whole cloud run the thread kernel)")
+        knn_by_variant = check_knn_warp(knn.knn_window, f"config {name}")
         check(by_variant["simt" if vcfg.egnn_accurate else "tile"] == ed,
               f"config {name}: EGCL launches by kernel {by_variant}")
+        record_launches(rows, f"config {name}", dict(knn_window=kd, egcl_layer=ed),
+                        dict(knn_window=knn_by_variant))
         dR, dt = same(res, serving.Registrar(sd, vcfg, device="cpu").register(
             *args(slice(0, 2))), f"config {name}")
-        log(f"config {name}: launches knn {kd} (thread kernel) egcl {ed} ({by_variant}); card vs CPU "
-            f"max‖ΔR‖/√2 {dR:.3g}, max|Δt| {dt:.3g} m")
+        log(f"config {name}: launches knn {kd} ({knn_by_variant}) egcl {ed} ({by_variant}); "
+            f"card vs CPU max‖ΔR‖/√2 {dR:.3g}, max|Δt| {dt:.3g} m")
+    dcfg = engine.EngineConfig(**{f: base[f] for f in ("num_nodes", "k", "in_node_nf",
+                                                       "hidden_nf", "n_layers", "num_heads",
+                                                       "top_k")})
+    reg = serving.Registrar(sd, dcfg, device=dev)
+    bsz = len(args(slice(None))[0])
+    profile_call(torch, lambda: reg.register(*args(slice(0, bsz))),
+                 f"register() at EngineConfig() defaults (exact whole-cloud k-NN, accurate "
+                 f"EGCL) B={bsz}")
 
 
 if __name__ == "__main__":

@@ -1,15 +1,17 @@
 // Exact / packed-key k-NN over Hilbert windows or the whole cloud, one thread
 // a query, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel se3_equi_graph_registration_tpu/ops/pallas/
-// knn_kernel.py:26 `_knn_kernel` (wrapper knn_pallas) in exact mode and over
-// the whole cloud (window = N). Packed mode over a window runs on the
-// warp-a-query csrc/knn_warp.cu on the main paths; this kernel's packed mode
-// stays for comparison (`variant='thread'` in ops/kernels/knn.py). Same
-// function as the TPU kernel, not the same blocks: the TPU kernel builds a
-// [T, W] distance tile and runs K min-reduction sweeps over it because its
-// vector unit likes wide sweeps. Here one thread owns one query and keeps
-// its K best keys sorted by insertion while it streams the window once.
+// The first port of the TPU kernel se3_equi_graph_registration_tpu/ops/
+// pallas/knn_kernel.py:26 `_knn_kernel` (wrapper knn_pallas), in both modes,
+// over a window or the whole cloud (window = N). The paths run the warp-a-
+// query kernels: csrc/knn_warp.cu (packed keys) and csrc/knn_exact_warp.cu
+// (exact keys, window or whole cloud, k ≤ 128). This kernel stays for
+// comparison (`variant='thread'` in ops/kernels/knn.py) and runs exact keys
+// at k > 128, by shape. Same function as the TPU kernel, not the same
+// blocks: the TPU kernel builds a [T, W] distance tile and runs K
+// min-reduction sweeps over it because its vector unit likes wide sweeps.
+// Here one thread owns one query and keeps its K best keys sorted by
+// insertion while it streams the window once.
 //
 // What bounds it on this card: neither bytes nor FLOPs (8 flops per query
 // and candidate; at B = 64 clouds, N = 2048, W = 384, ~0.4 GFLOP and ~10 MB,
@@ -20,8 +22,6 @@
 // shared memory (broadcast reads, no bank conflicts), the sorted list in
 // shared-memory columns (thread t owns column t: conflict-free), the
 // current K-th key in a register so a rejected candidate costs one compare.
-// Exact mode keeps (d², id) pairs, which the warp kernel's unique packed keys
-// do not cover; it is not redesigned yet (ROADMAP).
 //
 // Numerics: d² = (‖q‖² − 2·q·c) + ‖c‖², each product and sum rounded on its
 // own (__fmul_rn/__fadd_rn, no FMA contraction), in the fixed order of the

@@ -21,6 +21,14 @@
 // plain versions compare them (a slightly negative d² from cancellation
 // sorts first, as on the TPU). Pads sit at INT_MAX, above every key of a
 // finite d².
+//
+// Exact keys (csrc/knn_exact_warp.cu) order by (d², global id): a 64-bit
+// key, the order-preserving image of d² in the high word and the id in the
+// low one (`exact_key`), sorted by the same networks. Their high words are
+// not unique, so a warp-min step over them (`holds_warp_min`) takes the
+// smallest high word first, then the smallest id among the lanes that hold
+// it: two 32-bit reductions. A form that skipped the second where a ballot
+// found one owner measured slower on an H100 (PERF.md).
 
 #pragma once
 #include <cuda_runtime.h>
@@ -46,6 +54,36 @@ __device__ __forceinline__ int window_start(int tile, int pad_tiles, int max_til
 // The packed key of window offset r.
 __device__ __forceinline__ int order_key(float d2, int r) {
   return (__float_as_int(d2) & ~0x3FF) | r;
+}
+
+// Exact keys: (d², global id) in one 64-bit word, ordered as unsigned. The
+// high word maps d² so that unsigned order is float order, negative d²
+// (from cancellation) first: a non-negative float gets its sign bit set, a
+// negative one all bits flipped. −0 is made +0 first (x + 0 under
+// round-to-nearest), so the two tie as they do in the plain version's sort.
+using ExactKey = unsigned long long;
+constexpr ExactKey kExactPad = ~0ull;     // above every key of a d² that is not NaN
+
+__device__ __forceinline__ unsigned order_bits(float d2) {
+  const unsigned u = __float_as_uint(__fadd_rn(d2, 0.0f));
+  return u ^ ((u >> 31) ? 0xffffffffu : 0x80000000u);
+}
+
+__device__ __forceinline__ ExactKey exact_key(float d2, int gid) {
+  return (static_cast<ExactKey>(order_bits(d2)) << 32) | static_cast<unsigned>(gid);
+}
+
+// One warp-min step over exact keys: true on the lane whose head is the
+// warp's smallest key. Every lane calls it with its head (pads included).
+// The ids of a query's candidates are unique, so only pads can tie in full;
+// then every pad lane answers true, which a caller with enough keys never
+// reaches.
+__device__ __forceinline__ bool holds_warp_min(ExactKey head) {
+  const unsigned hi = static_cast<unsigned>(head >> 32);
+  const unsigned g = __reduce_min_sync(kFull, hi);
+  const unsigned lo = hi == g ? static_cast<unsigned>(head) : 0xffffffffu;
+  const unsigned gl = __reduce_min_sync(kFull, lo);   // on every lane, outside any `&&`
+  return hi == g && lo == gl;
 }
 
 // Where a block's queries are: blocks enumerate (cloud, tile, sub) with sub
@@ -91,14 +129,15 @@ __device__ __forceinline__ void stage_window(const float* __restrict__ xb, int S
 // loops unroll into fixed compare-exchanges on registers. N need not be a
 // power of two: the network of the next power of two, with the comparators
 // that reach past N dropped, sorts N keys (those positions would hold +inf).
-template <int N, int P, int K>
-__device__ __forceinline__ void merge_pass(int (&u)[N]) {
+// Keys are packed int32 or exact 64-bit keys (T).
+template <int N, int P, int K, class T>
+__device__ __forceinline__ void merge_pass(T (&u)[N]) {
 #pragma unroll
   for (int j = K % P; j + K < N; j += 2 * K) {
 #pragma unroll
     for (int i = 0; i < K; ++i) {
       if (i + j + K < N && (i + j) / (2 * P) == (i + j + K) / (2 * P)) {
-        const int a = u[i + j], b = u[i + j + K];
+        const T a = u[i + j], b = u[i + j + K];
         u[i + j] = min(a, b);
         u[i + j + K] = max(a, b);
       }
@@ -108,8 +147,8 @@ __device__ __forceinline__ void merge_pass(int (&u)[N]) {
 }
 
 // Sort a lane's N keys ascending, in registers.
-template <int N, int P = 1>
-__device__ __forceinline__ void sort_keys(int (&u)[N]) {
+template <int N, int P = 1, class T>
+__device__ __forceinline__ void sort_keys(T (&u)[N]) {
   if constexpr (P < N) {
     merge_pass<N, P, P>(u);
     sort_keys<N, 2 * P>(u);

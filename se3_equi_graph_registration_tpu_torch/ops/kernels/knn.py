@@ -1,4 +1,4 @@
-"""Window / whole-cloud k-NN: the plain versions and the wrappers of four
+"""Window / whole-cloud k-NN: the plain versions and the wrappers of five
 CUDA kernels, counterparts of `ops/pallas/knn_kernel.py` (`knn_pallas`).
 
 `knn_window` (B1, `_knn_kernel`, knn_kernel.py:26), two modes:
@@ -22,19 +22,23 @@ whose K smallest keys, ascending, are the neighbors. d² = (‖c‖² − 2·c·
 The kernels, picked by `knn_variant` before the launch and counted in each
 wrapper's `launches_by_variant`:
 
-- 'warp', packed keys (B1 packed: `csrc/knn_warp.cu`; B4:
-  `csrc/knn_chunked_warp.cu`; both on `csrc/knn_select.cuh`): one warp a
-  query. Neither bytes nor the 8 flops per (query, candidate) bound these
-  on an H100, but instruction issue; so each lane computes its candidates'
-  keys into registers from a window staged once a block and sorts them
-  there, and warp-min steps (`__reduce_min_sync`) extract the smallest keys
-  in ascending order, never by divergent insertion. A block of 4 warps
-  covers 4 queries of a tile (16 from 64 k queries on), so one cloud fills
-  the card.
-- 'thread' (B1 exact and whole cloud: `csrc/knn.cu`; B4 for comparison:
-  `csrc/knn_chunked.cu`): one thread a query, sorted insertion lists in
-  shared memory. `variant='thread'` launches them where the warp kernel
-  would run, for `chip_smoke.py` to compare and time the two.
+- 'warp', one warp a query, on `csrc/knn_select.cuh`: B1 packed over a
+  window (`csrc/knn_warp.cu`), B1 exact over a window or the whole cloud
+  at k ≤ 128 (`csrc/knn_exact_warp.cu`), B4 (`csrc/knn_chunked_warp.cu`).
+  Neither bytes nor the 8 flops per (query, candidate) bound these on an
+  H100, but instruction issue; so the lanes compute their candidates' keys
+  from candidates staged once a block and sort them in registers, and
+  warp-min steps (`__reduce_min_sync`) extract the smallest keys in
+  ascending order, never by divergent insertion. The exact kernel streams
+  the candidates in chunks of 1024, drops those not below the query's
+  running K-th key, and merges the rest into the running list. A block of
+  4 warps covers 4 queries of a tile (16 from 64 k queries on), so one
+  cloud fills the card.
+- 'thread', one thread a query, sorted insertion lists in shared memory:
+  `csrc/knn.cu` (B1, both modes) and `csrc/knn_chunked.cu` (B4). Kept for
+  comparison: `variant='thread'` launches them where the warp kernel would
+  run, for `chip_smoke.py` to compare and time the two. Exact keys at
+  k > 128 run only there, by shape.
 """
 from __future__ import annotations
 
@@ -88,15 +92,34 @@ def knn_window_plain(x: torch.Tensor, k: int, tile: int = 128,
     return idx.reshape(x.shape[:-1] + (k,)).to(torch.int32)
 
 
-def knn_variant(packed: bool | str, window: Optional[int]) -> str:
+EXACT_WARP_MAX_K = 128    # the exact warp kernel keeps ⌈K/32⌉ running-list keys a lane
+
+
+def knn_variant(packed: bool | str, window: Optional[int], k: int = 1) -> str:
     """Which hand-written kernel runs a k-NN: 'warp' for packed keys over a
-    window of at most 1024 (`csrc/knn_warp.cu`) and for chunked keys
-    (`packed='chunked'`, `csrc/knn_chunked_warp.cu`); 'thread' for exact keys
-    and the whole cloud (`csrc/knn.cu`). A choice by shape, made before the
-    launch; a launch that fails raises."""
+    window of at most 1024 (`csrc/knn_warp.cu`), for chunked keys
+    (`packed='chunked'`, `csrc/knn_chunked_warp.cu`) and for exact keys over
+    a window or the whole cloud at k ≤ 128 (`csrc/knn_exact_warp.cu`);
+    'thread' for exact keys at larger k (`csrc/knn.cu`). A choice by shape,
+    made before the launch; a launch that fails raises."""
     if packed == "chunked" or (packed and window is not None and window <= 1024):
         return "warp"
+    if not packed and k <= EXACT_WARP_MAX_K:
+        return "warp"
     return "thread"
+
+
+def exact_warp_geometry(n: int, k: int, tile: int, window: Optional[int]
+                        ) -> tuple[int, int, int, int]:
+    """(T, W, pad_tiles, max_tile) as `csrc/knn_exact_warp.cu` takes them:
+    the window geometry, except that the whole cloud is one window that all
+    N queries share, so one tile of N queries (T = W = N, S = 0) whatever
+    tile divides N."""
+    if window is None:
+        _geometry(n, tile, None, False, k)
+        return n, n, 0, 0
+    w, pad_tiles, max_tile = _geometry(n, tile, window, False, k)
+    return tile, w, pad_tiles, max_tile
 
 
 def _queries_per_warp(b: int, n: int) -> int:
@@ -142,12 +165,13 @@ def knn_window(x: torch.Tensor, k: int, tile: int = 128,
     """k-NN of curve-sorted clouds x [B, N, 3] f32 → nbr [B, N, K] int32.
 
     `window=None` searches the whole cloud. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel `knn_variant` names.
-    `variant='thread'` asks for `csrc/knn.cu` where the warp kernel would run
-    (to compare the two); 'warp' where there is none, or any variant on a
-    CPU tensor, raises.
+    version; a CUDA tensor launches the kernel `knn_variant` names
+    (`csrc/knn_warp.cu` for packed keys, `csrc/knn_exact_warp.cu` for exact
+    keys). `variant='thread'` asks for `csrc/knn.cu` where a warp kernel
+    would run (to compare the two); 'warp' where there is none, or any
+    variant on a CPU tensor, raises.
     """
-    by_shape = knn_variant(packed, window)
+    by_shape = knn_variant(packed, window, k)
     _check_call(x, tile, variant, by_shape)
     if x.device.type == "cpu":
         return knn_window_plain(x, k, tile, window, packed, include_self)
@@ -155,9 +179,13 @@ def knn_window(x: torch.Tensor, k: int, tile: int = 128,
     w, pad_tiles, max_tile = _geometry(n, tile, window, packed, k)
     out = torch.empty((b, n, k), dtype=torch.int32, device=x.device)
     variant = variant or by_shape
-    if variant == "warp":
+    if variant == "warp" and packed:
         _launch("knn_warp", "knn_warp_launch", x, out, b, n, k, tile, w, pad_tiles, max_tile,
                 int(include_self), _queries_per_warp(b, n))
+    elif variant == "warp":
+        _launch("knn_exact_warp", "knn_exact_warp_launch", x, out, b, n, k,
+                *exact_warp_geometry(n, k, tile, window), int(include_self),
+                _queries_per_warp(b, n))
     else:
         _launch("knn", "knn_launch", x, out, b, n, k, tile, w, pad_tiles, max_tile,
                 int(packed), int(include_self))

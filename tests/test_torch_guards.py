@@ -91,8 +91,12 @@ def test_knn_wrappers_reject_a_kernel_variant_as_they_reject_a_bad_geometry():
             knn.knn_window(x, 8, 128, 384, packed=True, variant=variant)
         with pytest.raises(ValueError, match="CPU tensor"):
             knn.knn_chunked(x, 8, 128, 256, variant=variant)
+    for window in (384, None):           # exact keys: the warp kernel exists, not on the CPU
+        assert knn.knn_variant(False, window, 8) == "warp"
+        with pytest.raises(ValueError, match="CPU tensor"):
+            knn.knn_window(x, 8, 128, window, packed=False, variant="warp")
     with pytest.raises(ValueError, match="no 'warp'"):
-        knn.knn_window(x, 8, 128, 384, packed=False, variant="warp")  # exact mode
+        knn.knn_window(x, 200, 128, 384, packed=False, variant="warp")  # exact, k > 128
     with pytest.raises(ValueError, match="no 'simt'"):
         knn.knn_chunked(x, 8, 128, 256, variant="simt")
     assert knn.knn_window(x, 8, 128, 384, packed=True).shape == (1, 512, 8)

@@ -62,7 +62,7 @@ def test_wrapper_rejects_bad_inputs():
 @pytest.mark.parametrize("packed,window,want", [
     (True, 384, "warp"), (True, 1024, "warp"), (True, 128, "warp"),
     ("chunked", 768, "warp"), ("chunked", 128, "warp"),
-    (False, 384, "thread"), (False, None, "thread"), (True, None, "thread"),
+    (False, 384, "warp"), (False, None, "warp"), (True, None, "thread"),
 ], ids=["packed-384", "packed-1024", "packed-128", "chunked-768", "chunked-128", "exact-384",
         "exact-whole-cloud", "packed-whole-cloud"])
 def test_knn_variant_routes_packed_windows_and_chunked_keys_to_the_warp_kernels(
@@ -70,6 +70,33 @@ def test_knn_variant_routes_packed_windows_and_chunked_keys_to_the_warp_kernels(
     from se3_equi_graph_registration_tpu_torch.ops.kernels import knn as kk
 
     assert kk.knn_variant(packed, window) == want
+
+
+@pytest.mark.parametrize("window", [128, 384, 1024, 2048, None])
+def test_knn_variant_routes_exact_keys_to_the_warp_kernel_up_to_k_128(window):
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn as kk
+
+    for k in (1, 16, 60, 128):
+        assert kk.knn_variant(False, window, k) == "warp"
+    assert kk.knn_variant(False, window, 129) == "thread"
+
+
+def test_exact_warp_geometry_treats_the_whole_cloud_as_one_tile():
+    """The whole cloud is one window shared by every query: the exact warp
+    kernel takes it as one tile of N queries (S = 0) whatever tile divides N;
+    a window keeps the window-start formula's integers."""
+    from se3_equi_graph_registration_tpu_torch.ops import morton
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn as kk
+
+    for n, tile in ((2048, 128), (2000, 125), (251, 1)):
+        assert kk.exact_warp_geometry(n, 16, tile, None) == (n, n, 0, 0)
+    t, w, pad_tiles, max_tile = kk.exact_warp_geometry(2048, 16, 128, 384)
+    assert (t, w) == (128, 384)
+    for i in range(2048 // 128):
+        assert (min(max(i - pad_tiles, 0), max_tile) * t
+                == morton.window_start_at(i, 128, 2048, 384))
+    with pytest.raises(ValueError):
+        kk.exact_warp_geometry(2000, 16, 128, None)      # the tile must divide N
 
 
 def test_knn_counters_by_variant_exist_and_start_at_zero():

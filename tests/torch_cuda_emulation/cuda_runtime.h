@@ -1,7 +1,7 @@
 // Host emulation of the CUDA the port's hand-written kernels use, for CPU tests
 // (tests/test_torch_*_emulated.py): a block runs its CUDA threads as fibers
 // (ucontext) on the calling thread, blocks one after another; __syncthreads,
-// __syncwarp, the warp shuffles, the warp min reduction and mma.sync.m16n8k16
+// __syncwarp, the warp shuffles, the warp min reduction, the ballot and mma.sync.m16n8k16
 // (bf16 operands, fp32 accumulation, the PTX fragment layouts) are
 // collectives over barriers at which a fiber yields until its peers arrive.
 // One OS thread does all the work, so a loaded machine slows it in proportion
@@ -29,6 +29,7 @@ struct float2 { float x, y; }; struct float4 { float x, y, z, w; };
 struct uint2 { uint32_t x, y; }; struct uint4 { uint32_t x, y, z, w; };
 struct dim3m { int x = 0, y = 0, z = 0; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
 typedef int cudaError_t; typedef void* cudaStream_t;
@@ -69,20 +70,38 @@ template <class T> inline T __shfl_sync(unsigned, T v, int src) {
   warp_ctx->bar.arrive_and_wait(); T r; std::memcpy(&r, &warp_ctx->buf[src & 31][0], 4);
   warp_ctx->bar.arrive_and_wait(); return r; }
 template <class T> inline T __shfl_xor_sync(unsigned m, T v, int x) { return __shfl_sync(m, v, (threadIdx.x & 31) ^ x); }
-// the warp min reduction: each lane posts its value, all read all. One barrier:
-// consecutive reductions alternate between two slots, and a lane can write a
-// slot again only after every lane has passed the barrier between.
-inline int __reduce_min_sync(unsigned, int v) {
+// the warp min reduction and the ballot: each lane posts its value, all read
+// all. One barrier: consecutive collectives alternate between two slots, and
+// a lane can write a slot again only after every lane has passed the barrier
+// between.
+inline uint32_t* emulated_post(uint32_t v) {
   const int lane = threadIdx.x & 31, slot = 8 + (emulated_reductions++ & 1);
-  warp_ctx->buf[lane][slot] = static_cast<uint32_t>(v);
+  warp_ctx->buf[lane][slot] = v;
   warp_ctx->bar.arrive_and_wait();
+  static thread_local uint32_t all[32];
+  for (int l = 0; l < 32; ++l) all[l] = warp_ctx->buf[l][slot];
+  return all; }
+inline int __reduce_min_sync(unsigned, int v) {
+  const uint32_t* all = emulated_post(static_cast<uint32_t>(v));
   int r = v;
-  for (int l = 0; l < 32; ++l) r = std::min(r, static_cast<int>(warp_ctx->buf[l][slot]));
+  for (int l = 0; l < 32; ++l) r = std::min(r, static_cast<int>(all[l]));
   return r; }
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  const uint32_t* all = emulated_post(v);
+  unsigned r = v;
+  for (int l = 0; l < 32; ++l) r = std::min(r, all[l]);
+  return r; }
+inline unsigned __ballot_sync(unsigned, int p) {
+  const uint32_t* all = emulated_post(p != 0);
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r |= all[l] << l;
+  return r; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
+inline unsigned __float_as_uint(float f) { unsigned i; std::memcpy(&i, &f, 4); return i; }
 inline float __fdividef(float a, float b) { return a / b; }
 inline float __expf(float a) { return std::exp(a); }
 inline float rsqrtf(float a) { return 1.0f / std::sqrt(a); }
