@@ -7,11 +7,12 @@ Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
 version on the card at the main paths' shapes. B1 packed, B1 exact (over a
 window and over the whole cloud) and B4 each have a warp-a-query kernel on
-the paths and the thread-a-query kernel kept to compare, and so have the
-EGCL forward and backward (a bf16
-tensor-core tile kernel for fast mode at C=32, a SIMT kernel for accurate
-mode and other widths); all are held, and each pair is timed in the same
-run. Then it drives the three main paths, each with the launch counters
+the paths and the thread-a-query kernel kept to compare; the EGCL forward
+and backward have, at C=32, a bf16 tensor-core tile kernel for fast mode
+and an fp32 register-blocked tile kernel for accurate mode, and a SIMT
+kernel for other widths that each mode's tile kernel is also timed and
+held against; all are held against their plain versions, and each pair is
+timed in the same run. Then it drives the three main paths, each with the launch counters
 set to 0 just before it and read just after (`--phases` runs a subset:
 `knn` is the k-NN kernel checks alone, `egcl` the EGCL forward's, `bwd`
 the EGCL backward's, for iterating on a kernel; with no argument
@@ -21,12 +22,16 @@ everything runs):
   `BatchingServer`, checked against the same Registrar on the CPU, every
   k-NN launch on the warp kernel; the engine's other configurations
   (exact and approx whole-cloud graphs, a window with exact keys), each
-  k-NN launch on the exact warp kernel, and a profile of `register()` at
-  `EngineConfig()` defaults (whole-cloud exact k-NN, accurate EGCL) at B=64;
+  k-NN launch on the exact warp kernel and every accurate EGCL launch on
+  the fp32 tile kernel, and a profile of `register()` at `EngineConfig()`
+  defaults (whole-cloud exact k-NN, accurate EGCL) at B=64 with its
+  counters;
 - training: `make_train_step` with Adam at B=64 (2 knn, 6 EGCL forward and
-  6 EGCL backward launches per step, on the warp k-NN and the tile
-  kernels in fast mode), an accurate step (SIMT kernels) checked against the
-  same step on the CPU, and fast-against-accurate gradients printed;
+  6 EGCL backward launches per step, on the warp k-NN and the bf16 tile
+  kernels in fast mode), an accurate step (fp32 tile kernels) checked
+  against the same step on the CPU, fast-against-accurate gradients
+  printed, and 3 steps at `EngineConfig()` defaults at B=64 (every EGCL
+  launch on the fp32 tile kernels) with a profile;
 - the checkpoint-free pipeline at full width (N=2048, k_normals 30, k_fpfh
   60, tile 128, window 768, chunked keys, top_m 512, 512 hypotheses, 5 IRLS
   and 10 ICP steps, quaternion Kabsch): `register_fpfh` at 4 branches and 1
@@ -52,7 +57,11 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   is ~4e-3 against |x| ~1.5 at the served weights, so a check on x′ itself
   would pass a kernel that left the coordinates unchanged.
 - egcl accurate: tol 1e-4 (fp32; only summation order differs: sequential
-  FMAs against cuBLAS; measured 2.4e-7 on h′).
+  FMAs against cuBLAS; measured 2.4e-7 on h′ for SIMT, 3.5e-7 for the fp32
+  tile kernel, whose SiLU runs on the fast exponential and divide); the
+  fp32 tile kernel in every case (K=7, 12, 16, 20, head widths 1, 8 and 32,
+  repeated and collinear points, B=1, with and without agg_m); fp32 tile
+  against SIMT at twice the tolerance.
 - egcl fast: tol 2e-2 on h′ and 1e-2 on u (measured 2.2e-3 on h′ and
   5.5e-4 on u at C=32): both round the same operands to bf16, but a sum that
   differs in its last fp32 bit can round to the next bf16 value (2⁻⁸
@@ -72,6 +81,8 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   a parameter gradient sums 2.1 M edges; measured ≤ 3.1e-6); fast 5e-3
   (a sum that differs in its last fp32 bit can round an operand to the
   next bf16 value, 2⁻⁸ relative, as in the forward; measured ≤ 2e-4).
+  The fp32 tile backward in the forward's cases and on the coordinate path
+  at B=8, and against SIMT at twice the tolerance.
   Two cases in each mode: random dagg_m and dagg_x at the seeded weights,
   and the coordinate path alone (dagg_m = 0, the coord output drawn at
   O(1/√C) instead of the init's 1e-3 gain). At the seeded weights the
@@ -87,7 +98,8 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   at fast 5e-3 in every case (K=12, 16, 20, head widths 8 and 32, repeated
   points, B=1); tile against SIMT (the same function in two orders of
   summation) at 1e-2 of the scale.
-- train, accurate step at B=2, card vs CPU: loss within 1e-4 relative;
+- train, accurate step at B=2 (every EGCL launch on the fp32 tile kernels),
+  card vs CPU: loss within 1e-4 relative;
   every parameter's gradient at cosine ≥ 0.9999 and relative L2 ≤ 1e-4
   (measured 1.6e-6); post-Adam parameters within 1e-6 where the gradient
   exceeds 1e-3 of its tensor's max, and within 2·lr everywhere (Adam's
@@ -237,9 +249,25 @@ def backward_errors(got, ref, accurate, what, tol=None):
     return errs
 
 
+EGCL_VARIANTS = ("tile", "tile_f32", "simt")
+
+
+def only(variant, n):
+    """An EGCL wrapper's launches_by_variant with n launches of `variant`
+    and none of the others."""
+    return {**dict.fromkeys(EGCL_VARIANTS, 0), variant: n}
+
+
+def by_row(wrapper, by_variant):
+    """An EGCL wrapper's launches by kernel row: the bf16 tile kernel's row
+    (named as the wrapper) counts 'tile', the fp32 tile kernel's ('_f32')
+    'tile_f32'; the SIMT kernels have no row of their own."""
+    return {wrapper: by_variant["tile"], f"{wrapper}_f32": by_variant["tile_f32"]}
+
+
 def reset_backward_counters(eb):
     eb.egcl_backward.launches = 0
-    eb.egcl_backward.launches_by_variant = {"tile": 0, "simt": 0}
+    eb.egcl_backward.launches_by_variant = dict.fromkeys(EGCL_VARIANTS, 0)
 
 
 def log_backward_errors(errs, what):
@@ -300,7 +328,7 @@ def egcl_backward_tile_checks(torch, p, h, xs, nbr, gen):
         reset_backward_counters(eb)
         got = eb.egcl_backward(h_, x_, nbr_, p_, dm_, dx_, False)
         torch.cuda.synchronize()
-        check(eb.egcl_backward.launches_by_variant == {"tile": 1, "simt": 0},
+        check(eb.egcl_backward.launches_by_variant == only("tile", 1),
               f"egcl_backward tile case {name} launched {eb.egcl_backward.launches_by_variant}")
         check(all(bool(torch.isfinite(t_).all()) for t_ in (got[0], got[1], *got[2].values())),
               f"egcl_backward tile case {name}: non-finite output")
@@ -309,13 +337,46 @@ def egcl_backward_tile_checks(torch, p, h, xs, nbr, gen):
         log_backward_errors(errs, f"tile case {name}, B={h_.shape[0]}")
 
 
+def egcl_backward_f32_checks(torch, p, h, xs, nbr, gen):
+    """The fp32 tile backward in every case of `f32_cases` and on the
+    coordinate path alone (dagg_m = 0, the coord output at O(1/√C)), each
+    against the plain accurate version at BWD_TOL_ACCURATE."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+
+    dev = h.device
+    b8 = min(8, h.shape[0])
+    h8, x8, nbr8 = h[:b8].contiguous(), xs[:b8].contiguous(), nbr[:b8].contiguous()
+    dm8 = torch.randn(*h8.shape, generator=gen).to(dev)
+    dx8 = torch.randn(*x8.shape, generator=gen).to(dev)
+    pc = p._replace(wc1=torch.randn(1, 32, generator=gen).to(dev) / 32 ** 0.5)
+    cases = [(*case, dm8) for case in f32_cases(torch, p, h8, x8, nbr8)]
+    cases.append(("coordinate path", h8, x8, nbr8, pc, torch.zeros_like(dm8)))
+    for name, h_, x_, nbr_, p_, dm_ in cases:
+        b_ = h_.shape[0]
+        dm_, dx_ = dm_[:b_].contiguous(), dx8[:b_].contiguous()
+        check(egcl.egcl_variant(32, nbr_.shape[-1], p_.head_width, True) == "tile_f32",
+              f"egcl_backward f32 case {name} is not routed to the fp32 tile kernel")
+        reset_backward_counters(eb)
+        got = eb.egcl_backward(h_, x_, nbr_, p_, dm_, dx_, True)
+        torch.cuda.synchronize()
+        check(eb.egcl_backward.launches_by_variant == only("tile_f32", 1),
+              f"egcl_backward f32 case {name} launched {eb.egcl_backward.launches_by_variant}")
+        check(all(bool(torch.isfinite(t_).all()) for t_ in (got[0], got[1], *got[2].values())),
+              f"egcl_backward f32 case {name}: non-finite output")
+        errs = backward_errors(got, eb.egcl_backward_plain(h_, x_, nbr_, p_, dm_, dx_, True),
+                               True, f"f32 case {name}")
+        log_backward_errors(errs, f"f32 case {name}, B={b_}")
+
+
 def egcl_backward_phase(torch, p, h, xs, nbr, gen):
-    """B2 with agg_m (the tile kernel in fast mode, the SIMT kernel in
-    accurate), then B3 against their plain versions at the main path's
-    shapes, on random cotangents and on the coordinate path alone: the
-    backward tile kernel from the bottom up; fast mode through both
-    kernels, tile against SIMT; accurate mode through the SIMT kernel; then
-    C=33 with one head. Returns the kernel row."""
+    """B2 with agg_m (the fp32 tile kernel in accurate mode, the bf16 tile
+    kernel in fast), then B3 against their plain versions at the main path's
+    shapes, on random cotangents and on the coordinate path alone: the bf16
+    tile kernel from the bottom up and the fp32 tile kernel in every case;
+    each mode through its tile kernel and the SIMT kernel, timed beside the
+    plain version, the two held against each other; then C=33 with one
+    head (SIMT). Returns the rows of the bf16 and the fp32 tile kernels."""
     from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
@@ -324,6 +385,7 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
     b, n, c = h.shape
     k = nbr.shape[-1]
     egcl_backward_tile_checks(torch, p, h, xs, nbr, gen)
+    egcl_backward_f32_checks(torch, p, h, xs, nbr, gen)
     packed = egcl.pack_for_kernels(p)
     dagg_m = torch.randn(b, n, c, generator=gen).to(dev)
     dagg_x = torch.randn(b, n, 3, generator=gen).to(dev)
@@ -333,8 +395,13 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
     packed_c, zero_m = egcl.pack_for_kernels(pc), torch.zeros_like(dagg_m)
     stats, outs = {}, {}
     for accurate in (True, False):
+        mode = "accurate" if accurate else "fast"
+        reset_egcl_counters(egcl)
         gh, gx, gm = egcl.egcl_layer(h, xs, nbr, p, accurate, packed, return_aggm=True)
         torch.cuda.synchronize()
+        want = egcl.egcl_variant(c, k, p.head_width, accurate)
+        check(egcl.egcl_layer.launches_by_variant == only(want, 1),
+              f"egcl with agg_m, {mode}: launched {egcl.egcl_layer.launches_by_variant}")
         rh, rx, rm = egcl.egcl_layer_plain(h, xs, nbr, p, accurate, return_aggm=True)
         egcl_errors(torch, (gh, gx), (rh, rx), xs, accurate)
         em, sm = (gm - rm).abs().max().item(), rm.abs().max().item()
@@ -342,21 +409,21 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
               f"egcl agg_m accurate={accurate}: max|Δ| {em} against scale {sm}")
         ms_aggm = cuda_ms(torch, lambda: egcl.egcl_layer(h, xs, nbr, p, accurate, packed,
                                                           return_aggm=True), 10)
-        log(f"egcl with agg_m accurate={accurate}: max|Δ| {em:.3g} (rel {em / sm:.3g}), "
-            f"{ms_aggm:.3f} ms")
+        log(f"egcl with agg_m {mode} ({want}): max|Δ| {em:.3g} (rel {em / sm:.3g}), "
+            f"{ms_aggm:.4f} ms")
         ref = eb.egcl_backward_plain(h, xs, nbr, p, dagg_m, dagg_x, accurate)
         ref_c = eb.egcl_backward_plain(h, xs, nbr, pc, zero_m, dagg_x, accurate)
         plain = cuda_ms(torch, lambda: eb.egcl_backward_plain(h, xs, nbr, p, dagg_m,
                                                                dagg_x, accurate), 2)
-        for variant in (("simt",) if accurate else ("tile", "simt")):
-            name = "accurate" if accurate else f"fast {variant}"
+        for variant in (want, "simt"):
+            name = f"{mode} {variant}"
             reset_backward_counters(eb)
             got = eb.egcl_backward(h, xs, nbr, p, dagg_m, dagg_x, accurate, packed, variant)
             torch.cuda.synchronize()
             got_c = eb.egcl_backward(h, xs, nbr, pc, zero_m, dagg_x, accurate, packed_c,
                                      variant)
             torch.cuda.synchronize()
-            check(eb.egcl_backward.launches_by_variant == {"tile": 0, "simt": 0, variant: 2},
+            check(eb.egcl_backward.launches_by_variant == only(variant, 2),
                   f"egcl_backward[{name}] launched {eb.egcl_backward.launches_by_variant}")
             errs = backward_errors(got, ref, accurate, f"{name}, random cotangents")
             errs_c = backward_errors(got_c, ref_c, accurate, f"{name}, coordinate path")
@@ -366,11 +433,13 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
             outs[name] = got
             log_backward_errors(errs, f"{name}, random cotangents, B={b} N={n} C={c} K={k}")
             log_backward_errors(errs_c, f"{name}, coordinate path")
-            log(f"egcl_backward[{name}]: kernel {ms:.3f} ms, plain {plain:.3f} ms")
-    # tile against SIMT: one function, two orders of summation
-    errs = backward_errors(outs["fast tile"], outs["fast simt"], False, "tile vs simt",
-                           tol=1e-2)
-    log_backward_errors(errs, "fast tile vs simt")
+            log(f"egcl_backward[{name}]: kernel {ms:.4f} ms, plain {plain:.3f} ms")
+    # the two kernels of a mode against each other: one function, two orders of summation
+    for a, b_, accurate, tol in (("fast tile", "fast simt", False, 1e-2),
+                                 ("accurate tile_f32", "accurate simt", True,
+                                  2 * BWD_TOL_ACCURATE)):
+        errs = backward_errors(outs[a], outs[b_], accurate, f"{a} vs {b_}", tol=tol)
+        log_backward_errors(errs, f"{a} vs {b_}")
     wh = p.head_width
     fwd_edge = 2 * c * (c + 12) + 2 * c * wh + 2 * c * c + 2 * c + 12 * c
     bwd_edge = (2 * c * c * 4 + 2 * c * wh * 2 + 2 * 12 * c * 2 + 2 * c   # products
@@ -378,12 +447,14 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
     center = 3 * 2 * c * c
     ops = b * n * (k * (fwd_edge + bwd_edge) + center)
     nbytes = 4 * b * n * (2 * c + 6 + k) + 2 * 4 * b * n * (c + 3) + packed.simt.numel() * 4
-    ms, plain, err = stats["fast tile"]
-    bb, bby = bound_ms(nbytes, ops, PEAK_BF16)
+    fb, fby = bound_ms(nbytes, ops, PEAK_BF16)
+    ab, aby = bound_ms(nbytes, ops, PEAK_FP32)
     log(f"egcl_backward bound: {ops / (b * n * k):.0f} FLOP/edge; fast vs bf16 peak "
-        f"{bb:.4f} ms, accurate vs fp32 peak {bound_ms(nbytes, ops, PEAK_FP32)[0]:.4f} ms; "
-        f"fast tile {ms:.3f} ms ({100 * bb / ms:.2f}% of the bound), fast simt "
-        f"{stats['fast simt'][0]:.3f} ms, accurate {stats['accurate'][0]:.3f} ms")
+        f"{fb:.4f} ms (tile {stats['fast tile'][0]:.4f} ms at "
+        f"{100 * fb / stats['fast tile'][0]:.2f}%, SIMT {stats['fast simt'][0]:.4f} ms); "
+        f"accurate vs fp32 peak {ab:.4f} ms (tile_f32 {stats['accurate tile_f32'][0]:.4f} ms "
+        f"at {100 * ab / stats['accurate tile_f32'][0]:.2f}%, SIMT "
+        f"{stats['accurate simt'][0]:.4f} ms at {100 * ab / stats['accurate simt'][0]:.2f}%)")
 
     m33 = EGNN(in_node_nf=33, hidden_nf=33, out_node_nf=33, n_layers=1, num_heads=1)
     p33 = egcl.params_from_layer(m33.to(dev).gcl_0)
@@ -395,22 +466,31 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
     for accurate in (True, False):
         reset_backward_counters(eb)
         got = eb.egcl_backward(h33, x33, nbr33, p33, dm33, dx33, accurate)
-        check(eb.egcl_backward.launches_by_variant == {"tile": 0, "simt": 1},
+        check(eb.egcl_backward.launches_by_variant == only("simt", 1),
               f"egcl_backward C=33 launched {eb.egcl_backward.launches_by_variant}")
         errs = backward_errors(got, eb.egcl_backward_plain(h33, x33, nbr33, p33, dm33, dx33,
                                                            accurate), accurate, "C=33")
         log_backward_errors(errs, f"C=33, 1 head, accurate={accurate}, B={b33}")
-    return dict(name="egcl_backward", route="cuda",
-                source="se3_equi_graph_registration_tpu_torch/csrc/egcl_backward_tile.cu",
-                replaces="se3_equi_graph_registration_tpu/ops/pallas/egcl_backward.py:53",
-                launches=0, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bb,
-                bound_by=bby, library_ms=None, variant="tile",
-                simt_ms=stats["fast simt"][0], accurate_ms=stats["accurate"][0],
-                simt_source="se3_equi_graph_registration_tpu_torch/csrc/egcl_backward.cu")
+    src = "se3_equi_graph_registration_tpu_torch/csrc/"
+    replaces = "se3_equi_graph_registration_tpu/ops/pallas/egcl_backward.py:53"
+    row = lambda name, source, stat, simt, bound, by, variant: dict(
+        name=name, route="cuda", source=src + source, replaces=replaces, launches=0,
+        max_abs_err=stats[stat][2], ms=stats[stat][0], plain_ms=stats[stat][1], bound_ms=bound,
+        bound_by=by, library_ms=None, variant=variant, simt_ms=stats[simt][0],
+        simt_source=src + "egcl_backward.cu")
+    return (row("egcl_backward", "egcl_backward_tile.cu", "fast tile", "fast simt", fb, fby,
+                "tile"),
+            row("egcl_backward_f32", "egcl_backward_tile_f32.cu", "accurate tile_f32",
+                "accurate simt", ab, aby, "tile_f32"))
 
 
 PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh")
-ROW_ORDER = ("knn_window", "egcl_layer", "egcl_backward", "knn_chunked", "spfh")
+ROW_ORDER = ("knn_window", "egcl_layer", "egcl_layer_f32", "egcl_backward", "egcl_backward_f32",
+             "knn_chunked", "spfh")
+# the phases whose paths launch each kernel row's kernel
+DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh"), egcl_layer=("serve", "train"),
+                 egcl_layer_f32=("serve", "train"), egcl_backward=("train",),
+                 egcl_backward_f32=("train",), knn_chunked=("fpfh",), spfh=("fpfh",))
 
 
 def main(argv=None) -> int:
@@ -489,7 +569,7 @@ def reset_knn_counters(knn):
 
 def reset_egcl_counters(egcl):
     egcl.egcl_layer.launches = 0
-    egcl.egcl_layer.launches_by_variant = {"tile": 0, "simt": 0}
+    egcl.egcl_layer.launches_by_variant = dict.fromkeys(EGCL_VARIANTS, 0)
 
 
 def run(torch, dev, cfg, bsz, phases=PHASES):
@@ -520,17 +600,21 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
     if "knn" in phases:
         rows["knn_window"], rows["knn_chunked"] = knn_phase(torch, x, xs, k, tile, window)
     if "egcl" in phases:
-        rows["egcl_layer"] = egcl_phase(torch, p, h, xs, nbr, gen)
+        rows["egcl_layer"], rows["egcl_layer_f32"] = egcl_phase(torch, p, h, xs, nbr, gen)
     if "serve" in phases:
         serve_phase(torch, dev, cfg, bsz, sd, rows)
     if "bwd" in phases:
-        rows["egcl_backward"] = egcl_backward_phase(torch, p, h, xs, nbr, gen)
+        rows["egcl_backward"], rows["egcl_backward_f32"] = egcl_backward_phase(
+            torch, p, h, xs, nbr, gen)
     if "train" in phases:
         train_phase(torch, dev, cfg, bsz, rows)
     if "fpfh" in phases:
         rows["spfh"] = fpfh_kernel_phase(torch, dev, bsz)
         register_fpfh_phase(torch, dev, rows)
         register_fpfh_default_phase(torch, dev, rows)
+    for name, row in rows.items():
+        if any(ph in phases for ph in DRIVEN_BY[name]):
+            check(row["launches"] > 0, f"{name}: no launch on the paths this run drove")
     return [rows[name] for name in ROW_ORDER if name in rows]
 
 
@@ -783,11 +867,70 @@ def egcl_tile_checks(torch, p, h, xs, nbr, gen):
             f"agg_m {em / sm:.3g}; same with and without agg_m")
 
 
+def f32_cases(torch, p, h8, x8, nbr8):
+    """The cases of the fp32 tile kernels at B=8: (name, h, x, nbr, p) for
+    K=16, 12, 7 (masked rows) and 20 (two row tiles), head widths 8, 32 and
+    1, repeated points and points on a line through the origin (x_i × x_j =
+    0 exactly: the identity frame on every edge), and B=1."""
+    from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+
+    dev = h8.device
+    layer = lambda heads: egcl.params_from_layer(EGNN(
+        in_node_nf=32, hidden_nf=32, out_node_nf=32, n_layers=1, num_heads=heads).to(dev).gcl_0)
+    x_dup = x8.clone()
+    x_dup[:, 1::2] = x_dup[:, ::2]                 # every point twice: degenerate frames
+    x_line = (x8[..., :1] * torch.tensor([1.0, -1.0, 1.0], device=dev)).contiguous()
+    k = nbr8.shape[-1]
+    wide = torch.cat([nbr8, nbr8.flip(1)[..., :4]], dim=-1).contiguous()
+    return [(f"K={k}, head width {p.head_width}", h8, x8, nbr8, p),
+            ("K=12", h8, x8, nbr8[..., :12].contiguous(), p),
+            ("K=7", h8, x8, nbr8[..., :7].contiguous(), p),
+            (f"K={k + 4} (two row tiles)", h8, x8, wide, p),
+            ("head width 32", h8, x8, nbr8, layer(1)),
+            ("head width 1", h8, x8, nbr8, layer(32)),
+            ("repeated points", h8, x_dup, nbr8, p),
+            ("collinear points", h8, x_line, nbr8, p),
+            ("B=1", h8[:1].contiguous(), x8[:1].contiguous(), nbr8[:1].contiguous(), p)]
+
+
+def egcl_f32_checks(torch, p, h, xs, nbr):
+    """The fp32 tile forward in every case of `f32_cases`, with and without
+    agg_m, against the plain accurate version (1e-4 of the scale on h′, the
+    update and agg_m)."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+
+    b8 = min(8, h.shape[0])
+    cases = f32_cases(torch, p, h[:b8].contiguous(), xs[:b8].contiguous(),
+                      nbr[:b8].contiguous())
+    for name, h_, x_, nbr_, p_ in cases:
+        check(egcl.egcl_variant(h_.shape[-1], nbr_.shape[-1], p_.head_width, True) == "tile_f32",
+              f"egcl f32 case {name} is not routed to the fp32 tile kernel")
+        reset_egcl_counters(egcl)
+        gh, gx, gm = egcl.egcl_layer(h_, x_, nbr_, p_, True, return_aggm=True)
+        gh2, gx2 = egcl.egcl_layer(h_, x_, nbr_, p_, True)
+        torch.cuda.synchronize()
+        check(egcl.egcl_layer.launches_by_variant == only("tile_f32", 2),
+              f"egcl f32 case {name} launched {egcl.egcl_layer.launches_by_variant}")
+        check(torch.equal(gh, gh2) and torch.equal(gx, gx2),
+              f"egcl f32 case {name}: asking for agg_m changed h′ or x′")
+        rh, rx, rm = egcl.egcl_layer_plain(h_, x_, nbr_, p_, True, return_aggm=True)
+        check(all(bool(torch.isfinite(t_).all()) for t_ in (gh, gx, gm)),
+              f"egcl f32 case {name}: non-finite output")
+        eh, eu, sh, su = egcl_errors(torch, (gh, gx), (rh, rx), x_, accurate=True)
+        em, sm = (gm - rm).abs().max().item(), rm.abs().max().item()
+        check(em <= 1e-4 * sm, f"egcl f32 case {name}: agg_m max|Δ| {em} against scale {sm}")
+        log(f"egcl f32 case {name} B={h_.shape[0]}: rel h′ {eh / sh:.3g}, u {eu / su:.3g}, "
+            f"agg_m {em / sm:.3g}; same with and without agg_m")
+
+
 def egcl_phase(torch, p, h, xs, nbr, gen):
-    """B2 against its plain version: the tile kernel from the bottom up,
-    then both kernels at the main path's shape in fast mode and the SIMT
-    kernel in accurate mode, tile against SIMT, and C=33 with one head.
-    Returns the kernel row."""
+    """B2 against its plain version: the bf16 tile kernel from the bottom up
+    and the fp32 tile kernel in every case, then at the main path's shape
+    the fp32 tile and SIMT kernels in accurate mode and the bf16 tile and
+    SIMT kernels in fast mode, each timed beside the plain version and the
+    two kernels of a mode held against each other; then C=33 with one head
+    (SIMT). Returns the rows of the bf16 and the fp32 tile kernels."""
     from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
 
@@ -795,42 +938,50 @@ def egcl_phase(torch, p, h, xs, nbr, gen):
     bsz, n, c = h.shape
     k = nbr.shape[-1]
     egcl_tile_checks(torch, p, h, xs, nbr, gen)
+    egcl_f32_checks(torch, p, h, xs, nbr)
     packed = egcl.pack_for_kernels(p)
-    stats, outs = {}, {}
-    for name, accurate, variant in (("accurate", True, "simt"), ("fast tile", False, "tile"),
-                                    ("fast simt", False, "simt")):
+    stats, outs, plains = {}, {}, {}
+    for name, accurate, variant in (("accurate tile_f32", True, "tile_f32"),
+                                    ("accurate simt", True, "simt"),
+                                    ("fast tile", False, "tile"), ("fast simt", False, "simt")):
         reset_egcl_counters(egcl)
         gh, gx = egcl.egcl_layer(h, xs, nbr, p, accurate, packed, variant=variant)
         torch.cuda.synchronize()
-        check(egcl.egcl_layer.launches_by_variant == {"tile": 0, "simt": 0, variant: 1},
+        check(egcl.egcl_layer.launches_by_variant == only(variant, 1),
               f"egcl[{name}] launched {egcl.egcl_layer.launches_by_variant}")
         ref = egcl.egcl_layer_plain(h, xs, nbr, p, accurate)
         eh, eu, sh, su = egcl_errors(torch, (gh, gx), ref, xs, accurate)
         ms = cuda_ms(torch, lambda: egcl.egcl_layer(h, xs, nbr, p, accurate, packed,
                                                      variant=variant), 10)
-        plain = cuda_ms(torch, lambda: egcl.egcl_layer_plain(h, xs, nbr, p, accurate), 3)
-        stats[name], outs[name] = (ms, plain, max(eh, eu)), (gh, gx)
+        if accurate not in plains:
+            plains[accurate] = cuda_ms(torch, lambda: egcl.egcl_layer_plain(h, xs, nbr, p,
+                                                                             accurate), 3)
+        stats[name], outs[name] = (ms, plains[accurate], max(eh, eu)), (gh, gx)
         log(f"egcl[{name}] B={bsz} N={n} C={c} K={k}: max|Δh′| {eh:.3g} (rel {eh / sh:.3g}), "
             f"max|Δu| {eu:.3g} (rel {eu / su:.3g} of the update scale {su:.3g}), "
-            f"kernel {ms:.3f} ms, plain {plain:.3f} ms")
-    # tile against SIMT: one function, two orders of summation
-    (th, tx), (sh_, sx) = outs["fast tile"], outs["fast simt"]
-    dh, hs = (th - sh_).abs().max().item(), sh_.abs().max().item()
-    du, us = ((tx - xs) - (sx - xs)).abs().max().item(), (sx - xs).abs().max().item()
+            f"kernel {ms:.4f} ms, plain {plains[accurate]:.3f} ms")
+    # the two kernels of a mode against each other: one function, two orders of summation
     ulp = torch.finfo(torch.float32).eps * xs.abs().max().item()
-    check(dh <= 2 * 2e-2 * hs and du <= 2 * 1e-2 * us + ulp,
-          f"egcl tile vs simt: max|Δh′| {dh} (scale {hs}), max|Δu| {du} (scale {us})")
-    log(f"egcl tile vs simt (fast): max|Δh′| {dh:.3g} (rel {dh / hs:.3g}), max|Δu| {du:.3g} "
-        f"(rel {du / us:.3g})")
+    for a, b, tol_h, tol_u in (("fast tile", "fast simt", 2 * 2e-2, 2 * 1e-2),
+                               ("accurate tile_f32", "accurate simt", 2e-4, 2e-4)):
+        (th, tx), (sh_, sx) = outs[a], outs[b]
+        dh, hs = (th - sh_).abs().max().item(), sh_.abs().max().item()
+        du, us = ((tx - xs) - (sx - xs)).abs().max().item(), (sx - xs).abs().max().item()
+        check(dh <= tol_h * hs and du <= tol_u * us + ulp,
+              f"egcl {a} vs {b}: max|Δh′| {dh} (scale {hs}), max|Δu| {du} (scale {us})")
+        log(f"egcl {a} vs {b}: max|Δh′| {dh:.3g} (rel {dh / hs:.3g}), max|Δu| {du:.3g} "
+            f"(rel {du / us:.3g})")
     wh = p.head_width
     edge_ops = 2 * c * (c + 12) + 2 * c * wh + 2 * c * c + 2 * c + 12 * c
     center_ops = 2 * c * c + 2 * 2 * c * c + 2 * c * c
     ops = bsz * n * (k * edge_ops + center_ops)
     nbytes = 4 * bsz * n * (2 * c + 6 + k) + packed.simt.numel() * 4
-    ms, plain, err = stats["fast tile"]
-    eb, eby = bound_ms(nbytes, ops, PEAK_BF16)
-    log(f"egcl bound: {ops / (bsz * n * k):.0f} FLOP/edge; fast vs bf16 peak {eb:.4f} ms, "
-        f"accurate vs fp32 peak {bound_ms(nbytes, ops, PEAK_FP32)[0]:.4f} ms")
+    fb, fby = bound_ms(nbytes, ops, PEAK_BF16)
+    ab, aby = bound_ms(nbytes, ops, PEAK_FP32)
+    log(f"egcl bound: {ops / (bsz * n * k):.0f} FLOP/edge; fast vs bf16 peak {fb:.4f} ms "
+        f"(tile at {100 * fb / stats['fast tile'][0]:.2f}%), accurate vs fp32 peak {ab:.4f} ms "
+        f"(tile_f32 at {100 * ab / stats['accurate tile_f32'][0]:.2f}%, SIMT at "
+        f"{100 * ab / stats['accurate simt'][0]:.2f}%)")
 
     m33 = EGNN(in_node_nf=33, hidden_nf=33, out_node_nf=33, n_layers=1, num_heads=1)
     p33 = egcl.params_from_layer(m33.to(dev).gcl_0)
@@ -840,19 +991,22 @@ def egcl_phase(torch, p, h, xs, nbr, gen):
     for accurate in (True, False):
         reset_egcl_counters(egcl)
         got = egcl.egcl_layer(h33, x33, nbr33, p33, accurate)
-        check(egcl.egcl_layer.launches_by_variant == {"tile": 0, "simt": 1},
+        check(egcl.egcl_layer.launches_by_variant == only("simt", 1),
               f"egcl C=33 launched {egcl.egcl_layer.launches_by_variant}")
         ref = egcl.egcl_layer_plain(h33, x33, nbr33, p33, accurate)
         eh, eu, sh, su = egcl_errors(torch, got, ref, x33, accurate)
         log(f"egcl[C=33, 1 head, accurate={accurate}] B={b33}: max|Δh′| {eh:.3g} "
             f"(rel {eh / sh:.3g}), max|Δu| {eu:.3g} (rel {eu / su:.3g})")
-    return dict(name="egcl_layer", route="cuda",
-                source="se3_equi_graph_registration_tpu_torch/csrc/egcl_tile.cu",
-                replaces="se3_equi_graph_registration_tpu/ops/pallas/egcl_kernel.py:116",
-                launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=eb, bound_by=eby, library_ms=None, variant="tile",
-                simt_ms=stats["fast simt"][0], accurate_ms=stats["accurate"][0],
-                simt_source="se3_equi_graph_registration_tpu_torch/csrc/egcl.cu")
+    src = "se3_equi_graph_registration_tpu_torch/csrc/"
+    replaces = "se3_equi_graph_registration_tpu/ops/pallas/egcl_kernel.py:116"
+    row = lambda name, source, stat, simt, bound, by, variant: dict(
+        name=name, route="cuda", source=src + source, replaces=replaces, launches=0,
+        max_abs_err=stats[stat][2], ms=stats[stat][0], plain_ms=stats[stat][1], bound_ms=bound,
+        bound_by=by, library_ms=None, variant=variant, simt_ms=stats[simt][0],
+        simt_source=src + "egcl.cu")
+    return (row("egcl_layer", "egcl_tile.cu", "fast tile", "fast simt", fb, fby, "tile"),
+            row("egcl_layer_f32", "egcl_tile_f32.cu", "accurate tile_f32", "accurate simt", ab,
+                aby, "tile_f32"))
 
 
 def serve_phase(torch, dev, cfg, bsz, sd, rows):
@@ -927,10 +1081,12 @@ def serve_phase(torch, dev, cfg, bsz, sd, rows):
         check(kd == 2 and ed == 2 * cfg.n_layers,
               f"register() launched knn {kd}, egcl {ed} (want 2, {2 * cfg.n_layers})")
     check(launches[0] > 0 and launches[1] > 0, "a kernel of the path never launched")
-    want = "simt" if cfg.egnn_accurate else "tile"
-    check(by_variant[want] == launches[1] and sum(by_variant.values()) == launches[1],
+    want = egcl.egcl_variant(cfg.hidden_nf, cfg.k, cfg.hidden_nf // cfg.num_heads,
+                             cfg.egnn_accurate)
+    check(by_variant == only(want, launches[1]),
           f"serve: EGCL launches by kernel {by_variant}, want all {launches[1]} {want}")
-    record_launches(rows, "serve", dict(knn_window=launches[0], egcl_layer=launches[1]),
+    record_launches(rows, "serve", dict(knn_window=launches[0],
+                                        **by_row("egcl_layer", by_variant)),
                     dict(knn_window=knn_by_variant))
 
     other_configs(torch, dev, cfg, sd, args, same, rows)
@@ -985,7 +1141,7 @@ def train_phase(torch, dev, cfg, bsz, rows):
         fn.launches = 0
     reset_knn_counters(knn)
     reset_egcl_counters(egcl)
-    eb.egcl_backward.launches_by_variant = {"tile": 0, "simt": 0}
+    reset_backward_counters(eb)
     per_step, totals = [], []
     t0 = time.perf_counter()
     for i in range(5):
@@ -1003,16 +1159,19 @@ def train_phase(torch, dev, cfg, bsz, rows):
         check(counts == [2, 2 * L, 2 * L],
               f"train step launched knn/egcl/egcl_backward {counts} (want 2, {2 * L}, {2 * L})")
     by_variant = dict(egcl.egcl_layer.launches_by_variant)
-    want = "simt" if cfg.egnn_accurate else "tile"
-    check(by_variant[want] == launches[1] and sum(by_variant.values()) == launches[1],
+    want = egcl.egcl_variant(cfg.hidden_nf, cfg.k, cfg.hidden_nf // cfg.num_heads,
+                             cfg.egnn_accurate)
+    check(by_variant == only(want, launches[1]),
           f"train: EGCL launches by kernel {by_variant}, want all {launches[1]} {want}")
     bwd_by_variant = dict(eb.egcl_backward.launches_by_variant)
-    check(bwd_by_variant[want] == launches[2] and sum(bwd_by_variant.values()) == launches[2],
+    check(bwd_by_variant == only(want, launches[2]),
           f"train: EGCL backward launches by kernel {bwd_by_variant}, want all {launches[2]} "
           f"{want}")
     knn_by_variant = check_knn_warp(knn.knn_window, "train")
-    record_launches(rows, "train", dict(zip(("knn_window", "egcl_layer", "egcl_backward"),
-                                            launches)), dict(knn_window=knn_by_variant))
+    record_launches(rows, "train", dict(knn_window=launches[0],
+                                        **by_row("egcl_layer", by_variant),
+                                        **by_row("egcl_backward", bwd_by_variant)),
+                    dict(knn_window=knn_by_variant))
     log(f"train B={bsz}: 5 steps in {dt:.3f} s, {5 * bsz / dt:.1f} pairs/s (host clock, "
         f"synchronized at the end), losses {[round(float(v), 4) for v in losses]}; launches "
         f"knn {launches[0]} ({knn_by_variant}) egcl {launches[1]} ({by_variant}) "
@@ -1039,7 +1198,19 @@ def train_phase(torch, dev, cfg, bsz, rows):
 
     t1 = time.perf_counter()
     lc, gc = grads(cpu.model, small)
+    reset_knn_counters(knn)
+    reset_egcl_counters(egcl)
+    reset_backward_counters(eb)
     lg, gg = grads(card.model, small_card)
+    acc_fwd = dict(egcl.egcl_layer.launches_by_variant)
+    acc_bwd = dict(eb.egcl_backward.launches_by_variant)
+    check(acc_fwd == only("tile_f32", 2 * L) and acc_bwd == only("tile_f32", 2 * L),
+          f"train accurate B=2: EGCL launches by kernel {acc_fwd}, backward {acc_bwd}, want "
+          f"all {2 * L} tile_f32")
+    record_launches(rows, "train accurate B=2",
+                    dict(knn_window=knn.knn_window.launches, **by_row("egcl_layer", acc_fwd),
+                         **by_row("egcl_backward", acc_bwd)),
+                    dict(knn_window=check_knn_warp(knn.knn_window, "train accurate B=2")))
     cos = grad_cosines(torch, gg, gc)
     for st, b in ((cpu, small), (card, small_card)):
         engine.make_train_step(st.model, st.optimizer, acfg)(st, b)
@@ -1064,7 +1235,7 @@ def train_phase(torch, dev, cfg, bsz, rows):
         f"worst gradient cosine {worst} {cos[worst][0]:.6f}, worst relative L2 {worst_l2} "
         f"{cos[worst_l2][1]:.2g}; post-Adam max|Δ| {worst_big} {dp_big[worst_big]:.3g} where "
         f"|g| > 1e-3 of its max, {worst_p} {dp[worst_p]:.3g} everywhere (lr {acfg.lr}); CPU side "
-        f"{time.perf_counter() - t1:.1f} s")
+        f"{time.perf_counter() - t1:.1f} s; launches egcl {acc_fwd} egcl_backward {acc_bwd}")
 
     # --- fast against accurate on the card, same weights and batch ---
     mid = batch(8, dev)
@@ -1084,6 +1255,57 @@ def train_phase(torch, dev, cfg, bsz, rows):
         log(f"  | {name} | {c:.4f} | {r:.3g} |")
 
     profile_call(torch, lambda: step(state, batches[0]), f"train step B={bsz}")
+    default_train_step(torch, dev, cfg, bsz, batch, rows)
+
+
+def default_train_step(torch, dev, cfg, bsz, batch, rows):
+    """Training at `EngineConfig()` defaults (whole-cloud exact k-NN, the
+    accurate fp32 tile EGCL kernels, SVD Kabsch) at `bsz` pairs: one warm
+    step, 3 timed steps with the launch counters (2 knn, 2·L egcl and 2·L
+    egcl_backward a step, every EGCL launch 'tile_f32'), then a profile of
+    one step."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl, knn
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+    from se3_equi_graph_registration_tpu_torch.train import engine
+
+    dcfg = engine.EngineConfig(**{f: getattr(cfg, f) for f in (
+        "num_nodes", "k", "in_node_nf", "hidden_nf", "n_layers", "num_heads", "top_k")})
+    check(dcfg.egnn_accurate and dcfg.knn_method == "exact", "EngineConfig() defaults changed")
+    state = engine.init_state(dcfg, torch.Generator().manual_seed(0), device=dev)
+    step = engine.make_train_step(state.model, state.optimizer, dcfg)
+    batches = [batch(bsz, dev) for _ in range(2)]
+    state, _ = step(state, batches[1])
+    torch.cuda.synchronize()
+    reset_knn_counters(knn)
+    reset_egcl_counters(egcl)
+    reset_backward_counters(eb)
+    totals = []
+    t0 = time.perf_counter()
+    for i in range(3):
+        state, m = step(state, batches[i % 2])
+        totals.append(m["total"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    L = dcfg.n_layers
+    losses = torch.stack(totals).cpu()
+    fwd, bwd = dict(egcl.egcl_layer.launches_by_variant), dict(eb.egcl_backward.launches_by_variant)
+    check(bool(torch.all(torch.isfinite(losses))), f"train defaults: non-finite loss {losses}")
+    check(knn.knn_window.launches == 6 and fwd == only("tile_f32", 6 * L)
+          and bwd == only("tile_f32", 6 * L),
+          f"train defaults: 3 steps launched knn {knn.knn_window.launches}, egcl {fwd}, "
+          f"egcl_backward {bwd} (want 6, {6 * L} and {6 * L} tile_f32)")
+    knn_by_variant = check_knn_warp(knn.knn_window, "train defaults")
+    record_launches(rows, "train defaults", dict(knn_window=knn.knn_window.launches,
+                                                 **by_row("egcl_layer", fwd),
+                                                 **by_row("egcl_backward", bwd)),
+                    dict(knn_window=knn_by_variant))
+    log(f"train at EngineConfig() defaults B={bsz}: 3 steps in {dt:.3f} s, "
+        f"{3 * bsz / dt:.1f} pairs/s (host clock, synchronized at the end), losses "
+        f"{[round(float(v), 4) for v in losses]}; launches knn {knn.knn_window.launches} "
+        f"({knn_by_variant}) egcl {fwd} egcl_backward {bwd}")
+    profile_call(torch, lambda: step(state, batches[0]),
+                 f"train step at EngineConfig() defaults (exact whole-cloud k-NN, accurate "
+                 f"fp32 tile EGCL, SVD Kabsch) B={bsz}")
 
 
 def bumpy_surface(seed=0):
@@ -1411,9 +1633,11 @@ def other_configs(torch, dev, cfg, sd, args, same, rows):
         check(kd == 2 and ed == 2 * vcfg.n_layers,
               f"config {name}: register() launched knn {kd}, egcl {ed}")
         knn_by_variant = check_knn_warp(knn.knn_window, f"config {name}")
-        check(by_variant["simt" if vcfg.egnn_accurate else "tile"] == ed,
-              f"config {name}: EGCL launches by kernel {by_variant}")
-        record_launches(rows, f"config {name}", dict(knn_window=kd, egcl_layer=ed),
+        want = egcl.egcl_variant(vcfg.hidden_nf, vcfg.k, vcfg.hidden_nf // vcfg.num_heads,
+                                 vcfg.egnn_accurate)
+        check(by_variant == only(want, ed), f"config {name}: EGCL launches by kernel {by_variant}")
+        record_launches(rows, f"config {name}", dict(knn_window=kd,
+                                                     **by_row("egcl_layer", by_variant)),
                         dict(knn_window=knn_by_variant))
         dR, dt = same(res, serving.Registrar(sd, vcfg, device="cpu").register(
             *args(slice(0, 2))), f"config {name}")
@@ -1424,9 +1648,21 @@ def other_configs(torch, dev, cfg, sd, args, same, rows):
                                                        "top_k")})
     reg = serving.Registrar(sd, dcfg, device=dev)
     bsz = len(args(slice(None))[0])
+    reset_knn_counters(knn)
+    reset_egcl_counters(egcl)
     profile_call(torch, lambda: reg.register(*args(slice(0, bsz))),
                  f"register() at EngineConfig() defaults (exact whole-cloud k-NN, accurate "
-                 f"EGCL) B={bsz}")
+                 f"fp32 tile EGCL) B={bsz}")
+    by_variant = dict(egcl.egcl_layer.launches_by_variant)
+    check(by_variant == only("tile_f32", 4 * dcfg.n_layers),
+          f"register() at EngineConfig() defaults, 2 calls: EGCL launches by kernel "
+          f"{by_variant}, want {4 * dcfg.n_layers} tile_f32")
+    knn_by_variant = check_knn_warp(knn.knn_window, "register() at EngineConfig() defaults")
+    record_launches(rows, "serve defaults", dict(knn_window=knn.knn_window.launches,
+                                                 **by_row("egcl_layer", by_variant)),
+                    dict(knn_window=knn_by_variant))
+    log(f"register() at EngineConfig() defaults, 2 calls: launches knn "
+        f"{knn.knn_window.launches} ({knn_by_variant}) egcl {by_variant}")
 
 
 if __name__ == "__main__":

@@ -49,6 +49,7 @@
 namespace {
 
 using namespace egcl_tile;
+using egcl_edge::geometry_bwd;
 
 // Warps (centers in flight) per block, and blocks an SM. Latency bounds the
 // kernel, so warps in flight set its pace. The first build of this kernel
@@ -192,69 +193,6 @@ __device__ __forceinline__ void grad_product(float* G, const uint32_t (&ad)[2][4
       add_grad(G, d, mt, 8 * nt, lane);
     }
   }
-}
-
-__device__ __forceinline__ void cross(float a0, float a1, float a2, float b0, float b1,
-                                      float b2, float& c0, float& c1, float& c2) {
-  c0 = a1 * b2 - a2 * b1;
-  c1 = a2 * b0 - a0 * b2;
-  c2 = a0 * b1 - a1 * b0;
-}
-
-// backward of a = r·inv, inv = 1/(n + 1e-8), n = sqrt(Σr² + 1e-20)
-__device__ __forceinline__ void normalize_bwd(float r0, float r1, float r2, float n,
-                                              float inv, float& d0, float& d1, float& d2) {
-  const float k = (inv * inv / n) * (d0 * r0 + d1 * r1 + d2 * r2);
-  d0 = d0 * inv - k * r0;
-  d1 = d1 * inv - k * r1;
-  d2 = d2 * inv - k * r2;
-}
-
-// One edge's geometry backward (egcl_backward.cu, in fp32 on the fp32 frame):
-// dgp = dL/dgeo; adds the center's share to dxi, returns the neighbor's.
-__device__ __forceinline__ void geometry_bwd(float xi0, float xi1, float xi2, float xc0,
-                                             float xc1, float xc2, float dax0, float dax1,
-                                             float dax2, float scale, const float* dgp,
-                                             float (&dxi)[3], float (&dxn)[3]) {
-  const float r0 = xi0 - xc0, r1 = xi1 - xc1, r2 = xi2 - xc2;
-  const float radial = r0 * r0 + r1 * r1 + r2 * r2;
-  const float dist = sqrtf(radial + 1e-20f);
-  const float inv_rel = 1.0f / (dist + 1e-8f);
-  const float a0 = r0 * inv_rel, a1 = r1 * inv_rel, a2 = r2 * inv_rel;
-  float cr0, cr1, cr2;
-  cross(xi0, xi1, xi2, xc0, xc1, xc2, cr0, cr1, cr2);
-  const float n_cr = sqrtf(cr0 * cr0 + cr1 * cr1 + cr2 * cr2 + 1e-20f);
-  const float inv_cr = 1.0f / (n_cr + 1e-8f);
-  const float b0 = cr0 * inv_cr, b1 = cr1 * inv_cr, b2 = cr2 * inv_cr;
-  float c0, c1, c2;
-  cross(a0, a1, a2, b0, b1, b2, c0, c1, c2);
-  const bool degen = sqrtf(a0 * a0 + a1 * a1 + a2 * a2 + 1e-20f) < 1e-6f ||
-                     sqrtf(b0 * b0 + b1 * b1 + b2 * b2 + 1e-20f) < 1e-6f ||
-                     sqrtf(c0 * c0 + c1 * c1 + c2 * c2 + 1e-20f) < 1e-6f;
-  const float live = degen ? 0.0f : 1.0f;   // the identity frame has no gradient
-  float da0 = dgp[3] * live, da1 = dgp[6] * live, da2 = dgp[9] * live;
-  float db0 = dgp[4] * live, db1 = dgp[7] * live, db2 = dgp[10] * live;
-  const float dc0 = dgp[5] * live, dc1 = dgp[8] * live, dc2 = dgp[11] * live;
-  float t0, t1, t2;
-  cross(b0, b1, b2, dc0, dc1, dc2, t0, t1, t2);     // c = a × b
-  da0 += t0; da1 += t1; da2 += t2;
-  cross(dc0, dc1, dc2, a0, a1, a2, t0, t1, t2);
-  db0 += t0; db1 += t1; db2 += t2;
-  normalize_bwd(cr0, cr1, cr2, n_cr, inv_cr, db0, db1, db2);   // → dcr
-  float dxr0, dxr1, dxr2, dxc0, dxc1, dxc2;
-  cross(xc0, xc1, xc2, db0, db1, db2, dxr0, dxr1, dxr2);       // cr = x_i × x_j
-  cross(db0, db1, db2, xi0, xi1, xi2, dxc0, dxc1, dxc2);
-  normalize_bwd(r0, r1, r2, dist, inv_rel, da0, da1, da2);     // → drel from a
-  const float dradial = dgp[0], ddist = dgp[1], ddot = dgp[2];
-  const float q0 = (dax0 * scale + da0) + 2.0f * r0 * dradial + (r0 / dist) * ddist;
-  const float q1 = (dax1 * scale + da1) + 2.0f * r1 * dradial + (r1 / dist) * ddist;
-  const float q2 = (dax2 * scale + da2) + 2.0f * r2 * dradial + (r2 / dist) * ddist;
-  dxi[0] += q0 + xc0 * ddot + dxr0;
-  dxi[1] += q1 + xc1 * ddot + dxr1;
-  dxi[2] += q2 + xc2 * ddot + dxr2;
-  dxn[0] = -q0 + xi0 * ddot + dxc0;
-  dxn[1] = -q1 + xi1 * ddot + dxc1;
-  dxn[2] = -q2 + xi2 * ddot + dxc2;
 }
 
 // DBG also writes, per edge, dcm_in, dv and du (fp32) to dbg [B·N, K, 96]:

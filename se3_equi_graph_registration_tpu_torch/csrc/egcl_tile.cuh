@@ -1,7 +1,8 @@
 // Tensor-core building blocks of the EGCL edge program at C = 32, fast mode
 // (bf16 operands, fp32 accumulation), for Hopper (sm_90a). Shared by the
 // forward kernel (egcl_tile.cu) and the backward kernel (egcl_backward_tile.cu):
-// staging, geometry, fragment helpers and the s1 -> m -> coord chain, split
+// the bf16 staging tile (the geometry and staging code is egcl_edge.cuh's),
+// fragment helpers and the s1 -> m -> coord chain, split
 // where the backward keeps a pre-activation (first_layer_pre, normalize,
 // coord_pre).
 //
@@ -37,17 +38,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "egcl_edge.cuh"
+
 namespace egcl_tile {
 
-constexpr int kC = 32;        // channels
+using egcl_edge::kC;
+using egcl_edge::kFull;
+using egcl_edge::kRows;
 constexpr int kNT = kC / 8;   // n-tiles of 8 channels
-constexpr int kRows = 16;     // edges per row tile
 // Row stride of the staging tile in bf16; a row holds 48 (h_col 32 | geometry
 // 12 + 4 zeros). 56 (28 words) puts the 8 rows of an
 // A-fragment load on distinct multiples of 4 banks, so the 32 lanes hit 32
 // banks; 112 bytes keeps every row 16-byte aligned.
 constexpr int kStride = 56;
-constexpr unsigned kFull = 0xffffffffu;
 
 // Word (32-bit) offsets into the packed buffer. A fragment block is one
 // (k-step, n-tile) pair: 32 lanes x (b0, b1) = 64 words.
@@ -145,80 +148,32 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(kFull, v, 2);
 }
 
-__device__ __forceinline__ void unit(float& a, float& b, float& c) {
-  const float inv = sqrtf(a * a + b * b + c * c + 1e-20f) + 1e-8f;
-  a /= inv; b /= inv; c /= inv;
-}
-
-// Edge geometry (ops/pallas/egcl_kernel.py:97-114): rel = xi - xc and
-// g = [radial, dist, dot, a0,b0,c0, a1,b1,c1, a2,b2,c2]; _safe_unit
-// n = sqrt(n^2 + 1e-20), v / (n + 1e-8); the frame is the identity when
-// |a|, |b| or |c| < 1e-6 (coincident or collinear points).
-__device__ __forceinline__ void edge_geometry(float xi0, float xi1, float xi2, float xc0,
-                                              float xc1, float xc2, float (&rel)[3],
-                                              float (&g)[12]) {
-  const float r0 = xi0 - xc0, r1 = xi1 - xc1, r2 = xi2 - xc2;
-  rel[0] = r0; rel[1] = r1; rel[2] = r2;
-  g[0] = r0 * r0 + r1 * r1 + r2 * r2;
-  g[1] = sqrtf(g[0] + 1e-20f);
-  g[2] = xi0 * xc0 + xi1 * xc1 + xi2 * xc2;
-  float a0 = r0, a1 = r1, a2 = r2;
-  unit(a0, a1, a2);
-  float b0 = xi1 * xc2 - xi2 * xc1, b1 = xi2 * xc0 - xi0 * xc2, b2 = xi0 * xc1 - xi1 * xc0;
-  unit(b0, b1, b2);
-  const float c0 = a1 * b2 - a2 * b1, c1 = a2 * b0 - a0 * b2, c2 = a0 * b1 - a1 * b0;
-  const float cn = sqrtf(c0 * c0 + c1 * c1 + c2 * c2 + 1e-20f);
-  const float an = sqrtf(a0 * a0 + a1 * a1 + a2 * a2 + 1e-20f);
-  const float bn = sqrtf(b0 * b0 + b1 * b1 + b2 * b2 + 1e-20f);
-  if (an < 1e-6f || bn < 1e-6f || cn < 1e-6f) {
-    g[3] = 1.f; g[4] = 0.f; g[5] = 0.f;
-    g[6] = 0.f; g[7] = 1.f; g[8] = 0.f;
-    g[9] = 0.f; g[10] = 0.f; g[11] = 1.f;
-  } else {
-    g[3] = a0; g[4] = b0; g[5] = c0;
-    g[6] = a1; g[7] = b1; g[8] = c1;
-    g[9] = a2; g[10] = b2; g[11] = c2;
+// Rows of the bf16 staging tile for egcl_edge::stage_edges: [h_col 32 |
+// geometry 12 | 0 0 0 0], 112 bytes.
+struct StageBf16 {
+  using T = __nv_bfloat16;
+  static constexpr int kStride = egcl_tile::kStride;
+  __device__ __forceinline__ static void geo(T* dst, const float (&g)[12], const float (&)[3],
+                                             int) {
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    d[0] = make_uint4(pack2(g[0], g[1]), pack2(g[2], g[3]), pack2(g[4], g[5]),
+                      pack2(g[6], g[7]));
+    d[1] = make_uint4(pack2(g[8], g[9]), pack2(g[10], g[11]), 0u, 0u);
   }
-}
+  __device__ __forceinline__ static void h4(T* dst, float4 v) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(pack2(v.x, v.y), pack2(v.z, v.w));
+  }
+};
 
-// Stage edges row0 .. row0 + 15 of `center` into the warp's tile as bf16
-// rows [h_col 32 | geometry 12 | 0 0 0 0]. Lane l and lane l + 16 both take
-// edge row0 + (l % 16): they load its neighbor index and x_j and compute its
-// geometry once (lanes 0-15 write it); all 32 lanes then copy the 16 gathered
-// h_j rows with 16-byte loads, 8 lanes a row. An edge at or beyond K is
-// staged from the center itself (finite values) and reported invalid: the
-// caller masks it out of every sum. Returns whether this lane's edge is
-// valid, and its rel.
+// Stage edges row0 .. row0 + 15 of `center` into the warp's bf16 tile
+// (egcl_edge::stage_edges); returns whether this lane's edge is valid, and its rel.
 __device__ __forceinline__ bool stage_edges(const float* __restrict__ h,
                                             const float* __restrict__ x,
                                             const int* __restrict__ nbr, int center, int base,
                                             int K, int row0, float xi0, float xi1, float xi2,
                                             __nv_bfloat16* tile, int lane, float (&rel)[3]) {
-  const int row = lane & 15;
-  const bool valid = row0 + row < K;
-  const int j_nb = valid ? base + nbr[(size_t)center * K + row0 + row] : center;
-  const float xc0 = x[(size_t)j_nb * 3 + 0];
-  const float xc1 = x[(size_t)j_nb * 3 + 1];
-  const float xc2 = x[(size_t)j_nb * 3 + 2];
-  float g[12];
-  edge_geometry(xi0, xi1, xi2, xc0, xc1, xc2, rel, g);
-  __syncwarp();   // the previous tile's fragment loads are done
-  if (lane < kRows) {
-    uint4* dst = reinterpret_cast<uint4*>(tile + row * kStride + kC);
-    dst[0] = make_uint4(pack2(g[0], g[1]), pack2(g[2], g[3]), pack2(g[4], g[5]),
-                        pack2(g[6], g[7]));
-    dst[1] = make_uint4(pack2(g[8], g[9]), pack2(g[10], g[11]), 0u, 0u);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * i + (lane >> 3), chunk = lane & 7;
-    const int src = __shfl_sync(kFull, j_nb, r);
-    const float4 v = reinterpret_cast<const float4*>(h + (size_t)src * kC)[chunk];
-    *reinterpret_cast<uint2*>(tile + r * kStride + 4 * chunk) =
-        make_uint2(pack2(v.x, v.y), pack2(v.z, v.w));
-  }
-  __syncwarp();
-  return valid;
+  return egcl_edge::stage_edges<StageBf16>(h, x, nbr, center, base, K, row0, xi0, xi1, xi2,
+                                           tile, lane, rel);
 }
 
 // A fragments of the staged tile's 3 k-steps (h_col 2, geometry 1).

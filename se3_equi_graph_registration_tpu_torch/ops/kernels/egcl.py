@@ -1,6 +1,7 @@
 """Fused EGCL layer: the CUDA kernels `csrc/egcl_tile.cu` (fast mode at
-C=32, on the tensor cores) and `csrc/egcl.cu` (accurate mode and every other
-width), and their plain version (counterpart of
+C=32, on the tensor cores), `csrc/egcl_tile_f32.cu` (accurate mode at C=32,
+fp32 register-blocked tiles) and `csrc/egcl.cu` (every other width), and
+their plain version (counterpart of
 `ops/pallas/egcl_kernel.py`), forward, 'center' direction, 'frame' so3 mode,
 all-ones edge_attr, no edge mask. `egcl_variant` picks the kernel from the
 shape and the mode before the launch. The backward is `egcl_backward.py`;
@@ -104,22 +105,41 @@ class Packed(NamedTuple):
     """One layer's kernel buffers: `simt` for `csrc/egcl.cu` and
     `csrc/egcl_backward.cu` (`pack_params`); `tile` for `csrc/egcl_tile.cu`
     (`pack_params_tile`) and, with `tile_bwd` (`pack_params_tile_bwd`), for
-    `csrc/egcl_backward_tile.cu`; both None where the layer's shape has no
-    tile kernel."""
+    `csrc/egcl_backward_tile.cu`; `f32` for `csrc/egcl_tile_f32.cu` and
+    `csrc/egcl_backward_tile_f32.cu` (`pack_params_f32`); the last three
+    None where the layer's shape has no tile kernel."""
     simt: torch.Tensor
     tile: torch.Tensor | None
     tile_bwd: torch.Tensor | None
+    f32: torch.Tensor | None = None
+
+
+VARIANTS = ("tile", "tile_f32", "simt")
 
 
 def egcl_variant(c: int, k: int, head_width: int, accurate: bool) -> str:
     """Which hand-written kernel runs a layer of width `c`, `k` neighbors and
-    heads of `head_width` channels: 'tile' (`csrc/egcl_tile.cu`, bf16
-    mma.sync) for fast mode at C=32 with a head width that divides 32,
-    'simt' (`csrc/egcl.cu`) for accurate mode and every other shape. A choice
+    heads of `head_width` channels: at C=32 with a head width that divides
+    32, 'tile' (`csrc/egcl_tile.cu`, bf16 mma.sync) in fast mode and
+    'tile_f32' (`csrc/egcl_tile_f32.cu`, fp32 register-blocked tiles) in
+    accurate mode; 'simt' (`csrc/egcl.cu`) for every other shape. A choice
     by shape, made before the launch; a launch that fails raises."""
-    if not accurate and c == TILE_C and k >= 1 and head_width >= 1 and TILE_C % head_width == 0:
-        return "tile"
+    if c == TILE_C and k >= 1 and head_width >= 1 and TILE_C % head_width == 0:
+        return "tile_f32" if accurate else "tile"
     return "simt"
+
+
+def check_variant(variant: str | None, c: int, k: int, head_width: int,
+                  accurate: bool) -> str:
+    """The kernel to launch: `variant`, or `egcl_variant`'s choice when it is
+    None. 'simt' runs every shape in both modes; a tile variant that is not
+    the shape's and mode's raises."""
+    by_shape = egcl_variant(c, k, head_width, accurate)
+    variant = by_shape if variant is None else variant
+    if variant not in VARIANTS or (variant != "simt" and variant != by_shape):
+        raise ValueError(f"no {variant!r} EGCL kernel for C={c}, head width {head_width}, "
+                         f"accurate={accurate}")
+    return variant
 
 
 def b_fragments(w: torch.Tensor) -> torch.Tensor:
@@ -180,11 +200,63 @@ def pack_params_tile_bwd(p: EGCLParams) -> torch.Tensor:
     return frags.contiguous().view(torch.float32)
 
 
+# `Layout` in csrc/egcl_tile_f32.cuh: (name, [rows][row length] as stored).
+# Matrices are [in][out] (the kernel computes activations @ matrix); the
+# backward's `*_t` are the torch [out][in] weights a cotangent goes back
+# through; w1 = [w1_hcol.T; w1_geo.T] and w1g_t = w1_geo padded to 16 inputs.
+F32_LAYOUT = (("w1", (44, 32)), ("w1hr", (32, 32)), ("w2", (32, 32)), ("wc0", (32, 32)),
+              ("b1", (32,)), ("b2", (32,)), ("ln_scale", (32,)), ("ln_bias", (32,)),
+              ("bc0", (32,)), ("wc1", (32,)),
+              ("wc0_t", (32, 32)), ("w2_t", (32, 32)), ("w1hc_t", (32, 32)),
+              ("w1hr_t", (32, 32)), ("w1g_t", (32, 16)),
+              ("wn0", (64, 32)), ("wn1", (32, 32)), ("bn0", (32,)), ("bn1", (32,)))
+
+
+def pack_params_f32(p: EGCLParams) -> torch.Tensor:
+    """The fp32 buffer `csrc/egcl_tile_f32.cu` and
+    `csrc/egcl_backward_tile_f32.cu` read (`F32_LAYOUT`, `Layout` in
+    egcl_tile_f32.cuh): every row 32 (w1g_t 16) consecutive fp32 words, so
+    that a row group's float4 loads of a weight row hit 32 distinct banks;
+    no rounding."""
+    c = p.b1.shape[0]
+    if c != TILE_C or TILE_C % p.head_width:
+        raise ValueError(f"the fp32 tile kernels take C={TILE_C} with whole heads, got C={c}, "
+                         f"head width {p.head_width}")
+    f32 = lambda t: t.detach().to(torch.float32)
+    geo = f32(p.w1_geo)
+    parts = dict(
+        w1=torch.cat([f32(p.w1_hcol).T, geo.T]), w1hr=f32(p.w1_hrow).T, w2=f32(p.w2).T,
+        wc0=f32(p.wc0).T, b1=p.b1, b2=p.b2, ln_scale=p.ln_scale, ln_bias=p.ln_bias,
+        bc0=p.bc0, wc1=p.wc1, wc0_t=p.wc0, w2_t=p.w2, w1hc_t=p.w1_hcol, w1hr_t=p.w1_hrow,
+        w1g_t=torch.cat([geo, torch.zeros_like(geo[:, :4])], dim=1), wn0=f32(p.wn0).T,
+        wn1=f32(p.wn1).T, bn0=p.bn0, bn1=p.bn1)
+    return torch.cat([f32(parts[name]).reshape(-1) for name, _ in F32_LAYOUT]).contiguous()
+
+
+def unpack_params_f32(buf: torch.Tensor, head_width: int) -> EGCLParams:
+    """`pack_params_f32`'s inverse, from the forward's [in][out] blocks."""
+    parts, o = {}, 0
+    for name, shape in F32_LAYOUT:
+        n = int(torch.Size(shape).numel())
+        parts[name] = buf[o:o + n].reshape(shape)
+        o += n
+    if o != buf.numel():
+        raise ValueError(f"an fp32 tile buffer holds {o} words, got {buf.numel()}")
+    w1 = parts["w1"].T
+    return EGCLParams(
+        w1_hrow=parts["w1hr"].T, w1_hcol=w1[:, :TILE_C], w1_geo=w1[:, TILE_C:],
+        b1=parts["b1"], w2=parts["w2"].T, b2=parts["b2"], ln_scale=parts["ln_scale"],
+        ln_bias=parts["ln_bias"], wc0=parts["wc0"].T, bc0=parts["bc0"],
+        wc1=parts["wc1"].reshape(1, -1), wn0=parts["wn0"].T, bn0=parts["bn0"],
+        wn1=parts["wn1"].T, bn1=parts["bn1"], head_width=head_width)
+
+
 def pack_for_kernels(p: EGCLParams) -> Packed:
     """Every kernel buffer of a layer, on the parameters' device."""
     if egcl_variant(p.b1.shape[0], 1, p.head_width, accurate=False) != "tile":
-        return Packed(pack_params(p), None, None)
-    return Packed(pack_params(p), pack_params_tile(p), pack_params_tile_bwd(p))
+        return Packed(pack_params(p), None, None, None)
+    return Packed(pack_params(p), pack_params_tile(p), pack_params_tile_bwd(p),
+                  pack_params_f32(p))
 
 
 def _round(fast: bool):
@@ -301,6 +373,23 @@ def _launch_tile(h, x, nbr, p, tile, agg_m, dbg):
     return h_out, x_out
 
 
+def _launch_tile_f32(h, x, nbr, p, f32, agg_m):
+    """Launch `csrc/egcl_tile_f32.cu` → (h', x'); fills agg_m if given."""
+    b, n, _ = h.shape
+    h_out, x_out = torch.empty_like(h), torch.empty_like(x)
+    fn = build.load("egcl_tile_f32").egcl_tile_f32_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), f32.data_ptr(),
+                 h_out.data_ptr(), x_out.data_ptr(),
+                 None if agg_m is None else agg_m.data_ptr(), b, n, nbr.shape[-1],
+                 p.head_width, stream)
+    build.check(err, "egcl_tile_f32_launch")
+    return h_out, x_out
+
+
 def _launch_simt(h, x, nbr, p, simt, agg_m, accurate):
     """Launch `csrc/egcl.cu` → (h', x'); fills agg_m if given."""
     b, n, c = h.shape
@@ -318,6 +407,36 @@ def _launch_simt(h, x, nbr, p, simt, agg_m, accurate):
     return h_out, x_out
 
 
+# variant → (h, x, nbr, p, packed or None, agg_m or None, accurate) → (h', x')
+LAUNCHERS = {
+    "tile": lambda h, x, nbr, p, packed, agg_m, accurate: _launch_tile(
+        h, x, nbr, p, pack_params_tile(p).to(h.device) if packed is None else packed.tile,
+        agg_m, None),
+    "tile_f32": lambda h, x, nbr, p, packed, agg_m, accurate: _launch_tile_f32(
+        h, x, nbr, p, pack_params_f32(p).to(h.device) if packed is None else packed.f32,
+        agg_m),
+    "simt": lambda h, x, nbr, p, packed, agg_m, accurate: _launch_simt(
+        h, x, nbr, p, pack_params(p).to(h.device) if packed is None else packed.simt,
+        agg_m, accurate),
+}
+
+
+def launch_layer(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor, p: EGCLParams,
+                 accurate: bool = True, packed: Packed | None = None,
+                 return_aggm: bool = False, variant: str | None = None
+                 ) -> tuple[torch.Tensor, ...]:
+    """The kernel side of `egcl_layer`, whatever the device: checks the
+    inputs, picks the variant (`check_variant`), launches it through
+    `LAUNCHERS` and counts the launch."""
+    check_inputs(h, x, nbr, p.head_width)
+    variant = check_variant(variant, h.shape[-1], nbr.shape[-1], p.head_width, accurate)
+    agg_m = torch.empty_like(h) if return_aggm else None
+    h_out, x_out = LAUNCHERS[variant](h, x, nbr, p, packed, agg_m, accurate)
+    egcl_layer.launches += 1
+    egcl_layer.launches_by_variant[variant] += 1
+    return (h_out, x_out, agg_m) if return_aggm else (h_out, x_out)
+
+
 def egcl_layer(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
                p: EGCLParams, accurate: bool = True,
                packed: Packed | None = None, return_aggm: bool = False,
@@ -327,33 +446,18 @@ def egcl_layer(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
     takes the plain version; a CUDA tensor launches the kernel that
     `egcl_variant` names for its shape and mode. `packed` is
     `pack_for_kernels(p)` when the caller already has it on the device.
-    `variant='simt'` asks for `csrc/egcl.cu` where the tile kernel would run
-    (to compare the two); 'tile' where the shape has no tile kernel raises.
-    Every nbr index must lie in [0, N)."""
+    `variant='simt'` asks for `csrc/egcl.cu` where a tile kernel would run
+    (to compare the two); a tile variant that is not the shape's and mode's
+    raises. Every nbr index must lie in [0, N)."""
     if h.device.type == "cpu":
         return egcl_layer_plain(h, x, nbr, p, accurate, return_aggm)
     if h.device.type != "cuda":
         raise ValueError(f"unsupported device {h.device}")
-    check_inputs(h, x, nbr, p.head_width)
-    by_shape = egcl_variant(h.shape[-1], nbr.shape[-1], p.head_width, accurate)
-    variant = by_shape if variant is None else variant
-    if variant not in ("tile", "simt") or (variant == "tile" and by_shape != "tile"):
-        raise ValueError(f"no {variant!r} EGCL kernel for C={h.shape[-1]}, "
-                         f"head width {p.head_width}, accurate={accurate}")
-    agg_m = torch.empty_like(h) if return_aggm else None
-    if variant == "tile":
-        tile = pack_params_tile(p).to(h.device) if packed is None else packed.tile
-        h_out, x_out = _launch_tile(h, x, nbr, p, tile, agg_m, None)
-    else:
-        simt = pack_params(p).to(h.device) if packed is None else packed.simt
-        h_out, x_out = _launch_simt(h, x, nbr, p, simt, agg_m, accurate)
-    egcl_layer.launches += 1
-    egcl_layer.launches_by_variant[variant] += 1
-    return (h_out, x_out, agg_m) if return_aggm else (h_out, x_out)
+    return launch_layer(h, x, nbr, p, accurate, packed, return_aggm, variant)
 
 
 egcl_layer.launches = 0
-egcl_layer.launches_by_variant = {"tile": 0, "simt": 0}
+egcl_layer.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def egcl_tile_stages(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,

@@ -1,7 +1,8 @@
 """Backward of the fused EGCL layer: the CUDA kernels
-`csrc/egcl_backward_tile.cu` (fast mode at C=32, on the tensor cores) and
-`csrc/egcl_backward.cu` (accurate mode and every other width), their plain
-version, and `EGCLFunction`, the layer as a differentiable
+`csrc/egcl_backward_tile.cu` (fast mode at C=32, on the tensor cores),
+`csrc/egcl_backward_tile_f32.cu` (accurate mode at C=32, fp32
+register-blocked tiles) and `csrc/egcl_backward.cu` (every other width),
+their plain version, and `EGCLFunction`, the layer as a differentiable
 function (counterpart of `ops/pallas/egcl_backward.py`: `egcl_backward_pallas`
 and the custom VJP `egcl_fused_diff`).
 
@@ -177,8 +178,9 @@ def _check_cotangents(h, dagg_m, dagg_x):
 
 
 def _launch(h, x, nbr, p, packed, dagg_m, dagg_x, variant, accurate, dbg=None):
-    """Launch `csrc/egcl_backward_tile.cu` ('tile'; fills dbg if given) or
-    `csrc/egcl_backward.cu` ('simt') → (dh_edge, dx_edge, packed grads)."""
+    """Launch `csrc/egcl_backward_tile.cu` ('tile'; fills dbg if given),
+    `csrc/egcl_backward_tile_f32.cu` ('tile_f32') or `csrc/egcl_backward.cu`
+    ('simt') → (dh_edge, dx_edge, packed grads)."""
     b, n, c = h.shape
     dh, dx = torch.empty_like(h), torch.empty_like(x)
     dh_nbr, dx_nbr = torch.zeros_like(h), torch.zeros_like(x)
@@ -192,13 +194,17 @@ def _launch(h, x, nbr, p, packed, dagg_m, dagg_x, variant, accurate, dbg=None):
         name = "egcl_backward_tile_launch"
         ptrs = [h, x, nbr, tile, tile_bwd, dagg_m, dagg_x, *outs, dbg]
         ints = [b, n, nbr.shape[-1], p.head_width]
-        fn = build.load("egcl_backward_tile").egcl_backward_tile_launch
+    elif variant == "tile_f32":
+        f32 = egcl.pack_params_f32(p).to(h.device) if packed is None else packed.f32
+        name = "egcl_backward_tile_f32_launch"
+        ptrs = [h, x, nbr, f32, dagg_m, dagg_x, *outs]
+        ints = [b, n, nbr.shape[-1], p.head_width]
     else:
         simt = egcl.pack_params(p).to(h.device) if packed is None else packed.simt
         name = "egcl_backward_launch"
         ptrs = [h, x, nbr, simt, dagg_m, dagg_x, *outs]
         ints = [b, n, nbr.shape[-1], c, p.head_width, int(not accurate)]
-        fn = build.load("egcl_backward").egcl_backward_launch
+    fn = getattr(build.load(name[:-len("_launch")]), name)
     fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(h.device):
@@ -206,6 +212,25 @@ def _launch(h, x, nbr, p, packed, dagg_m, dagg_x, variant, accurate, dbg=None):
         err = fn(*(ptr(t) for t in ptrs), *ints, stream)
     build.check(err, name)
     return dh.add_(dh_nbr), dx.add_(dx_nbr), grads
+
+
+def launch_backward(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
+                    p: EGCLParams, dagg_m: torch.Tensor, dagg_x: torch.Tensor,
+                    accurate: bool = True, packed: egcl.Packed | None = None,
+                    variant: str | None = None) -> tuple:
+    """The kernel side of `egcl_backward`, whatever the device: checks the
+    inputs, picks the variant (`egcl.check_variant`), launches it through
+    `LAUNCH` and counts the launch."""
+    egcl.check_inputs(h, x, nbr, p.head_width)
+    _check_cotangents(h, dagg_m, dagg_x)
+    variant = egcl.check_variant(variant, h.shape[-1], nbr.shape[-1], p.head_width, accurate)
+    dh, dx, grads = LAUNCH(h, x, nbr, p, packed, dagg_m, dagg_x, variant, accurate)
+    egcl_backward.launches += 1
+    egcl_backward.launches_by_variant[variant] += 1
+    return dh, dx, _unpack_grads(grads, h.shape[-1])
+
+
+LAUNCH = _launch
 
 
 def egcl_backward(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
@@ -216,31 +241,22 @@ def egcl_backward(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
     {name: gradient} for EDGE_PARAMS). A CPU tensor takes the plain version;
     a CUDA tensor launches the kernel that `egcl.egcl_variant` names for
     its shape and mode, as the forward does: `csrc/egcl_backward_tile.cu`
-    ('tile', bf16 mma.sync, fast mode at C=32 with whole heads) or
-    `csrc/egcl_backward.cu` ('simt', accurate mode and every other width).
-    `variant='simt'` asks for the SIMT kernel where the tile kernel would
-    run (to compare the two); 'tile' where the shape has no tile kernel
-    raises. Both kernels' neighbor and parameter sums are atomic (their
-    order changes from run to run)."""
+    ('tile', bf16 mma.sync, fast mode at C=32 with whole heads),
+    `csrc/egcl_backward_tile_f32.cu` ('tile_f32', fp32, accurate mode at
+    C=32 with whole heads) or `csrc/egcl_backward.cu` ('simt', every other
+    width). `variant='simt'` asks for the SIMT kernel where a tile kernel
+    would run (to compare the two); a tile variant that is not the shape's
+    and mode's raises. Every kernel's neighbor and parameter sums are atomic
+    (their order changes from run to run)."""
     if h.device.type == "cpu":
         return egcl_backward_plain(h, x, nbr, p, dagg_m, dagg_x, accurate)
     if h.device.type != "cuda":
         raise ValueError(f"unsupported device {h.device}")
-    egcl.check_inputs(h, x, nbr, p.head_width)
-    _check_cotangents(h, dagg_m, dagg_x)
-    by_shape = egcl.egcl_variant(h.shape[-1], nbr.shape[-1], p.head_width, accurate)
-    variant = by_shape if variant is None else variant
-    if variant not in ("tile", "simt") or (variant == "tile" and by_shape != "tile"):
-        raise ValueError(f"no {variant!r} EGCL backward kernel for C={h.shape[-1]}, "
-                         f"head width {p.head_width}, accurate={accurate}")
-    dh, dx, grads = _launch(h, x, nbr, p, packed, dagg_m, dagg_x, variant, accurate)
-    egcl_backward.launches += 1
-    egcl_backward.launches_by_variant[variant] += 1
-    return dh, dx, _unpack_grads(grads, h.shape[-1])
+    return launch_backward(h, x, nbr, p, dagg_m, dagg_x, accurate, packed, variant)
 
 
 egcl_backward.launches = 0
-egcl_backward.launches_by_variant = {"tile": 0, "simt": 0}
+egcl_backward.launches_by_variant = dict.fromkeys(egcl.VARIANTS, 0)
 
 
 def egcl_backward_tile_stages(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,

@@ -58,7 +58,7 @@ def lib(tmp_path_factory):
     (out / "egcl_tile.cuh").write_text(header)
     (out / "egcl_backward_tile.cpp").write_text(source)
     res = subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                          "-I", str(out), "-I", EMULATION, "-o", str(out / "libbwd.so"),
+                          "-I", str(out), "-I", EMULATION, "-I", build.CSRC, "-o", str(out / "libbwd.so"),
                           str(out / "egcl_backward_tile.cpp")],
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

@@ -176,8 +176,11 @@ def test_pack_params_tile_rejects_other_widths():
     with pytest.raises(ValueError, match="C=32"):
         tk.pack_params_tile(p33)
     assert tk.pack_for_kernels(p33).tile is None and tk.pack_for_kernels(p33).tile_bwd is None
+    assert tk.pack_for_kernels(p33).f32 is None
     with pytest.raises(ValueError, match="C=32"):
         tk.pack_params_tile_bwd(p33)
+    with pytest.raises(ValueError, match="C=32"):
+        tk.pack_params_f32(p33)
     assert tk.pack_for_kernels(_layer(8, 0)).tile.numel() == 4096
 
 
@@ -189,21 +192,23 @@ def test_egcl_variant_routes_by_shape_and_mode():
     for k in (1, 12, 16, 20, 60):
         for w in (1, 2, 4, 8, 16, 32):
             assert tk.egcl_variant(32, k, w, False) == "tile"
-            assert tk.egcl_variant(32, k, w, True) == "simt"
+            assert tk.egcl_variant(32, k, w, True) == "tile_f32"
     assert tk.egcl_variant(33, 16, 33, False) == "simt"
     assert tk.egcl_variant(33, 16, 33, True) == "simt"
     assert tk.egcl_variant(64, 16, 8, False) == "simt"
     assert tk.egcl_variant(16, 16, 8, False) == "simt"
     assert tk.egcl_variant(32, 16, 12, False) == "simt"      # heads must tile 32
+    assert tk.egcl_variant(32, 16, 12, True) == "simt"
 
 
 @pytest.mark.parametrize("k", [1, 3, 12, 16, 20])
 @pytest.mark.parametrize("head_width", [1, 8, 32])
 def test_the_backward_routes_fast_c32_to_the_tile_kernel(k, head_width):
     """`egcl_backward` picks its kernel with the forward's `egcl_variant`:
-    fast mode at C=32 with whole heads is 'tile' at any K, the rest 'simt'."""
+    at C=32 with whole heads fast mode is 'tile' and accurate mode
+    'tile_f32' at any K, the rest 'simt'."""
     assert tk.egcl_variant(32, k, head_width, False) == "tile"
-    assert tk.egcl_variant(32, k, head_width, True) == "simt"
+    assert tk.egcl_variant(32, k, head_width, True) == "tile_f32"
     assert tk.egcl_variant(33, k, 33 if head_width == 32 else 1, False) == "simt"
     assert tk.egcl_variant(64, k, head_width, False) == "simt"
 
@@ -235,17 +240,18 @@ def test_kernel_params_keeps_both_buffers_and_counters_start_at_zero():
         assert torch.equal(packed.simt, tk.pack_params(p))
         assert torch.equal(packed.tile, tk.pack_params_tile(p))
         assert torch.equal(packed.tile_bwd, tk.pack_params_tile_bwd(p))
+        assert torch.equal(packed.f32, tk.pack_params_f32(p))
     h, x, nbr = _inputs(16, seed=1)
     before = dict(tk.egcl_layer.launches_by_variant)
     before_bwd = dict(eb.egcl_backward.launches_by_variant)
     with torch.no_grad():
         tk.egnn_forward(kp, h, x, nbr, accurate=False)      # CPU: the plain version
     assert tk.egcl_layer.launches_by_variant == before       # counts launches only
-    assert set(before) == {"tile", "simt"}
+    assert set(before) == {"tile", "tile_f32", "simt"}
     p = kp.layers[0]
     eb.egcl_backward(h, x, nbr, p, torch.ones(B, N, C), torch.ones(B, N, 3), False, kp.packed[0])
     assert eb.egcl_backward.launches_by_variant == before_bwd
-    assert set(before_bwd) == {"tile", "simt"}
+    assert set(before_bwd) == {"tile", "tile_f32", "simt"}
 
 
 def test_library_name_follows_the_source_and_every_header(tmp_path, monkeypatch):

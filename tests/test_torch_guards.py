@@ -250,3 +250,145 @@ def test_register_fpfh_rejects_unported_options():
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         registration.register_fpfh_batch(pts[None], pts[None], mesh=object(), device="cpu")
     assert not hasattr(registration, "export_compiled")
+
+
+@pytest.mark.parametrize("c,head_width,accurate,want", [
+    (32, 8, True, "tile_f32"), (32, 8, False, "tile"), (32, 1, True, "tile_f32"),
+    (32, 32, True, "tile_f32"), (33, 33, True, "simt"), (33, 1, False, "simt"),
+    (32, 12, True, "simt"), (32, 12, False, "simt"), (64, 8, True, "simt"),
+], ids=["c32-accurate", "c32-fast", "c32-32heads-accurate", "c32-1head-accurate",
+        "c33-accurate", "c33-fast", "heads-not-dividing-32-accurate",
+        "heads-not-dividing-32-fast", "c64-accurate"])
+def test_egcl_variant_names_one_kernel_per_shape_and_mode(c, head_width, accurate, want):
+    """Accurate mode at C=32 with whole heads runs the fp32 tile kernels,
+    fast mode there the bf16 tile kernels, every other shape the SIMT
+    kernels; `check_variant` returns that choice when asked for none."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+
+    assert egcl.egcl_variant(c, 16, head_width, accurate) == want
+    assert egcl.check_variant(None, c, 16, head_width, accurate) == want
+    assert egcl.check_variant("simt", c, 16, head_width, accurate) == "simt"
+
+
+@pytest.mark.parametrize("variant,c,head_width,accurate", [
+    ("tile_f32", 32, 8, False), ("tile", 32, 8, True), ("tile_f32", 33, 33, True),
+    ("tile", 33, 1, False), ("tile_f32", 32, 12, True), ("wgmma", 32, 8, True),
+], ids=["f32-in-fast-mode", "bf16-in-accurate-mode", "f32-at-c33", "bf16-at-c33",
+        "f32-heads-not-dividing-32", "unknown"])
+def test_a_kernel_variant_the_shape_lacks_raises(variant, c, head_width, accurate):
+    """Asked for a kernel that the shape and mode do not have, both EGCL
+    wrappers raise before any launch, on any device."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+    from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
+
+    with pytest.raises(ValueError, match=variant):
+        egcl.check_variant(variant, c, 16, head_width, accurate)
+    p = egcl.params_from_layer(EGNN(in_node_nf=c, hidden_nf=c, out_node_nf=c, n_layers=1,
+                                    num_heads=1).gcl_0)._replace(head_width=head_width)
+    h, x = torch.zeros(1, 32, c), torch.zeros(1, 32, 3)
+    nbr = torch.zeros(1, 32, 16, dtype=torch.int32)
+    why = f"{variant}|whole heads"          # heads that do not tile C fail the input check
+    with pytest.raises(ValueError, match=why):
+        egcl.launch_layer(h, x, nbr, p, accurate, variant=variant)
+    with pytest.raises(ValueError, match=why):
+        eb.launch_backward(h, x, nbr, p, torch.zeros(1, 32, c), torch.zeros(1, 32, 3),
+                           accurate, variant=variant)
+
+
+@pytest.mark.parametrize("heads", [1, 4, 32])
+def test_fp32_weight_packing_round_trips(heads):
+    """`pack_params_f32` holds every weight unrounded, the forward's blocks
+    [in][out] (`unpack_params_f32` returns the layer) and the backward's
+    the torch [out][in] weights, w1_geo padded with 4 zero inputs."""
+    from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+
+    egnn = EGNN(in_node_nf=32, hidden_nf=32, out_node_nf=32, n_layers=1, num_heads=heads)
+    with torch.no_grad():
+        for q in egnn.parameters():
+            q.copy_(torch.randn(q.shape, generator=torch.Generator().manual_seed(q.numel())))
+    p = egcl.params_from_layer(egnn.gcl_0)
+    buf = egcl.pack_params_f32(p)
+    assert buf.dtype == torch.float32 and buf.numel() == 12416 and buf.is_contiguous()
+    back = egcl.unpack_params_f32(buf, p.head_width)
+    for name in egcl.EGCLParams._fields[:-1]:
+        assert torch.equal(getattr(back, name).reshape(getattr(p, name).shape),
+                           getattr(p, name)), name
+    assert back.head_width == p.head_width
+    blocks, o = {}, 0
+    for name, shape in egcl.F32_LAYOUT:
+        blocks[name] = buf[o:o + int(torch.Size(shape).numel())].reshape(shape)
+        o += blocks[name].numel()
+    for name, w in (("wc0_t", p.wc0), ("w2_t", p.w2), ("w1hc_t", p.w1_hcol),
+                    ("w1hr_t", p.w1_hrow)):
+        assert torch.equal(blocks[name], w), name
+    assert torch.equal(blocks["w1g_t"][:, :12], p.w1_geo)
+    assert torch.count_nonzero(blocks["w1g_t"][:, 12:]) == 0
+    assert o % 4 == 0 and all(s[-1] % 4 == 0 for _, s in egcl.F32_LAYOUT)  # float4 rows
+
+
+@pytest.mark.parametrize("path", ["register", "train_step"])
+def test_default_config_entry_points_launch_only_the_fp32_tile_kernels(monkeypatch, path):
+    """At `EngineConfig()` (accurate mode, C=32, 4 heads) every EGCL launch of
+    `register()` and of a train step goes to the fp32 tile kernels: the
+    wrappers' kernel side (`launch_layer`, `launch_backward`) runs on CPU
+    tensors with the launchers stubbed by the plain versions, and records
+    which kernel each launch would start."""
+    from se3_equi_graph_registration_tpu_torch import serving
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+    from se3_equi_graph_registration_tpu_torch.train import engine
+
+    launched = []
+
+    def fake_fwd(variant):
+        def run(h, x, nbr, p, packed, agg_m, accurate):
+            launched.append(("egcl", variant))
+            assert packed is not None and packed.f32 is not None
+            out = egcl.egcl_layer_plain(h, x, nbr, p, accurate, return_aggm=True)
+            if agg_m is not None:
+                agg_m.copy_(out[2])
+            return out[0], out[1]
+        return run
+
+    def fake_bwd(h, x, nbr, p, packed, dagg_m, dagg_x, variant, accurate):
+        launched.append(("egcl_backward", variant))
+        dh, dx, g = eb.egcl_backward_plain(h, x, nbr, p, dagg_m, dagg_x, accurate)
+        flat = torch.cat([(g[n].T if g[n].ndim == 2 else g[n]).reshape(-1)
+                          for n in eb.EDGE_PARAMS])
+        return dh, dx, flat
+
+    def kernel_side(launch, counters_of):
+        def wrapped(*a, **kw):
+            return launch(*a, **kw)
+        wrapped.launches = 0
+        wrapped.launches_by_variant = dict.fromkeys(counters_of, 0)
+        return wrapped
+
+    monkeypatch.setattr(egcl, "LAUNCHERS", {v: fake_fwd(v) for v in egcl.VARIANTS})
+    monkeypatch.setattr(egcl, "egcl_layer", kernel_side(egcl.launch_layer, egcl.VARIANTS))
+    monkeypatch.setattr(eb, "LAUNCH", fake_bwd)
+    monkeypatch.setattr(eb, "egcl_backward", kernel_side(eb.launch_backward, egcl.VARIANTS))
+    cfg = engine.EngineConfig(num_nodes=256)
+    assert cfg.egnn_accurate and cfg.hidden_nf == 32 and cfg.num_heads == 4 and cfg.k == 16
+    rng = np.random.default_rng(3)
+    pb = make_pair_batch(rng, batch=1, n=256, feat_dim=cfg.in_node_nf)
+    L = cfg.n_layers
+    if path == "register":
+        sd = engine.build_model(cfg, "eval_fusion", device="cpu").state_dict()
+        R, _, _ = serving.Registrar(sd, cfg, device="cpu").register(
+            pb.src_pts, pb.src_feat, pb.tgt_pts, pb.tgt_feat)
+        assert np.all(np.isfinite(R))
+        assert launched == [("egcl", "tile_f32")] * (2 * L)
+        assert egcl.egcl_layer.launches_by_variant == {"tile": 0, "tile_f32": 2 * L, "simt": 0}
+    else:
+        state = engine.init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+        step = engine.make_train_step(state.model, state.optimizer, cfg)
+        state, m = step(state, engine.batch_to_device(tuple(pb), "cpu"))
+        assert np.isfinite(float(m["total"]))
+        assert sorted(launched) == sorted([("egcl", "tile_f32")] * (2 * L)
+                                          + [("egcl_backward", "tile_f32")] * (2 * L))
+        assert eb.egcl_backward.launches_by_variant == {"tile": 0, "tile_f32": 2 * L,
+                                                        "simt": 0}
