@@ -32,7 +32,8 @@
 //     center sums by shuffles, of the neighbor by atomicAdd;
 //   - the parameter gradients are tile products over the 16 edges,
 //     gW[in][out] = Σ_e A[e][in] D[e][out], 8 inputs x 4 outputs a lane (5.3
-//     FFMA a shared load), added into one block-wide fp32 copy by shared
+//     FFMA a shared load; W2's only on its head blocks when heads are at most
+//     8 wide), added into one block-wide fp32 copy by shared
 //     atomics and flushed once a block by global atomics; the vector
 //     gradients are summed over each tile's rows across lanes and added
 //     into the same copy. No per-warp copy: 16 warps fit a block.
@@ -123,6 +124,32 @@ __device__ __forceinline__ void grad_product(float* G, const float* A, int a0, c
   for (int a = 0; a < NA; ++a)
 #pragma unroll
     for (int j = 0; j < 4; ++j) atomicAdd(G + (in0 + a) * kGS + cg + 8 * j, acc[a][j]);
+}
+
+// W2's gradient on its head blocks when heads are at most 8 wide (they then
+// tile the 8-channel groups): lane o owns output o and inputs
+// 8 floor(o / 8) .. + 7, G[o kG2 + a] += Σ_e S1[e][8 floor(o / 8) + a] DV[e][o]
+// (with heads narrower than 8 the group's other entries are structural zeros
+// and the flush drops them). A quarter of the dense product's work.
+constexpr int kG2 = 9;    // row stride of that [out][8] copy: o kG2 + a hits 32 banks
+__device__ __forceinline__ void grad_heads8(float* G, const float* S1, const float* DV,
+                                            int lane) {
+  const int in0 = lane & ~7;
+  float acc[8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a) acc[a] = 0.f;
+#pragma unroll 4
+  for (int e = 0; e < kRows; ++e) {
+    const float4 s0 = *reinterpret_cast<const float4*>(S1 + e * kXS + in0);
+    const float4 s1 = *reinterpret_cast<const float4*>(S1 + e * kXS + in0 + 4);
+    const float dv = DV[e * kXS + lane];
+    acc[0] = fmaf(s0.x, dv, acc[0]); acc[1] = fmaf(s0.y, dv, acc[1]);
+    acc[2] = fmaf(s0.z, dv, acc[2]); acc[3] = fmaf(s0.w, dv, acc[3]);
+    acc[4] = fmaf(s1.x, dv, acc[4]); acc[5] = fmaf(s1.y, dv, acc[5]);
+    acc[6] = fmaf(s1.z, dv, acc[6]); acc[7] = fmaf(s1.w, dv, acc[7]);
+  }
+#pragma unroll
+  for (int a = 0; a < 8; ++a) atomicAdd(G + lane * kG2 + a, acc[a]);
 }
 
 // g[4cg + j] += this tile's v[j] summed over the 4 row groups.
@@ -273,7 +300,10 @@ egcl_bwd_tile_f32_kernel(const float* __restrict__ h, const float* __restrict__ 
       __syncwarp();   // every lane has read dcm
       store_rows(d, D, rg, cg);
       __syncwarp();
-      grad_product<kXS, 8>(gW2, S1, 0, D, rg, cg);   // gW2 += s1ᵀ dv (the flush keeps the heads)
+      if (wh <= 8)                                    // gW2 += s1ᵀ dv on the head blocks
+        grad_heads8(gW2, S1, D, lane);
+      else                                            // dense; the flush keeps the heads
+        grad_product<kXS, 8>(gW2, S1, 0, D, rg, cg);
 
       // ---- ds1 = dv W2 (the heads' inputs), du = dsilu(u) ds1 ----
 #pragma unroll
@@ -398,7 +428,7 @@ egcl_bwd_tile_f32_kernel(const float* __restrict__ h, const float* __restrict__ 
     } else if (i < GradOut::b2) {
       const int in = (i - GradOut::w2) / kC;
       if (in / wh != out / wh) continue;          // a structural zero of the block-diagonal w2
-      s = gW2[in * kGS + out];
+      s = wh <= 8 ? gW2[out * kG2 + in % 8] : gW2[in * kGS + out];
     } else if (i < GradOut::wc0) {                // b2, ln_scale, ln_bias
       s = gvec[(kVB2 + (i - GradOut::b2) / kC) * kC + out];
     } else if (i < GradOut::bc0) {
