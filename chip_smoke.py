@@ -249,13 +249,12 @@ def backward_errors(got, ref, accurate, what, tol=None):
     return errs
 
 
-EGCL_VARIANTS = ("tile", "tile_f32", "simt")
-
-
 def only(variant, n):
     """An EGCL wrapper's launches_by_variant with n launches of `variant`
     and none of the others."""
-    return {**dict.fromkeys(EGCL_VARIANTS, 0), variant: n}
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+
+    return {**dict.fromkeys(egcl.VARIANTS, 0), variant: n}
 
 
 def by_row(wrapper, by_variant):
@@ -267,7 +266,7 @@ def by_row(wrapper, by_variant):
 
 def reset_backward_counters(eb):
     eb.egcl_backward.launches = 0
-    eb.egcl_backward.launches_by_variant = dict.fromkeys(EGCL_VARIANTS, 0)
+    eb.egcl_backward.launches_by_variant = dict.fromkeys(eb.egcl.VARIANTS, 0)
 
 
 def log_backward_errors(errs, what):
@@ -569,7 +568,7 @@ def reset_knn_counters(knn):
 
 def reset_egcl_counters(egcl):
     egcl.egcl_layer.launches = 0
-    egcl.egcl_layer.launches_by_variant = dict.fromkeys(EGCL_VARIANTS, 0)
+    egcl.egcl_layer.launches_by_variant = dict.fromkeys(egcl.VARIANTS, 0)
 
 
 def run(torch, dev, cfg, bsz, phases=PHASES):

@@ -48,11 +48,11 @@ namespace {
 using namespace egcl_f32;
 using egcl_edge::geometry_bwd;
 
-// Warps (centers in flight) per block; one block an SM (the shared memory).
-#ifndef EGCL_F32_BWD_WARPS
-#define EGCL_F32_BWD_WARPS 16
-#endif
-constexpr int kWarps = EGCL_F32_BWD_WARPS;
+// Warps (centers in flight) per block; one block an SM (the shared memory,
+// 219 KB). Latency bounds the kernel: 16 warps at 128 registers, with ~200
+// bytes of spills, beat 12 and 8 warps without (egcl_f32_sweep.py times
+// them; PERF.md §6).
+constexpr int kWarps = 16;
 constexpr int kGS = 33;   // row stride of the block's [in][out] gradient copies: odd, so
                           // a product's atomics (8 inputs a row group) hit 32 banks
 constexpr int kDgS = 17;  // row stride of the per-warp dgeo scratch [edge][16]

@@ -109,9 +109,8 @@ __device__ __forceinline__ bool stage_edges(const float* __restrict__ h,
 // itself is below 0.3 and falls with e^v, so the absolute error stays under
 // ~1e-7; __fdividef is within 2 ulp, and returns 0 once 1 + e^-v passes
 // 2^126 (v < -87), where the SiLU is ~1e-36. Far inside the 1e-4-of-scale
-// tolerance: against egcl.cu's expf and IEEE division the card measured
-// h′ at 3.5e-7 of its scale either way, and the kernels ran 16% (forward)
-// and 5% (backward) faster (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
+// tolerance; the exact expf and IEEE division cost ~20 instructions a SiLU,
+// 64 an edge in the forward.
 __device__ __forceinline__ float silu(float v) { return __fdividef(v, 1.0f + __expf(-v)); }
 
 __device__ __forceinline__ float dsilu(float v) {

@@ -111,7 +111,7 @@ class Packed(NamedTuple):
     simt: torch.Tensor
     tile: torch.Tensor | None
     tile_bwd: torch.Tensor | None
-    f32: torch.Tensor | None = None
+    f32: torch.Tensor | None
 
 
 VARIANTS = ("tile", "tile_f32", "simt")
