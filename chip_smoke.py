@@ -35,8 +35,9 @@ everything runs):
 - the checkpoint-free pipeline at full width (N=2048, k_normals 30, k_fpfh
   60, tile 128, window 768, chunked keys, top_m 512, 512 hypotheses, 5 IRLS
   and 10 ICP steps, quaternion Kabsch): `register_fpfh` at 4 branches and 1
-  (2 chunked k-NN launches, all warp, and 2 SPFH per call, no B1) against the same
-  call on the CPU on a seeded bumpy surface pair, then
+  (2 chunked k-NN launches, all warp, and 2 SPFH per call, all on the
+  packed-count kernel, no B1) against the same call on the CPU on a seeded
+  bumpy surface pair (also at 60 ICP steps), then
   `register_fpfh_batch` at B=8 and 32, and a profile of one b=1 call; then
   `register_fpfh` at its defaults (knn_method='approx': 2 whole-cloud k-NN
   launches at k=60 on the exact warp kernel, no B4 or B5) at 4 branches
@@ -109,9 +110,14 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   At these untrained weights the similarity softmax saturates, and the two
   modes are different functions (the reference's gradient budget,
   BASELINE.md); the table is printed.
-- spfh (B5), both modes: distances within 1e-6 relative; at most 1e-4 of
-  the edge-channels in another bin (fp noise at a boundary); SPFH values
-  within 1e-3 (of 100 per channel) where a center's counts all agree.
+- spfh (B5), both modes, both kernels (the packed-count kernel the wrapper
+  launches and the ballot kernel kept to compare): distances within 1e-6
+  relative; at most 1e-4 of the edge-channels in another bin (fp noise at a
+  boundary); SPFH values within 1e-3 (of 100 per channel) where a center's
+  counts all agree; and bit for bit: distances and SPFH equal, no
+  edge-channel in another bin (the same operations in the same order, each
+  rounded on its own), at full width and on the edge cases (B=1, K=16, 33,
+  100 and 300, repeated points).
 - TF32 enabled: the normals and the branch verification equal their
   TF32-off values within 1e-6 (they use no matmul).
 - register_fpfh at its defaults (whole-cloud k-NN, gather FPFH): the k-NN
@@ -131,7 +137,10 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   independently sampled surfaces wanders at the 1e-3 level: over 12 seeded
   pairs at 4 branches and 1 it measured 1.2e-4 to 3.3e-3 (4 of 24 above
   2e-3) while every run stayed within 0.19 deg and 1.8 mm of the truth
-  (H100 80GB HBM3, 700 W). The check runs on pair 6 (2.8e-4 at both).
+  (H100 80GB HBM3, 700 W). The check runs on pair 6 (2.8e-4 at both), and
+  again at 60 ICP steps at the same gate, where ICP's fixed point leaves
+  only the descriptors' differences; the 12 pairs at 60 steps are printed,
+  not held.
 """
 from __future__ import annotations
 
@@ -1359,48 +1368,120 @@ def spfh_bin_flips(spfh, ref, dist_ref):
     return float(dc.sum() / 2), float((spfh - ref).abs()[same].max())
 
 
+# B5's edge cases: (clouds, K, cloud kind); every case runs both kernels in
+# both modes against the plain version, bit for bit. K=100 and K=300 take
+# the packed kernel's 8- and 16-bit fields; 'repeated' has every point twice
+# (the duplicate and the self pair are invalid edges).
+SPFH_EDGE_CASES = ((1, 60, "surface"), (8, 16, "surface"), (8, 33, "surface"),
+                   (8, 60, "repeated"), (2, 100, "surface"), (1, 300, "surface"))
+
+
+def spfh_inputs(torch, dev, bsz, k, kind="surface"):
+    """(xs, normals, nbr) at full width: `bsz` curve-sorted surface clouds,
+    B4's lists at K=60 (the fused path's), the plain exact window k-NN
+    otherwise."""
+    from se3_equi_graph_registration_tpu_torch.ops import fpfh, morton
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn
+
+    xs = surface_clouds(torch, dev, bsz)
+    if kind == "repeated":
+        x = xs.clone()
+        x[:, 1::2] = x[:, ::2]
+        _, xs, _ = morton.sort_by_curve(x[..., :0], x)
+        xs = xs.contiguous()
+    if k == FPFH_K and kind == "surface":
+        nbr = knn.knn_chunked(xs, k, FPFH_TILE, FPFH_WINDOW)
+    else:   # the plain exact window k-NN: csrc/knn.cu takes no K beyond ~200 at T=128
+        nbr = knn.knn_window_plain(xs, k, FPFH_TILE, FPFH_WINDOW, packed=False)
+    normals = fpfh.estimate_normals_window(xs, nbr[..., :min(k, FPFH_KN)]).contiguous()
+    return xs, normals, nbr
+
+
+def spfh_against_plain(torch, xs, normals, nbr, accurate, variant, what):
+    """One launch of the variant against the plain version: the existing gate
+    (distances 1e-6 relative, 1e-4 of the edge-channels in another bin, 1e-3
+    where the counts agree) and bit-for-bit equality; returns (dist max rel,
+    edge-channels in another bin, max|ΔSPFH| where the counts agree)."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import spfh
+
+    tile, w = FPFH_TILE, FPFH_WINDOW
+    sg, dg = spfh.spfh(xs, normals, nbr, tile, w, accurate, variant)
+    torch.cuda.synchronize()
+    sr, dr = spfh.spfh_plain(xs, normals, nbr, tile, w, accurate)
+    derr = float(((dg - dr).abs() / dr.abs().clamp_min(1e-30)).max())
+    flips, serr = spfh_bin_flips(sg, sr, dr)
+    check(torch.isfinite(sg).all() and derr <= 1e-6 and flips <= 1e-4 * nbr.numel()
+          and serr <= 1e-3,
+          f"spfh {what}: dist rel {derr}, {flips} edge-channels in another bin, "
+          f"max|ΔSPFH| {serr} where the counts agree")
+    check(torch.equal(dg, dr) and flips == 0 and serr == 0 and torch.equal(sg, sr),
+          f"spfh {what}: not bit for bit: dist rel {derr}, {flips} edge-channels in another "
+          f"bin, max|ΔSPFH| {serr} where the counts agree")
+    return derr, flips, serr
+
+
 def fpfh_kernel_phase(torch, dev, bsz):
-    """B5 against its plain version in both modes on `bsz` curve-sorted
-    surface clouds at full width, on B4's lists; the TF32 pin. Returns the
-    B5 row."""
-    from se3_equi_graph_registration_tpu_torch.ops import fpfh
-    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn, spfh
+    """B5, both kernels (the packed-count 'redux' the wrapper launches and
+    the 'ballot' kernel kept to compare), against the plain version in both
+    modes on `bsz` curve-sorted surface clouds at full width on B4's lists,
+    and on the edge cases; each timed beside the plain version and the
+    bound, with registers, resident blocks and waves. The TF32 pin. Returns
+    the B5 row."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import spfh
 
     n, k, tile, w = FPFH_N, FPFH_K, FPFH_TILE, FPFH_WINDOW
-    xs = surface_clouds(torch, dev, bsz)
-    got = knn.knn_chunked(xs, k, tile, w)
-    normals = fpfh.estimate_normals_window(xs, got[..., :FPFH_KN]).contiguous()
+    xs, normals, got = spfh_inputs(torch, dev, bsz, k)
     edges = bsz * n * k
-    stats = {}
+    before = dict(spfh.spfh.launches_by_variant)
+    ms, errs = {}, {}
     for accurate in (True, False):
-        name = "accurate" if accurate else "fast"
-        sg, dg = spfh.spfh(xs, normals, got, tile, w, accurate)
-        torch.cuda.synchronize()
-        sr, dr = spfh.spfh_plain(xs, normals, got, tile, w, accurate)
-        derr = float(((dg - dr).abs() / dr.abs().clamp_min(1e-30)).max())
-        flips, serr = spfh_bin_flips(sg, sr, dr)
-        check(torch.isfinite(sg).all() and derr <= 1e-6 and flips <= 1e-4 * edges
-              and serr <= 1e-3,
-              f"spfh {name}: dist rel {derr}, {flips} edge-channels in another bin, "
-              f"max|ΔSPFH| {serr} where the counts agree")
-        ms5 = cuda_ms(torch, lambda: spfh.spfh(xs, normals, got, tile, w, accurate), 20)
-        plain5 = cuda_ms(torch, lambda: spfh.spfh_plain(xs, normals, got, tile, w, accurate), 3)
-        stats[name] = (ms5, plain5, serr)
-        log(f"spfh[{name}] B={bsz} N={n} K={k} W={w}: dist max rel {derr:.3g}, "
-            f"{flips:.0f} of {edges} edge-channels in another bin, max|ΔSPFH| {serr:.3g} "
-            f"where the counts agree (of 100 per channel); kernel {ms5:.4f} ms, plain "
-            f"{plain5:.3f} ms")
+        mode = "accurate" if accurate else "fast"
+        for variant in spfh.VARIANTS:
+            derr, flips, serr = spfh_against_plain(torch, xs, normals, got, accurate, variant,
+                                                   f"{variant} {mode}")
+            errs[variant, mode] = serr
+            log(f"spfh[{variant}, {mode}] B={bsz} N={n} K={k} W={w}: dist max rel {derr:.3g}, "
+                f"{flips:.0f} of {edges} edge-channels in another bin, max|ΔSPFH| {serr:.3g} "
+                f"where the counts agree (of 100 per channel); bit for bit")
+        # in turns: redux, ballot, ballot, redux
+        for variant in (*spfh.VARIANTS, *reversed(spfh.VARIANTS)):
+            t = cuda_ms(torch, lambda: spfh.spfh(xs, normals, got, tile, w, accurate, variant), 20)
+            ms[variant, mode] = min(ms.get((variant, mode), t), t)
+        ms["plain", mode] = cuda_ms(
+            torch, lambda: spfh.spfh_plain(xs, normals, got, tile, w, accurate), 3)
+    for b, kk, kind in SPFH_EDGE_CASES:
+        x, nrm, nb = spfh_inputs(torch, dev, b, kk, kind)
+        for accurate in (True, False):
+            for variant in spfh.VARIANTS:
+                spfh_against_plain(torch, x, nrm, nb, accurate, variant,
+                                   f"{variant} B={b} K={kk} {kind} accurate={accurate}")
+        log(f"spfh edge case B={b} K={kk} {kind}: both kernels bit for bit in both modes")
+    compared = {v: spfh.spfh.launches_by_variant[v] - before[v] for v in spfh.VARIANTS}
+    check(all(c > 0 for c in compared.values()), f"spfh comparisons launched {compared}")
     nbytes5 = xs.numel() * 4 * 2 + edges * 4 * 2 + bsz * n * 33 * 4
     b5, b5by = bound_ms(nbytes5, edges * SPFH_EDGE_OPS, PEAK_FP32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    occupancy = {}
+    for variant in spfh.VARIANTS:
+        per_sm, grid = spfh.occupancy(variant, bsz, n, k, tile, w, dev)
+        occupancy[variant] = dict(blocks_per_sm=per_sm, grid=grid, waves=grid / (per_sm * sms))
+        log(f"spfh[{variant}] B={bsz} N={n} K={k} W={w}: accurate {ms[variant, 'accurate']:.4f} "
+            f"ms, fast {ms[variant, 'fast']:.4f} ms ({100 * b5 / ms[variant, 'accurate']:.1f}% "
+            f"of the bound); {per_sm} blocks an SM of {sms}, grid {grid} blocks = "
+            f"{grid / (per_sm * sms):.2f} waves")
     log(f"spfh bound: {SPFH_EDGE_OPS} fp32 operations per edge, {nbytes5 / 1e6:.1f} MB: "
-        f"{b5:.4f} ms ({b5by})")
+        f"{b5:.4f} ms ({b5by}); plain {ms['plain', 'accurate']:.3f} ms accurate, "
+        f"{ms['plain', 'fast']:.3f} fast")
     tf32_check(torch, xs, got)
-    ms5, plain5, serr = stats["accurate"]
     return dict(name="spfh", route="cuda",
-                source="se3_equi_graph_registration_tpu_torch/csrc/spfh.cu",
+                source="se3_equi_graph_registration_tpu_torch/csrc/spfh_redux.cu",
                 replaces="se3_equi_graph_registration_tpu/ops/pallas/spfh_kernel.py:62",
-                launches=0, max_abs_err=serr, ms=ms5, plain_ms=plain5, bound_ms=b5,
-                bound_by=b5by, library_ms=None)
+                launches=0, max_abs_err=max(errs.values()), ms=ms["redux", "accurate"],
+                plain_ms=ms["plain", "accurate"], bound_ms=b5, bound_by=b5by, library_ms=None,
+                variant="redux", fast_ms=ms["redux", "fast"], ballot_ms=ms["ballot", "accurate"],
+                ballot_fast_ms=ms["ballot", "fast"], plain_fast_ms=ms["plain", "fast"],
+                ballot_source="se3_equi_graph_registration_tpu_torch/csrc/spfh.cu",
+                occupancy=occupancy, launches_by_variant=dict.fromkeys(spfh.VARIANTS, 0))
 
 
 def tf32_check(torch, xs, nbr):
@@ -1459,6 +1540,7 @@ def register_fpfh_phase(torch, dev, rows):
     for fn in counters.values():
         fn.launches = 0
     reset_knn_counters(knn)
+    spfh.spfh.launches_by_variant = dict.fromkeys(spfh.VARIANTS, 0)
 
     rates = {}
     t0 = time.perf_counter()
@@ -1514,14 +1596,46 @@ def register_fpfh_phase(torch, dev, rows):
             f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     launches = {k_: fn.launches for k_, fn in counters.items()}
     chunked_by_variant = check_knn_warp(knn.knn_chunked, "register_fpfh")
+    spfh_by_variant = dict(spfh.spfh.launches_by_variant)
+    check(spfh_by_variant == {**dict.fromkeys(spfh.VARIANTS, 0), "redux": launches["spfh"]},
+          f"register_fpfh: spfh launches by kernel {spfh_by_variant}, want all "
+          f"{launches['spfh']} 'redux'")
     log(f"register_fpfh path: run {time.perf_counter() - t0:.1f} s, launches {launches}; "
-        f"knn_chunked by kernel {chunked_by_variant}")
+        f"knn_chunked by kernel {chunked_by_variant}, spfh by kernel {spfh_by_variant}")
     log("register_fpfh pairs/s (host clock incl. sampling, H2D, noise draw and result copy; "
         "robust = 4 branches): " + ", ".join(f"{k_}: {r:.2f}" for k_, r in rates.items()))
     for name in ("knn_chunked", "spfh"):
         check(launches[name] > 0, f"{name} never launched on the register_fpfh path")
-    record_launches(rows, "register_fpfh", launches, dict(knn_chunked=chunked_by_variant))
+    record_launches(rows, "register_fpfh", launches,
+                    dict(knn_chunked=chunked_by_variant, spfh=spfh_by_variant))
     profile_call(torch, lambda: registration.register_fpfh(src, tgt, **kw), "register_fpfh b=1")
+    fused_icp60(torch, src, tgt, kw)
+
+
+def fused_icp60(torch, src, tgt, kw):
+    """The fused path card against CPU with ICP run to its fixed point (60
+    steps), on pair 6 at the default path's gate (module docstring), then
+    the 12-pair sweep at 60 steps, printed and not held."""
+    from se3_equi_graph_registration_tpu_torch import registration
+
+    def gap(s, t):
+        Rc, tc, _ = registration.register_fpfh(s, t, icp_iters=60, **kw)
+        Rp, tp, _ = registration.register_fpfh(s, t, icp_iters=60, device="cpu", **kw)
+        return float(np.linalg.norm(Rc - Rp) / np.sqrt(2)), float(np.abs(tc - tp).max())
+
+    dR, dt = gap(src, tgt)
+    log(f"register_fpfh fused/chunked W={FPFH_WINDOW} at 60 ICP steps, pair 6: card vs CPU "
+        f"‖ΔR‖/√2 {dR:.3g}, |Δt| {dt:.3g} m")
+    check(dR <= 2e-3 and dt <= 2e-3,
+          f"register_fpfh fused at 60 ICP steps: card vs CPU dR {dR} dt {dt}")
+    t0 = time.perf_counter()
+    sweep = [gap(*surface_pairs(1, seed)[0][:2]) for seed in range(12)]
+    worst = max(range(12), key=lambda i: max(sweep[i]))
+    log(f"register_fpfh fused at 60 ICP steps, 12 seeded pairs (not held): card vs CPU "
+        f"‖ΔR‖/√2 {min(a for a, _ in sweep):.3g} to {max(a for a, _ in sweep):.3g}, |Δt| "
+        f"{min(b for _, b in sweep):.3g} to {max(b for _, b in sweep):.3g} m; over 2e-3: "
+        f"{sum(max(p) > 2e-3 for p in sweep)} of 12 (worst: pair {worst}); "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def register_fpfh_default_phase(torch, dev, rows):
@@ -1533,6 +1647,7 @@ def register_fpfh_default_phase(torch, dev, rows):
     (identical) and its descriptors (printed); both poses against the truth,
     and card against CPU at 60 ICP steps (module docstring); pairs/s."""
     from se3_equi_graph_registration_tpu_torch import registration
+    from se3_equi_graph_registration_tpu_torch.ops import fpfh
     from se3_equi_graph_registration_tpu_torch.ops.kernels import knn, spfh
 
     (src, tgt, R, t), = surface_pairs(1, 6)
@@ -1576,6 +1691,14 @@ def register_fpfh_default_phase(torch, dev, rows):
         f"normals max|Δ| {dn:.3g} up to sign, {flipped} of {2 * FPFH_N} oriented the other "
         f"way; FPFH max|Δ| {float(df.max()):.3g}, entries off by more than 1e-3 of 100: "
         f"{int((df > 0.1).sum())} of {df.numel()}")
+    # the gather FPFH's own rounding floor: the CPU's fp32 against fp64 arithmetic
+    # on the same points, normals and lists
+    d64 = (desc_cpu[1].double() - fpfh.fpfh(clouds.cpu().double(), desc_cpu[0].double(),
+                                            nbr=lists_cpu[..., :60])).abs()
+    log(f"register_fpfh at its defaults, on the CPU: the fp32 gather FPFH against the same in "
+        f"fp64 (same points, normals and lists): max|Δ| {float(d64.max()):.3g}, entries off "
+        f"by more than 0.1: {int((d64 > 0.1).sum())} of {d64.numel()} (the method's own "
+        f"rounding floor: a value at a bin edge moves one count, weighted by 1/d)")
     check(all(np.isfinite(a).all() for a in (Rc, tc, ic["weights"], ic["pose_covariance"])),
           "register_fpfh at its defaults: non-finite output")
     check(ec < 0.5 and etc < 5e-3 and ep < 0.5 and etp < 5e-3,

@@ -135,7 +135,8 @@ __global__ void spfh_kernel(const float* __restrict__ x, const float* __restrict
         if (lane == q) { ha += ca; hp += cp; ht += ct; }
       }
     }
-    const float scale = __fdiv_rn(100.0f, fmaxf((float)total, 1e-6f));
+    // 100 / total as the plain version rounds it: the reciprocal, then the product
+    const float scale = __fmul_rn(__frcp_rn(fmaxf((float)total, 1e-6f)), 100.0f);
     if (lane < kBins) {
       float* o = spfh + ((size_t)b * N + i) * (3 * kBins);
       o[lane] = __fmul_rn((float)ha, scale);
@@ -169,4 +170,18 @@ extern "C" int spfh_launch(const void* x, const void* normals, const void* nbr, 
       static_cast<const int*>(nbr), static_cast<float*>(spfh), static_cast<float*>(dist), sec,
       N, K, T, W, pad_tiles, max_tile);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks an SM holds at this geometry (K does not change the
+// kernel), and blocks in the grid.
+extern "C" int spfh_occupancy(int B, int N, int K, int T, int W, int* blocks_per_sm,
+                              int* grid_blocks) {
+  (void)K;
+  *grid_blocks = N / T * B;
+  const size_t smem = 6 * (size_t)W * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(spfh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, spfh_kernel,
+                                                            32 * kWarps, smem);
 }

@@ -28,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("knn", "knn_warp", "knn_exact_warp", "knn_chunked", "knn_chunked_warp", "egcl",
            "egcl_tile", "egcl_tile_f32", "egcl_backward", "egcl_backward_tile",
-           "egcl_backward_tile_f32", "spfh")
+           "egcl_backward_tile_f32", "spfh", "spfh_redux")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

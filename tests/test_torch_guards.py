@@ -39,6 +39,20 @@ def test_import_pulls_in_no_jax(module):
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "spfh_sweep.py", "egcl_f32_sweep.py"])
+def test_card_scripts_import_no_jax(script):
+    """The scripts run on the card machine, which has no jax: no import
+    statement in them, at any depth, names jax or the JAX package."""
+    import ast
+
+    with open(os.path.join(ROOT, script)) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    bad = [m for m in names if m.split(".")[0] in ("jax", "se3_equi_graph_registration_tpu")]
+    assert names and not bad, bad
+
+
 def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
     from se3_equi_graph_registration_tpu_torch import serving
     from se3_equi_graph_registration_tpu_torch.train import engine
@@ -100,6 +114,29 @@ def test_knn_wrappers_reject_a_kernel_variant_as_they_reject_a_bad_geometry():
     with pytest.raises(ValueError, match="no 'simt'"):
         knn.knn_chunked(x, 8, 128, 256, variant="simt")
     assert knn.knn_window(x, 8, 128, 384, packed=True).shape == (1, 512, 8)
+
+
+def test_spfh_wrapper_rejects_a_kernel_variant_on_a_cpu_tensor():
+    """`variant` names a CUDA kernel of B5 ('redux', the packed-count kernel
+    every launch takes by default, or 'ballot', the kernel kept to compare):
+    a CPU tensor takes the plain version and raises on any variant, an
+    unknown variant raises, and the plain path counts no launch."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import spfh
+
+    assert spfh.VARIANTS == ("redux", "ballot")
+    assert set(spfh.spfh.launches_by_variant) == set(spfh.VARIANTS)
+    x = torch.rand(1, 256, 3)
+    nrm = torch.nn.functional.normalize(torch.rand(1, 256, 3), dim=-1)
+    nbr = torch.randint(0, 256, (1, 256, 16), dtype=torch.int32)
+    for variant in spfh.VARIANTS:
+        with pytest.raises(ValueError, match="CPU tensor"):
+            spfh.spfh(x, nrm, nbr, 128, 256, variant=variant)
+    with pytest.raises(ValueError, match="no 'warp' SPFH kernel"):
+        spfh.spfh(x, nrm, nbr, 128, 256, variant="warp")
+    before = (spfh.spfh.launches, dict(spfh.spfh.launches_by_variant))
+    out, dist = spfh.spfh(x, nrm, nbr, 128, 256)
+    assert out.shape == (1, 256, 33) and dist.shape == (1, 256, 16)
+    assert (spfh.spfh.launches, spfh.spfh.launches_by_variant) == before
 
 
 def test_engine_rejects_unported_modes():

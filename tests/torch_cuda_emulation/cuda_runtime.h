@@ -1,7 +1,7 @@
 // Host emulation of the CUDA the port's hand-written kernels use, for CPU tests
 // (tests/test_torch_*_emulated.py): a block runs its CUDA threads as fibers
 // (ucontext) on the calling thread, blocks one after another; __syncthreads,
-// __syncwarp, the warp shuffles, the warp min reduction, the ballot and mma.sync.m16n8k16
+// __syncwarp, the warp shuffles, the warp min and add reductions, the ballot and mma.sync.m16n8k16
 // (bf16 operands, fp32 accumulation, the PTX fragment layouts) are
 // collectives over barriers at which a fiber yields until its peers arrive.
 // One OS thread does all the work, so a loaded machine slows it in proportion
@@ -28,6 +28,7 @@ using std::min; using std::max;
 struct float2 { float x, y; }; struct float4 { float x, y, z, w; };
 struct uint2 { uint32_t x, y; }; struct uint4 { uint32_t x, y, z, w; };
 struct dim3m { int x = 0, y = 0, z = 0; };
+struct dim3 { int x, y, z; dim3(int x_ = 1, int y_ = 1, int z_ = 1) : x(x_), y(y_), z(z_) {} };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
@@ -39,6 +40,8 @@ template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
 inline int cudaGetLastError() { return 0; }
+template <class F> inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1; return 0; }
 inline dim3m threadIdx, blockIdx, blockDim, gridDim;
 // the fiber running now and the scheduler it yields to
 struct EmulatedFiber { ucontext_t ctx; int tid = 0; struct WarpCtx* warp = nullptr;
@@ -96,10 +99,17 @@ inline unsigned __ballot_sync(unsigned, int p) {
   unsigned r = 0;
   for (int l = 0; l < 32; ++l) r |= all[l] << l;
   return r; }
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  const uint32_t* all = emulated_post(v);
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r += all[l];
+  return r; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __frcp_rn(float a) { return 1.0f / a; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned i; std::memcpy(&i, &f, 4); return i; }
@@ -168,3 +178,8 @@ template <class F> void emulated_launch(int grid, int block, int shared_bytes, F
   }
 }
 template <class F> void emulated_launch(int grid, int block, F body) { emulated_launch(grid, block, 0, body); }
+// a two-dimensional grid: blockIdx.y outer, blockIdx.x inner
+template <class F> void emulated_launch(dim3 grid, int block, int shared_bytes, F body) {
+  for (int y = 0; y < grid.y; ++y)
+    emulated_launch(grid.x, block, shared_bytes, [&] { blockIdx.y = y; gridDim.y = grid.y; body(); });
+}
