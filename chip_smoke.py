@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh]
+    python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh,robust]
 
 Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
@@ -12,7 +12,7 @@ and backward have, at C=32, a bf16 tensor-core tile kernel for fast mode
 and an fp32 register-blocked tile kernel for accurate mode, and a SIMT
 kernel for other widths that each mode's tile kernel is also timed and
 held against; all are held against their plain versions, and each pair is
-timed in the same run. Then it drives the three main paths, each with the launch counters
+timed in the same run. Then it drives the four main paths, each with the launch counters
 set to 0 just before it and read just after (`--phases` runs a subset:
 `knn` is the k-NN kernel checks alone, `egcl` the EGCL forward's, `bwd`
 the EGCL backward's, for iterating on a kernel; with no argument
@@ -41,13 +41,27 @@ everything runs):
   `register_fpfh_batch` at B=8 and 32, and a profile of one b=1 call; then
   `register_fpfh` at its defaults (knn_method='approx': 2 whole-cloud k-NN
   launches at k=60 on the exact warp kernel, no B4 or B5) at 4 branches
-  against the CPU.
+  against the CPU;
+- the robust evaluation path (`robust`): a `.pth` written by the port's
+  exporter from the seeded weights, loaded by
+  `Registrar.from_checkpoint(robust=True)` on the card and on the CPU
+  (spectral reweighting over the top 256, 5 IRLS steps, 'sharp' fusion);
+  B=64 `make_pair_batch` requests at 70% and at 10% inliers, with
+  `pose_error` and recall against the ground truth; a Registrar with 60
+  ICP steps at each scale of the pyramid (0.1, 0.0) on 4 bumpy-surface
+  pairs at N=2048 (~5 points an occupied 0.1 m cell); one fused
+  `register_fpfh` over the same pyramid at 60 steps a scale. Each card
+  call against the same call on the CPU, timed with CUDA events after a
+  warm-up and profiled, its launches counted by kernel variant (2 warp k-NN
+  and 6 bf16 tile EGCL a Registrar call; 2 warp B4 and 2 'redux' B5 a
+  register_fpfh).
 Any failed check raises (non-zero exit, no result line). The last line is
 one JSON object with the device.
 
 Tolerances (kernel vs its plain version, same inputs, on the card):
 - knn, B1 packed (k=16/W=384 and k=60/W=768), B4 (k=60/W=768), B1 exact
-  (k=16/W=384, and the whole cloud of N=2048 at k=16 and k=60), at B=64
+  (k=16/W=384, and the whole cloud of N=2048 at k=16 and k=60; k=300/W=768
+  on the thread kernel alone, in blocks of 64 queries), at B=64
   and at one cloud, and the CPU emulation's edge cases at small size: the
   warp kernel, the thread kernel and the plain version give identical
   lists (the same keys from the same round-to-nearest d²: unique within a
@@ -68,7 +82,9 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   differs in its last fp32 bit can round to the next bf16 value (2⁻⁸
   relative), and that propagates.
 - register() card vs CPU: ‖ΔR‖_F/√2 ≤ 2e-3, |Δt| ≤ 2e-3 m, covariance and
-  similarity mean within 2e-2 relative (fast mode on both sides).
+  similarity mean within 2e-2 relative (fast mode on both sides). The
+  robust phase holds its three cases at the same gate (the fused
+  register_fpfh at its R and t part).
 - egcl agg_m output: as h′ (1e-4 accurate, 2e-2 fast, of its scale).
 - egcl tile kernel: one bare mma tile against a matrix product of the same
   bf16 values, 1e-5 of its scale (fp32 sums in another order); its per-edge
@@ -167,6 +183,10 @@ SPFH_EDGE_OPS = 147
 # fused/chunked fast mode): N, k_normals, k_fpfh, tile, window
 FPFH_N, FPFH_KN, FPFH_K, FPFH_TILE, FPFH_WINDOW = 2048, 30, 60, 128, 768
 FPFH_BATCHES = (8, 32)      # register_fpfh_batch sizes timed
+KNN_LARGE_K = 300           # exact keys beyond the warp kernel's k <= 128
+# the robust phase's ICP cases: steps a scale, the pyramid's coarse cell (m),
+# and the Registrar's bumpy-surface pairs
+ROBUST_ICP_ITERS, ROBUST_VOXEL, ROBUST_ICP_PAIRS = 60, 0.1, 4
 
 
 def log(*a):
@@ -492,13 +512,14 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
                 "accurate simt", ab, aby, "tile_f32"))
 
 
-PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh")
+PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh", "robust")
 ROW_ORDER = ("knn_window", "egcl_layer", "egcl_layer_f32", "egcl_backward", "egcl_backward_f32",
              "knn_chunked", "spfh")
 # the phases whose paths launch each kernel row's kernel
-DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh"), egcl_layer=("serve", "train"),
-                 egcl_layer_f32=("serve", "train"), egcl_backward=("train",),
-                 egcl_backward_f32=("train",), knn_chunked=("fpfh",), spfh=("fpfh",))
+DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust"),
+                 egcl_layer=("serve", "train", "robust"), egcl_layer_f32=("serve", "train"),
+                 egcl_backward=("train",), egcl_backward_f32=("train",),
+                 knn_chunked=("fpfh", "robust"), spfh=("fpfh", "robust"))
 
 
 def main(argv=None) -> int:
@@ -620,6 +641,8 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
         rows["spfh"] = fpfh_kernel_phase(torch, dev, bsz)
         register_fpfh_phase(torch, dev, rows)
         register_fpfh_default_phase(torch, dev, rows)
+    if "robust" in phases:
+        robust_phase(torch, dev, cfg, bsz, sd, rows)
     for name, row in rows.items():
         if any(ph in phases for ph in DRIVEN_BY[name]):
             check(row["launches"] > 0, f"{name}: no launch on the paths this run drove")
@@ -775,6 +798,32 @@ def knn_phase(torch, x, xs, k, tile, window):
                 + (f", plain {plain_ms:.3f} ms" if plain_ms else "")
                 + f", bound {bb:.4f} ms ({bby}; warp at {100 * bb / ms:.2f}%, thread at "
                 f"{100 * bb / thread:.2f}%)")
+    # exact keys at k > 128 run only on the thread kernel (csrc/knn.cu), in
+    # blocks of fewer queries than the tile once the lists outgrow 128 a block
+    kw = dict(k=KNN_LARGE_K, tile=FPFH_TILE, window=FPFH_WINDOW, packed=False)
+    counts = w1.launches_by_variant
+    qb = knn.thread_queries_per_block(
+        KNN_LARGE_K, FPFH_TILE, False,
+        torch.cuda.get_device_properties(dev).shared_memory_per_block_optin)
+    for b in (bsz, 1):
+        xb = surf[:b].contiguous()
+        what = f"B1 exact B={b} k={KNN_LARGE_K} W={FPFH_WINDOW}"
+        before = dict(counts)
+        got = w1(xb, **kw)
+        torch.cuda.synchronize()
+        check({v: counts[v] - before[v] for v in counts} == {"warp": 0, "thread": 1},
+              f"{what}: launches by kernel {counts} (before {before})")
+        check(torch.equal(got, knn.knn_window_plain(xb, **kw)),
+              f"{what}: the thread kernel's lists differ from the plain version")
+        ms = cuda_ms(torch, lambda: w1(xb, **kw), 10)
+        plain_ms = cuda_ms(torch, lambda: knn.knn_window_plain(xb, **kw), 3) if b == bsz else None
+        bb, bby = bound_ms(xb.numel() * 4 + n * b * KNN_LARGE_K * 4, n * b * FPFH_WINDOW * 8,
+                           PEAK_FP32)
+        stats["B1 exact large k", b] = dict(ms=ms, thread_ms=ms, plain_ms=plain_ms, bound_ms=bb,
+                                            bound_by=bby)
+        log(f"knn {what}: the thread kernel ({qb} queries a block) identical to the plain "
+            f"version; {ms:.4f} ms" + (f", plain {plain_ms:.3f} ms" if plain_ms else "")
+            + f", bound {bb:.4f} ms ({bby}; at {100 * bb / ms:.2f}%)")
     for i, (kind, b, n_, k_, t_, w_, inc, cloud) in enumerate(KNN_EDGE_CASES):
         x_ = edge_cloud(torch, dev, i, b, n_, cloud, sort=w_ is not None)
         kw = dict(k=k_, tile=t_, window=w_, include_self=inc)
@@ -809,7 +858,8 @@ def knn_phase(torch, x, xs, k, tile, window):
     shapes = {"packed k=60 W=768": shape("B1 packed on surfaces"),
               f"exact k={k} W={window}": shape("B1 exact"),
               f"exact whole cloud k={k} N={n}": shape("B1 whole cloud"),
-              f"exact whole cloud k={FPFH_K} N={n}": shape("B1 whole cloud on surfaces")}
+              f"exact whole cloud k={FPFH_K} N={n}": shape("B1 whole cloud on surfaces"),
+              f"exact k={KNN_LARGE_K} W={FPFH_WINDOW} (thread kernel)": shape("B1 exact large k")}
     return (row("knn_window", src + "knn_warp.cu", src + "knn.cu",
                 "se3_equi_graph_registration_tpu/ops/pallas/knn_kernel.py:26", "B1 packed",
                 dict(exact_source=src + "knn_exact_warp.cu", shapes=shapes)),
@@ -1017,6 +1067,28 @@ def egcl_phase(torch, p, h, xs, nbr, gen):
                 aby, "tile_f32"))
 
 
+def serve_gap(a, b, what, sim=True):
+    """Two register() answers (card, CPU) held at the serve gate: finite, det R
+    = 1, ‖ΔR‖_F/√2 and |Δt| ≤ 2e-3, covariance and similarity mean within 2e-2
+    relative; returns the (ΔR, Δt, Δcov, Δsim) gaps. sim=False: a
+    BatchingServer answer carries its coalesced batch's similarity mean, not
+    its own."""
+    Ra, ta, ia = a
+    Rb, tb, ib = b
+    dR = np.linalg.norm(np.asarray(Ra) - Rb, axis=(-2, -1)).max() / np.sqrt(2)
+    dt = np.abs(np.asarray(ta) - tb).max()
+    ca, cb = np.asarray(ia["pose_covariance"]), np.asarray(ib["pose_covariance"])
+    dc = np.abs(ca - cb).max() / np.abs(cb).max()
+    ds = (abs(ia["similarity_mean"] - ib["similarity_mean"])
+          / abs(ib["similarity_mean"]) if sim else 0.0)
+    check(np.all(np.isfinite(Ra)) and np.all(np.isfinite(ta)) and np.all(np.isfinite(ca)),
+          f"{what}: non-finite output")
+    check(np.abs(np.linalg.det(Ra) - 1).max() < 1e-3, f"{what}: det R != 1")
+    check(dR <= 2e-3 and dt <= 2e-3 and dc <= 2e-2 and ds <= 2e-2,
+          f"{what}: card vs CPU dR {dR} dt {dt} dcov {dc} dsim {ds}")
+    return dR, dt, dc, ds
+
+
 def serve_phase(torch, dev, cfg, bsz, sd, rows):
     """The served path: Registrar.register and BatchingServer at `cfg`
     against the same Registrar on the CPU, with the launch counters; the
@@ -1031,24 +1103,7 @@ def serve_phase(torch, dev, cfg, bsz, sd, rows):
     reqs = make_pair_batch(np.random.default_rng(1), batch=bsz, n=n, feat_dim=cfg.in_node_nf)
     args = lambda sl: (reqs.src_pts[sl], reqs.src_feat[sl], reqs.tgt_pts[sl], reqs.tgt_feat[sl])
 
-    def same(a, b, what, sim=True):
-        """sim=False: a BatchingServer answer carries its coalesced batch's
-        similarity mean, not its own."""
-        Ra, ta, ia = a
-        Rb, tb, ib = b
-        dR = np.linalg.norm(np.asarray(Ra) - Rb, axis=(-2, -1)).max() / np.sqrt(2)
-        dt = np.abs(np.asarray(ta) - tb).max()
-        ca, cb = np.asarray(ia["pose_covariance"]), np.asarray(ib["pose_covariance"])
-        dc = np.abs(ca - cb).max() / np.abs(cb).max()
-        ds = (abs(ia["similarity_mean"] - ib["similarity_mean"])
-              / abs(ib["similarity_mean"]) if sim else 0.0)
-        check(np.all(np.isfinite(Ra)) and np.all(np.isfinite(ta)) and np.all(np.isfinite(ca)),
-              f"{what}: non-finite output")
-        check(np.abs(np.linalg.det(Ra) - 1).max() < 1e-3, f"{what}: det R != 1")
-        check(dR <= 2e-3 and dt <= 2e-3 and dc <= 2e-2 and ds <= 2e-2,
-              f"{what}: card vs CPU dR {dR} dt {dt} dcov {dc} dsim {ds}")
-        return dR, dt
-
+    same = serve_gap
     reset_knn_counters(knn)
     reset_egcl_counters(egcl)
     per_call = []
@@ -1101,7 +1156,7 @@ def serve_phase(torch, dev, cfg, bsz, sd, rows):
 
     for name, sl, res in results:
         t1 = time.perf_counter()
-        dR, dt = same(res, cpu_reg.register(*args(sl)), f"register {name}")
+        dR, dt, _, _ = same(res, cpu_reg.register(*args(sl)), f"register {name}")
         log(f"register {name}: card vs CPU max‖ΔR‖/√2 {dR:.3g}, max|Δt| {dt:.3g} m "
             f"(CPU run {time.perf_counter() - t1:.1f} s)")
     for i, res in enumerate(served):
@@ -1391,8 +1446,8 @@ def spfh_inputs(torch, dev, bsz, k, kind="surface"):
         xs = xs.contiguous()
     if k == FPFH_K and kind == "surface":
         nbr = knn.knn_chunked(xs, k, FPFH_TILE, FPFH_WINDOW)
-    else:   # the plain exact window k-NN: csrc/knn.cu takes no K beyond ~200 at T=128
-        nbr = knn.knn_window_plain(xs, k, FPFH_TILE, FPFH_WINDOW, packed=False)
+    else:   # exact window keys: the warp kernel to k = 128, the thread kernel beyond
+        nbr = knn.knn_window(xs, k, FPFH_TILE, FPFH_WINDOW, packed=False)
     normals = fpfh.estimate_normals_window(xs, nbr[..., :min(k, FPFH_KN)]).contiguous()
     return xs, normals, nbr
 
@@ -1722,6 +1777,194 @@ def register_fpfh_default_phase(torch, dev, rows):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def event_ms(torch, fn, reps):
+    """Device-clock ms a call of fn, over `reps` calls after a warm-up call,
+    between two CUDA events; for calls that end in a device-to-host copy
+    (they wait for their own work), so no device sleep ahead of them."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def counted_launches(knn, egcl, spfh):
+    """{wrapper name: {variant: launches}} of the k-NN, EGCL and SPFH
+    wrappers since their counters were last set to 0."""
+    return dict(knn_window=dict(knn.knn_window.launches_by_variant),
+                knn_chunked=dict(knn.knn_chunked.launches_by_variant),
+                egcl_layer=dict(egcl.egcl_layer.launches_by_variant),
+                spfh=dict(spfh.spfh.launches_by_variant))
+
+
+def reset_all_counters(knn, egcl, spfh):
+    reset_knn_counters(knn)
+    reset_egcl_counters(egcl)
+    spfh.spfh.launches = 0
+    spfh.spfh.launches_by_variant = dict.fromkeys(spfh.VARIANTS, 0)
+
+
+def surface_requests(count, seed, n, c, inlier_ratio=0.7):
+    """`count` Registrar requests on the bumpy surface at n points: the
+    source sampled at n points, the target its posed copy with 2 mm noise,
+    a share `1 - inlier_ratio` of the targets moved to other surface points
+    (outliers), and descriptors made as make_pair_batch makes them. Returns
+    (src, src_feat, tgt, tgt_feat, R, t) stacked over the pairs."""
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import random_rotation
+
+    surf, rng = bumpy_surface(), np.random.default_rng(seed)
+    cols = [[] for _ in range(6)]
+    for _ in range(count):
+        src = surf(rng, n)
+        R = random_rotation(rng).astype(np.float32)
+        t = (rng.standard_normal(3) * 0.3).astype(np.float32)
+        inl = rng.uniform(size=n) < inlier_ratio
+        tgt = np.where(inl[:, None], src, surf(rng, n)) @ R.T + t
+        tgt = tgt + rng.standard_normal(tgt.shape) * 0.002
+        f = rng.standard_normal((n, c)).astype(np.float32)
+        f /= np.linalg.norm(f, axis=1, keepdims=True) + 1e-6
+        ft = np.where(inl[:, None], f + rng.standard_normal((n, c)) * 0.1,
+                      rng.standard_normal((n, c)))
+        ft /= np.linalg.norm(ft, axis=1, keepdims=True) + 1e-6
+        for col, a in zip(cols, (src, f, tgt, ft, R, t)):
+            col.append(np.asarray(a, np.float32))
+    return tuple(np.stack(col) for col in cols)
+
+
+def robust_phase(torch, dev, cfg, bsz, sd, rows):
+    """The robust evaluation path at full width: a `.pth` written by the
+    port's exporter from the seeded weights, loaded by
+    `Registrar.from_checkpoint(robust=True)` on the card and on the CPU
+    (spectral reweighting over the top 256, 5 IRLS steps, 'sharp' fusion),
+    B=`bsz` make_pair_batch requests served by both and held at the serve
+    gate; pose_error against the ground truth and recall at 70% and 10%
+    inliers; then a Registrar with 60 ICP steps a scale over the pyramid
+    (ROBUST_VOXEL, 0.0) on bumpy-surface requests, and one fused
+    register_fpfh over the same pyramid at 60 steps, each card against CPU
+    at the serve gate. Each is timed with CUDA events after a warm-up and
+    profiled over one call, and its launches are counted by kernel variant
+    with the counters set to 0 just before it."""
+    import dataclasses
+    import os
+
+    from se3_equi_graph_registration_tpu_torch import registration, serving
+    from se3_equi_graph_registration_tpu_torch.core.se3 import integrate_trans, pose_error
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import build, egcl, knn, spfh
+    from se3_equi_graph_registration_tpu_torch.train import checkpoints, engine, metrics
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    path = os.path.join(build.BUILD_DIR, "robust_smoke.pth")
+    checkpoints.export_reference_checkpoint(sd, path, n_layers=cfg.n_layers,
+                                            num_heads=cfg.num_heads, hidden=cfg.hidden_nf)
+    width = dict(k=cfg.k, in_node_nf=cfg.in_node_nf, hidden_nf=cfg.hidden_nf,
+                 n_layers=cfg.n_layers, num_heads=cfg.num_heads, top_k=cfg.top_k)
+    reg = serving.Registrar.from_checkpoint(path, num_nodes=cfg.num_nodes, robust=True, **width)
+    cpu_reg = serving.Registrar.from_checkpoint(path, num_nodes=cfg.num_nodes, robust=True,
+                                                device="cpu", **width)
+    check(reg.device == dev and reg.cfg == engine.robust_eval_config(
+        num_nodes=cfg.num_nodes, **width), "from_checkpoint: not the robust config on the card")
+    log(f"robust: {path} ({os.path.getsize(path)} bytes) written by the port's exporter, "
+        f"loaded by from_checkpoint(robust=True) on {reg.device} and the CPU")
+    cases = {}
+
+    def drive(name, call, cpu_call, reps, want, gate=serve_gap):
+        """One path: counters at 0, the card call (checked against `want`,
+        {wrapper: {variant: launches}}), its timing with CUDA events and a
+        profile of one call, then the CPU call and the gate."""
+        reset_all_counters(knn, egcl, spfh)
+        got = call()
+        torch.cuda.synchronize()
+        launches = counted_launches(knn, egcl, spfh)
+        nonzero = {w: {v: n for v, n in c.items() if n} for w, c in launches.items()}
+        check({w: c for w, c in nonzero.items() if c} == want,
+              f"robust {name}: launches by kernel {nonzero}, want {want}")
+        ms = event_ms(torch, call, reps)
+        profile_call(torch, call, f"robust {name}")
+        t0 = time.perf_counter()
+        ref = cpu_call()
+        cpu_s = time.perf_counter() - t0
+        gaps = gate(got, ref, f"robust {name}")
+        cases[name] = dict(ms=ms, launches=want, gaps=gaps)
+        log(f"robust {name}: card vs CPU ‖ΔR‖/√2 {gaps[0]:.3g}, |Δt| {gaps[1]:.3g} m"
+            + (f", Δcov {gaps[2]:.3g}, Δsim {gaps[3]:.3g} (relative)" if len(gaps) > 2 else "")
+            + f"; {ms:.2f} ms a call (CUDA events, {reps} calls after a warm-up); launches "
+            f"{want}; CPU run {cpu_s:.1f} s")
+        record_launches(rows, f"robust {name}",
+                        dict(knn_window=sum(launches["knn_window"].values()),
+                             knn_chunked=sum(launches["knn_chunked"].values()),
+                             spfh=sum(launches["spfh"].values()),
+                             **by_row("egcl_layer", launches["egcl_layer"])),
+                        {w: launches[w] for w in ("knn_window", "knn_chunked", "spfh")})
+        return got
+
+    n_layers2 = 2 * cfg.n_layers
+    served = {"knn_window": {"warp": 2}, "egcl_layer": {"tile": n_layers2}}
+    tile = egcl.egcl_variant(cfg.hidden_nf, cfg.k, cfg.hidden_nf // cfg.num_heads,
+                             cfg.egnn_accurate)
+    check(tile == "tile", f"robust: fast mode at C={cfg.hidden_nf} runs {tile}, not the tile kernel")
+    for ratio in (0.7, 0.1):
+        pb = make_pair_batch(np.random.default_rng(21), batch=bsz, n=cfg.num_nodes,
+                             feat_dim=cfg.in_node_nf, inlier_ratio=ratio)
+        args = (pb.src_pts, pb.src_feat, pb.tgt_pts, pb.tgt_feat)
+        R, t, _ = drive(f"serve B={bsz} {int(ratio * 100)}% inliers",
+                        lambda: reg.register(*args), lambda: cpu_reg.register(*args), 5, served)
+        pred = integrate_trans(torch.from_numpy(R), torch.from_numpy(t))
+        gt = torch.from_numpy(pb.gt_pose)
+        rre, rte = pose_error(gt, pred)
+        recall, _ = metrics.registration_recall(pred, torch.from_numpy(pb.src_pts),
+                                                torch.from_numpy(pb.tgt_pts))
+        check(torch.isfinite(rre).all() and torch.isfinite(rte).all(), "pose_error not finite")
+        log(f"robust serve {int(ratio * 100)}% inliers, B={bsz} (seeded random weights, not "
+            f"trained): pose_error RRE median {float(rre.median()):.3f} deg (max "
+            f"{float(rre.max()):.3f}), RTE median {float(rte.median()):.3f} cm (max "
+            f"{float(rte.max()):.3f}); RRE < 15 deg and RTE < 30 cm: "
+            f"{int(((rre < 15) & (rte < 30)).sum())}/{bsz}; registration recall (tau 0.09) "
+            f"{float(recall.mean()):.3f}")
+
+    # ICP over the voxel pyramid at 60 steps a scale, on the bumpy surface at
+    # ~5 points an occupied ROBUST_VOXEL cell (N points on a 2 m x 2 m patch)
+    icp_reg = serving.Registrar(sd, dataclasses.replace(
+        reg.cfg, icp_iters=ROBUST_ICP_ITERS, icp_voxels=(ROBUST_VOXEL, 0.0)), device=dev)
+    icp_cpu = serving.Registrar(sd, icp_reg.cfg, device="cpu")
+    src, sf, tgt, tf, Rg, tg = surface_requests(ROBUST_ICP_PAIRS, 31, cfg.num_nodes,
+                                                cfg.in_node_nf)
+    args = (src, sf, tgt, tf)
+    R, t, _ = drive(f"Registrar ICP {ROBUST_ICP_ITERS} steps over ({ROBUST_VOXEL}, 0.0), "
+                    f"B={ROBUST_ICP_PAIRS} surface pairs", lambda: icp_reg.register(*args),
+                    lambda: icp_cpu.register(*args), 3, served)
+    errs = [pose_err(R[i], t[i], Rg[i], tg[i]) for i in range(ROBUST_ICP_PAIRS)]
+    log(f"robust Registrar ICP pyramid against the truth: worst {max(e[0] for e in errs):.4f} "
+        f"deg, {1e3 * max(e[1] for e in errs):.3f} mm")
+
+    (fsrc, ftgt, fR, ft), = surface_pairs(1, 6)
+    kw = dict(knn_method="fused", knn_packed="chunked", window=FPFH_WINDOW,
+              icp_iters=ROBUST_ICP_ITERS, icp_voxels=(ROBUST_VOXEL, 0.0))
+
+    def fpfh_gap(a, b, what):
+        dR = float(np.linalg.norm(a[0] - b[0]) / np.sqrt(2))
+        dt = float(np.abs(a[1] - b[1]).max())
+        check(all(np.isfinite(x).all() for x in (a[0], a[1], a[2]["pose_covariance"])),
+              f"{what}: non-finite output")
+        check(dR <= 2e-3 and dt <= 2e-3, f"{what}: card vs CPU dR {dR} dt {dt}")
+        return dR, dt
+
+    Rf, tf_, _ = drive(f"register_fpfh fused ICP {ROBUST_ICP_ITERS} steps over "
+                       f"({ROBUST_VOXEL}, 0.0)",
+                       lambda: registration.register_fpfh(fsrc, ftgt, **kw),
+                       lambda: registration.register_fpfh(fsrc, ftgt, device="cpu", **kw), 3,
+                       {"knn_chunked": {"warp": 2}, "spfh": {"redux": 2}}, gate=fpfh_gap)
+    ef = pose_err(Rf, tf_, fR, ft)
+    check(ef[0] < 0.5 and ef[1] < 5e-3, f"robust register_fpfh pyramid missed the truth: {ef}")
+    log(f"robust register_fpfh pyramid against the truth: {ef[0]:.4f} deg, "
+        f"{1e3 * ef[1]:.3f} mm")
+    return cases
+
+
 def other_configs(torch, dev, cfg, sd, args, same, rows):
     """Every other configuration the engine accepts launches both kernels
     on the card and matches the CPU: the whole-cloud graph ('exact' and
@@ -1761,7 +2004,7 @@ def other_configs(torch, dev, cfg, sd, args, same, rows):
         record_launches(rows, f"config {name}", dict(knn_window=kd,
                                                      **by_row("egcl_layer", by_variant)),
                         dict(knn_window=knn_by_variant))
-        dR, dt = same(res, serving.Registrar(sd, vcfg, device="cpu").register(
+        dR, dt, _, _ = same(res, serving.Registrar(sd, vcfg, device="cpu").register(
             *args(slice(0, 2))), f"config {name}")
         log(f"config {name}: launches knn {kd} ({knn_by_variant}) egcl {ed} ({by_variant}); "
             f"card vs CPU max‖ΔR‖/√2 {dR:.3g}, max|Δt| {dt:.3g} m")

@@ -13,8 +13,8 @@ Singular systems: `torch.linalg.solve`/`inv` raise and check with a device
 sync; this uses `solve_ex`/`inv_ex`, which return non-finite values as JAX
 does, and the guard zeroes them.
 
-`icp_refine_multiscale` (the voxel pyramid) needs `ops/voxel.py`, which is
-not ported yet (ROADMAP Queue A item 5).
+`icp_refine_multiscale` runs `icp_refine` over a voxel pyramid
+(`ops/voxel.py`), coarse to fine.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from .fpfh import estimate_normals as _estimate_normals
 from .kabsch import _IRLS_KERNELS, kabsch_weighted, mad_scale
 from .knn import gather_rows, pairwise_sq_dists
 from .numerics import quantile
+from .voxel import voxel_downsample
 
 
 def nearest_neighbor(query: torch.Tensor, points: torch.Tensor
@@ -161,4 +162,55 @@ def icp_refine(src: torch.Tensor, tgt: torch.Tensor, R: torch.Tensor, t: torch.T
             A = torch.einsum("...n,...ni,...nj->...ij", w, a, a)
             rhs = -torch.einsum("...ni,...n->...i", a, w * r)
             R, t = gn_update(A, rhs, R, t)
+    return R, t, w
+
+
+RAW_FIELDS = ("tgt_normals", "src_normals", "src_cov", "tgt_cov")
+
+
+def icp_refine_multiscale(src: torch.Tensor, tgt: torch.Tensor, R: torch.Tensor,
+                          t: torch.Tensor, voxel_sizes=(0.10, 0.05, 0.0), iters=10,
+                          prior_weights: Optional[torch.Tensor] = None, **kw
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Coarse-to-fine ICP: `icp_refine` once per entry of `voxel_sizes`
+    (coarsest first). An entry v > 0 registers the `voxel_downsample`
+    centroids of both clouds at cell edge v, with the validity mask as the
+    prior weights; an entry (v, num_out) keeps num_out centroids; 0.0 runs on
+    the raw clouds. `iters` is one count for every scale or one per scale
+    (a scale at 0 steps is skipped). `prior_weights` and the per-point
+    fields `tgt_normals`, `src_normals`, `src_cov` and `tgt_cov` are sized
+    for the raw clouds, so they apply at the 0.0 scales only; the coarser
+    ones compute normals and covariances on their centroids (`normals_k`
+    forwards to every scale, as do the other kwargs). Returns (R, t, the
+    last scale's weights); these index the raw source rows when the pyramid
+    ends at 0.0.
+
+    Pick coarse cells well below the cloud's structure scale: at many points
+    a cell the centroids collapse onto the voxel grid, whose cubic symmetry
+    can snap a coarse scale to a ~90° alias (as on a dense uniform volume at
+    ~8 points a cell). Surfaces at a few points an occupied cell are the
+    intended case."""
+    voxel_sizes = tuple(voxel_sizes)
+    if not voxel_sizes:
+        raise ValueError("voxel_sizes must name at least one scale")
+    if isinstance(iters, int):
+        iters = (iters,) * len(voxel_sizes)
+    if len(iters) != len(voxel_sizes):
+        raise ValueError(f"iters has {len(iters)} entries for {len(voxel_sizes)} scales")
+    w = torch.ones(src.shape[:-1], device=src.device) if prior_weights is None \
+        else prior_weights.float()
+    raw_only = {f: kw.pop(f) for f in RAW_FIELDS if f in kw}
+    for v, it in zip(voxel_sizes, iters):
+        v, num_out = v if isinstance(v, (tuple, list)) else (v, None)
+        if it <= 0:
+            continue
+        if v > 0:
+            s, smask, _ = voxel_downsample(src, v, num_out=num_out)
+            g, _, _ = voxel_downsample(tgt, v, num_out=num_out)
+            R, t, w = icp_refine(s, g, R, t, iters=it, prior_weights=smask.float(), **kw)
+        else:
+            if num_out is not None:
+                raise ValueError("num_out requires a voxel size > 0")
+            R, t, w = icp_refine(src, tgt, R, t, iters=it, prior_weights=prior_weights,
+                                 **raw_only, **kw)
     return R, t, w

@@ -38,7 +38,11 @@ wrapper's `launches_by_variant`:
   `csrc/knn.cu` (B1, both modes) and `csrc/knn_chunked.cu` (B4). Kept for
   comparison: `variant='thread'` launches them where the warp kernel would
   run, for `chip_smoke.py` to compare and time the two. Exact keys at
-  k > 128 run only there, by shape.
+  k > 128 run only there, by shape: a block takes 128, 64 or 32 queries of a
+  tile (`thread_queries_per_block`), the most whose lists fit the card's
+  opt-in shared memory, which the wrapper reads from the device's
+  properties; beyond what 32 queries can hold (k ≈ 840 on an H100) it
+  raises before any launch.
 """
 from __future__ import annotations
 
@@ -107,6 +111,30 @@ def knn_variant(packed: bool | str, window: Optional[int], k: int = 1) -> str:
     if not packed and k <= EXACT_WARP_MAX_K:
         return "warp"
     return "thread"
+
+
+THREAD_STAGED_BYTES = 4 * 1024 * 4   # csrc/knn.cu: x, y, z and ‖c‖² of 1024 candidates
+
+
+def thread_queries_per_block(k: int, tile: int, packed: bool, smem_limit: int) -> int:
+    """Queries a block of `csrc/knn.cu` takes: the largest of 128, 64 and
+    32 that divides the tile and whose lists (k keys, and in exact mode k
+    distances, a query) fit `smem_limit` bytes of shared memory beside the
+    staged candidates; a tile that none divides takes its largest divisor
+    up to 128. Raises ValueError, naming the limit in bytes and in k, when
+    even the smallest does not fit."""
+    per_entry = 4 if packed else 8
+    cands = [q for q in (128, 64, 32) if tile % q == 0] or [
+        max(d for d in range(1, min(tile, 128) + 1) if tile % d == 0)]
+    for qb in cands:
+        if THREAD_STAGED_BYTES + k * qb * per_entry <= smem_limit:
+            return qb
+    qb = cands[-1]
+    max_k = (smem_limit - THREAD_STAGED_BYTES) // (qb * per_entry)
+    raise ValueError(
+        f"k={k} {'packed' if packed else 'exact'} k-NN lists need "
+        f"{THREAD_STAGED_BYTES + k * qb * per_entry} bytes of shared memory at {qb} queries "
+        f"a block; the card allows {smem_limit} bytes, so k <= {max_k}")
 
 
 def exact_warp_geometry(n: int, k: int, tile: int, window: Optional[int]
@@ -187,7 +215,9 @@ def knn_window(x: torch.Tensor, k: int, tile: int = 128,
                 *exact_warp_geometry(n, k, tile, window), int(include_self),
                 _queries_per_warp(b, n))
     else:
-        _launch("knn", "knn_launch", x, out, b, n, k, tile, w, pad_tiles, max_tile,
+        optin = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
+        qb = thread_queries_per_block(k, tile, packed, optin)
+        _launch("knn", "knn_launch", x, out, b, n, k, tile, qb, w, pad_tiles, max_tile,
                 int(packed), int(include_self))
     knn_window.launches += 1
     knn_window.launches_by_variant[variant] += 1

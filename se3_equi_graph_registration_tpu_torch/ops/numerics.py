@@ -1,11 +1,31 @@
 """Gradient-safe numeric primitives (counterpart of `ops/numerics.py`).
 
 Self-loop edges make ‖Δx‖ = 0 a guaranteed input; these keep values and
-gradients finite there, with the reference's epsilons.
+gradients finite there, with the reference's epsilons. `fp32_matmuls`
+keeps TF32 away from the float32 products of the robust stages.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+
+@contextlib.contextmanager
+def fp32_matmuls():
+    """Float32 matrix products in full float32 inside the block, whatever
+    the caller set (`torch.backends.cuda.matmul.allow_tf32` /
+    `torch.set_float32_matmul_precision`): the spectral affinity, ICP's
+    pairwise distances and the covariance are float32 in the reference, and
+    TF32 keeps ~3 decimal digits. The previous setting comes back on exit.
+    The setting is process-wide: a thread that runs matmuls meanwhile sees
+    it too."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def safe_sqrt(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:

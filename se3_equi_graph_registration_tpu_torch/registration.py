@@ -21,11 +21,16 @@ approximate k-selection; 'approx' selects the exact sets). Every later stage
 is point-order invariant, so the pipeline runs in sorted order and only the
 per-point weights are unsorted at the end.
 
+`icp_voxels` runs ICP coarse to fine over a voxel pyramid
+(`ops/icp.icp_refine_multiscale`); it must end at 0.0, the raw clouds, whose
+final weights the covariance pairs with the raw source points. The
+pipeline's matrix products run in full float32 whatever the caller set for
+TF32 (`ops/numerics.fp32_matmuls`).
+
 Entry points run on the card unless device='cpu'. `register_fpfh_batch`
 sends its B pairs through each kernel as one launch per cloud side.
-Not ported yet: multiscale ICP (`icp_voxels`, ROADMAP Queue A item 5), the
-`mesh` of register_fpfh_batch (Queue A item 9), export_compiled and
-load_exported (Queue A item 7).
+Not ported yet: the `mesh` of register_fpfh_batch (ROADMAP Queue A item 9),
+export_compiled and load_exported (Queue A item 7).
 """
 from __future__ import annotations
 
@@ -39,11 +44,13 @@ from .device import resolve_device
 from .ops import fpfh as fpfh_lib
 from .ops import morton
 from .ops.fgr import fgr_pose
-from .ops.icp import icp_refine, nearest_neighbor, point_covariances
+from .ops.icp import (icp_refine, icp_refine_multiscale, nearest_neighbor,
+                      point_covariances)
 from .ops.kabsch import kabsch_irls, kabsch_weighted, pose_covariance
 from .ops.kernels import knn as knn_kernels
 from .ops.kernels import spfh as spfh_kernel
 from .ops.knn import cross_dots, gather_rows, pairwise_sq_dists, sq_norms
+from .ops.numerics import fp32_matmuls
 from .ops.ransac import gumbel_noise, ransac_pose, ransac_pose_branches
 from .ops.spectral import spectral_match_weights
 
@@ -120,10 +127,10 @@ def _check_knobs(n: int, kw: dict) -> None:
     if kw["coarse"] not in ("ransac", "spectral", "fgr"):
         raise ValueError(f"unknown coarse stage {kw['coarse']!r}; "
                          "expected 'spectral', 'ransac', or 'fgr'")
-    if kw["icp_voxels"]:
-        raise NotImplementedError(
-            "icp_voxels (multiscale ICP) needs ops/voxel.py, not ported yet "
-            "(ROADMAP Queue A item 5)")
+    if kw["icp_iters"] > 0 and kw["icp_voxels"] and kw["icp_voxels"][-1]:
+        raise ValueError("icp_voxels must end at 0.0 (raw clouds): the final weights pair "
+                         "with the raw source points for the covariance; got "
+                         f"{kw['icp_voxels']}")
     win = min(kw["window"], n)
     if kw["knn_method"] in ("window", "fused") and (n % _TILE or win % _TILE):
         raise ValueError(f"knn_method={kw['knn_method']!r} needs n_points ({n}) and window "
@@ -132,6 +139,7 @@ def _check_knobs(n: int, kw: dict) -> None:
 
 
 @torch.no_grad()
+@fp32_matmuls()
 def _register_core(src: torch.Tensor, tgt: torch.Tensor, noise: Optional[torch.Tensor],
                    k_normals: int, k_fpfh: int, top_m: int, sigma: float,
                    spectral_iters: int, refine_iters: int, icp_iters: int, icp_mode: str,
@@ -191,7 +199,11 @@ def _register_core(src: torch.Tensor, tgt: torch.Tensor, noise: Optional[torch.T
         if icp_mode == "gicp":
             icp_kw["src_cov"] = per_branch(point_covariances(src, normals=n_src))
             icp_kw["tgt_cov"] = per_branch(point_covariances(tgt, normals=n_tgt))
-        R, t, w = icp_refine(per_branch(src), per_branch(tgt), R, t, **icp_kw)
+        if icp_voxels:
+            R, t, w = icp_refine_multiscale(per_branch(src), per_branch(tgt), R, t,
+                                            voxel_sizes=icp_voxels, **icp_kw)
+        else:
+            R, t, w = icp_refine(per_branch(src), per_branch(tgt), R, t, **icp_kw)
     if br > 1:
         vtrim = icp_trim if isinstance(icp_trim, float) and icp_trim > 0 else 0.35
         ms = _branch_verify_ms(R, t, src, tgt, max(int(vtrim * n), 1))      # [B, Br]

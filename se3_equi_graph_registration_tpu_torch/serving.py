@@ -1,19 +1,25 @@
 """Serving API (counterpart of `serving.py`): a warm registration callable
 and a micro-batching front end.
 
-    reg = Registrar(state_dict, engine.fast_tpu_config())
+    reg = Registrar.from_checkpoint("checkpoint-3dmatch.pth", robust=True)
     R, t, info = reg.register(src_pts, src_feat, tgt_pts, tgt_feat)
 
 - numpy in, numpy out; single pairs [N, ·] or batches [B, N, ·];
 - inputs are sampled down or padded to `cfg.num_nodes` (`fit_to_count`);
+- the robust stages after the head, each where its count is > 0: spectral
+  reweighting, IRLS, ICP (single-scale, or over `cfg.icp_voxels`);
 - `info` carries the per-request similarity mean and a 6x6 Gauss-Newton pose
-  covariance (ops/kabsch.py);
+  covariance (ops/kabsch.py), after ICP against each posed source point's
+  nearest target point;
+- `from_checkpoint` loads a reference `.pth` or a `TrainCheckpointer`
+  directory;
 - `BatchingServer` coalesces concurrent register() calls into one dispatch.
 
 Runs on the CUDA card unless `device="cpu"` is passed.
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
@@ -26,14 +32,29 @@ import torch
 from .data.sampling import fit_to_count
 from .ops.kabsch import pose_covariance
 from .ops.kernels.egcl import kernel_params
+from .ops.numerics import fp32_matmuls
 from .train import engine
+from .train.checkpoints import TrainCheckpointer, convert_reference_checkpoint
 
 
 class Registrar:
     def __init__(self, params: Mapping[str, torch.Tensor], cfg: engine.EngineConfig,
                  head_mode: str = "eval_fusion",
-                 device: Union[str, torch.device, None] = None):
-        """`params`: the model's state_dict (e.g. `params_from_jax(...)`)."""
+                 device: Union[str, torch.device, None] = None,
+                 refine_iters: Optional[int] = None, refine_kernel: Optional[str] = None,
+                 spectral_topm: Optional[int] = None, icp_iters: Optional[int] = None):
+        """`params`: the model's state_dict (e.g. `params_from_jax(...)` or
+        `convert_reference_checkpoint(...)`). The four robust knobs default
+        to the config's fields; a value given here overrides the config's
+        (`self.stages` is the config with the overrides applied)."""
+        given = dict(refine_iters=refine_iters, refine_kernel=refine_kernel,
+                     spectral_topm=spectral_topm, icp_iters=icp_iters)
+        self.stages = dataclasses.replace(
+            cfg, **{k: v for k, v in given.items() if v is not None})
+        if self.stages.icp_iters > 0 and cfg.icp_voxels and cfg.icp_voxels[-1]:
+            raise ValueError(
+                "cfg.icp_voxels must end at 0.0 (raw clouds): the final ICP weights pair "
+                f"with the raw source points for the pose covariance; got {cfg.icp_voxels}")
         self.cfg = cfg
         self.model = engine.build_model(cfg, head_mode=head_mode, device=device)
         self.model.load_state_dict(params)
@@ -41,16 +62,46 @@ class Registrar:
         with torch.no_grad():                        # the weights never change
             self._kp = kernel_params(self.model.egnn)
 
+    @classmethod
+    def from_checkpoint(cls, path: str, fast: bool = True, num_nodes: int = 2048,
+                        head_mode: str = "eval_fusion", robust: bool = False,
+                        device: Union[str, torch.device, None] = None,
+                        **cfg_overrides) -> "Registrar":
+        """A Registrar on `device` (the CUDA card unless told otherwise) with
+        the weights at `path`: a reference `.pth` (`convert_reference_checkpoint`)
+        or a `TrainCheckpointer` directory (its latest step). The config is
+        `robust_eval_config` when `robust`, else `fast_tpu_config` or, with
+        fast=False, `EngineConfig`, at `num_nodes` and `cfg_overrides`.
+        Loading is strict: a missing or unexpected weight raises."""
+        if robust:
+            base = engine.robust_eval_config
+        else:
+            base = engine.fast_tpu_config if fast else engine.EngineConfig
+        cfg = base(num_nodes=num_nodes, **cfg_overrides)
+        if path.endswith(".pth"):
+            params = convert_reference_checkpoint(path, n_layers=cfg.n_layers,
+                                                  num_heads=cfg.num_heads, hidden=cfg.hidden_nf)
+        else:
+            template = engine.init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+            restored = TrainCheckpointer(path).restore_latest(template)
+            if restored is None:
+                raise FileNotFoundError(f"no checkpoint under {path}")
+            params = restored[0].model.state_dict()
+        return cls(params, cfg, head_mode, device=device)
+
     @torch.no_grad()
     def _apply(self, batch: dict) -> torch.Tensor:
         """[B, 49] = R (9) | t (3) | similarity mean (1) | covariance (36):
-        one device-to-host copy per request."""
+        the head, the robust stages and the covariance, then one
+        device-to-host copy per request."""
         out = engine._apply_with_graphs(self.model, self.cfg, batch, self._kp)
-        cov = pose_covariance(batch["src_pts"], batch["tgt_pts"], out.R, out.t,
-                              out.weights)
-        b = out.R.shape[0]
-        return torch.cat([out.R.reshape(b, 9), out.t,
-                          out.similarity.mean(-1, keepdim=True),
+        src = batch["src_pts"]
+        R, t, w, cov_tgt = engine.robust_pose(self.stages, src, batch["tgt_pts"], out.R,
+                                              out.t, out.weights, icp_prior=True)
+        with fp32_matmuls():
+            cov = pose_covariance(src, cov_tgt, R, t, w)
+        b = R.shape[0]
+        return torch.cat([R.reshape(b, 9), t, out.similarity.mean(-1, keepdim=True),
                           cov.reshape(b, 36)], dim=-1)
 
     def register(self, src_pts, src_feat, tgt_pts, tgt_feat,

@@ -9,6 +9,10 @@ depends on the device alone: CPU tensors take the kernels' plain versions,
 CUDA tensors launch the kernels. `models/egnn.EGNN` is the readable
 reference the tests hold the fused path to; the engine does not call it.
 
+Eval and serving may add the robust stages after the head (`robust_pose`:
+spectral reweighting, IRLS, ICP single-scale or over a voxel pyramid);
+`robust_eval_config` turns on spectral and IRLS on the fast config.
+
 Training: `init_state` builds the model and Adam with the staircase
 schedule, `make_train_step` returns the step (forward, losses, backward,
 update, with gradient accumulation as optax.MultiSteps does), `fit` runs
@@ -28,8 +32,13 @@ import torch
 from ..device import resolve_device
 from ..models.pose_head import RegistrationModel, RegistrationOutputs
 from ..ops import morton
+from ..ops.icp import icp_refine, icp_refine_multiscale, nearest_neighbor
+from ..ops.kabsch import kabsch_irls, kabsch_weighted
 from ..ops.kernels.egcl import KernelEGNN, egnn_forward, kernel_params
 from ..ops.kernels.knn import knn_window
+from ..ops.knn import gather_rows
+from ..ops.numerics import fp32_matmuls
+from ..ops.spectral import spectral_match_weights
 from . import losses as losses_lib
 from . import metrics as metrics_lib
 from .checkpoints import init_weights
@@ -68,6 +77,22 @@ class EngineConfig:
     fusion_literal: bool = False    # eval_fusion: reference broadcast accident
     fusion_weighting: str = "reference"  # eval_fusion: 'reference' | 'sharp'
     fusion_temp: float = 0.1
+    refine_iters: int = 0           # >0: IRLS pose refinement after the head
+                                    # in eval/serving (ops/kabsch.kabsch_irls)
+    refine_kernel: str = "geman"    # IRLS kernel: 'geman'|'cauchy'|'huber'|...
+    spectral_topm: int = 0          # >0: spectral-matching reweighting of the
+                                    # head's Kabsch weights over the top-M
+                                    # correspondences (ops/spectral.py)
+    spectral_sigma: float = 0.09    # consistency scale (m)
+    spectral_iters: int = 12        # power-iteration steps
+    icp_iters: int = 0              # >0: ICP after the head (and spectral/IRLS)
+                                    # in eval/serving; per scale with icp_voxels
+    icp_tau: float = 0.0            # >0: hard NN-distance gate (m); 0 = MAD Welsch
+    icp_mode: str = "point"         # 'point' | 'plane' | 'symmetric' | 'gicp'
+    icp_trim: float = 0.0           # >0: keep that fraction of residuals; 'auto'
+    icp_voxels: tuple = ()          # non-empty: coarse-to-fine ICP over this voxel
+                                    # pyramid (ops/icp.icp_refine_multiscale),
+                                    # ending at 0.0 (the raw clouds)
     grad_accum_steps: int = 1       # micro-batches per optimizer step
     best_val_metric: str = "loss"   # fit's best-val checkpoint criterion:
                                     # 'loss' | 'rot_err_deg' | 'trans_err_cm'
@@ -79,6 +104,48 @@ def fast_tpu_config(**overrides) -> EngineConfig:
               egnn_accurate=False, knn_packed=True)
     kw.update(overrides)
     return EngineConfig(**kw)
+
+
+def robust_eval_config(**overrides) -> EngineConfig:
+    """The robust eval/serving stack on the fast config: 'sharp' fusion
+    weighting, spectral reweighting over the top 256 correspondences, 5 IRLS
+    steps. Each stage departs from the reference's parity, hence opt-in."""
+    kw = dict(fusion_weighting="sharp", spectral_topm=256, refine_iters=5)
+    kw.update(overrides)
+    return fast_tpu_config(**kw)
+
+
+def robust_pose(cfg: EngineConfig, src: torch.Tensor, tgt: torch.Tensor, R: torch.Tensor,
+                t: torch.Tensor, w: torch.Tensor, icp_prior: bool
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The config's robust stages after the head, in float32 matrix products
+    (`fp32_matmuls`): spectral reweighting and a weighted Kabsch solve, IRLS,
+    then ICP (over `cfg.icp_voxels` when set), each where its count is > 0.
+    `icp_prior` passes the weights so far to ICP as prior weights (the
+    Registrar does, the eval step does not). Returns (R, t, w, the targets w
+    pairs with: `tgt`, or after ICP each posed source point's nearest target
+    point)."""
+    cov_tgt = tgt
+    with fp32_matmuls():
+        if cfg.spectral_topm > 0:
+            w = spectral_match_weights(src, tgt, w, top_m=cfg.spectral_topm,
+                                       sigma=cfg.spectral_sigma, iters=cfg.spectral_iters)
+            R, t = kabsch_weighted(src, tgt, w, solver=cfg.kabsch_solver)
+        if cfg.refine_iters > 0:
+            R, t, w = kabsch_irls(src, tgt, w, iters=cfg.refine_iters, kernel=cfg.refine_kernel,
+                                  solver=cfg.kabsch_solver)
+        if cfg.icp_iters > 0:
+            kw = dict(tau=cfg.icp_tau, mode=cfg.icp_mode, trim=cfg.icp_trim,
+                      solver=cfg.kabsch_solver, prior_weights=w if icp_prior else None)
+            if cfg.icp_voxels:
+                R, t, w = icp_refine_multiscale(src, tgt, R, t, voxel_sizes=cfg.icp_voxels,
+                                                iters=cfg.icp_iters, **kw)
+            else:
+                R, t, w = icp_refine(src, tgt, R, t, iters=cfg.icp_iters, **kw)
+            # ICP pairs by geometry: each posed source point with its nearest target
+            posed = torch.einsum("bij,bnj->bni", R, src) + t[:, None, :]
+            cov_tgt = gather_rows(tgt, nearest_neighbor(posed, tgt)[0])
+    return R, t, w, cov_tgt
 
 
 def build_model(cfg: EngineConfig, head_mode: str = "train",
@@ -248,14 +315,18 @@ def make_eval_step(model: RegistrationModel, cfg: EngineConfig,
                    with_loss: bool = False) -> Callable[[dict], dict]:
     """(batch) → per-pair RRE / RTE / recall / precision tensors, and with
     `with_loss` the batch's total training loss (broadcast per pair), which
-    `fit` uses to pick the best-val checkpoint as the reference does."""
+    `fit` uses to pick the best-val checkpoint as the reference does. The
+    pose goes through the config's robust stages (`robust_pose`, no prior
+    weights into ICP) before the metrics."""
 
     def step(batch: dict) -> dict:
         out = _apply_with_graphs(model, cfg, batch)
-        b = out.R.shape[0]
-        pred = torch.eye(4, dtype=out.R.dtype, device=out.R.device).repeat(b, 1, 1)
-        pred[:, :3, :3] = out.R
-        pred[:, :3, 3] = out.t
+        R, t, _, _ = robust_pose(cfg, batch["src_pts"], batch["tgt_pts"], out.R, out.t,
+                                 out.weights, icp_prior=False)
+        b = R.shape[0]
+        pred = torch.eye(4, dtype=R.dtype, device=R.device).repeat(b, 1, 1)
+        pred[:, :3, :3] = R
+        pred[:, :3, 3] = t
         rot_err, trans_err = metrics_lib.calculate_pose_error(batch["gt_pose"], pred)
         recall, precision = metrics_lib.registration_recall(
             pred, batch["src_pts"], batch["tgt_pts"])

@@ -23,6 +23,8 @@ PORT_MODULES = [
     "se3_equi_graph_registration_tpu_torch.ops.kernels.spfh",
     "se3_equi_graph_registration_tpu_torch.ops.fpfh",
     "se3_equi_graph_registration_tpu_torch.ops.icp",
+    "se3_equi_graph_registration_tpu_torch.ops.voxel",
+    "se3_equi_graph_registration_tpu_torch.core.quaternions",
 ]
 
 
@@ -145,7 +147,7 @@ def test_engine_rejects_unported_modes():
     for bad in (dict(knn_method="kd-tree"), dict(egnn_impl="triton")):
         with pytest.raises(ValueError):
             engine.build_model(engine.EngineConfig(**bad), device="cpu")
-    for unported in (dict(refine_iters=5), dict(direction="cluster"),
+    for unported in (dict(direction="cluster"),
                      dict(onehot_h_permute=True), dict(bf16_params=True),
                      dict(remat=True), dict(use_pointnet=True)):
         with pytest.raises(TypeError):
@@ -281,8 +283,8 @@ def test_register_fpfh_rejects_unported_options():
     from se3_equi_graph_registration_tpu_torch import registration
 
     pts = np.zeros((256, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        registration.register_fpfh(pts, pts, n_points=256, icp_voxels=(0.05, 0.0),
+    with pytest.raises(ValueError, match="must end at 0.0"):
+        registration.register_fpfh(pts, pts, n_points=256, icp_voxels=(0.05, 0.02),
                                    device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         registration.register_fpfh_batch(pts[None], pts[None], mesh=object(), device="cpu")

@@ -108,3 +108,31 @@ def test_knn_counters_by_variant_exist_and_start_at_zero():
     kk.knn_chunked(x, 8, 128, 256)
     for fn in (kk.knn_window, kk.knn_chunked):
         assert fn.launches == 0 and fn.launches_by_variant == {"warp": 0, "thread": 0}
+
+
+H100_SMEM_OPTIN = 232448    # 227 KB, an H100's opt-in shared memory a block
+
+
+@pytest.mark.parametrize("k,packed,tile,want", [
+    (16, False, 128, 128), (211, False, 128, 128), (212, False, 128, 64),
+    (300, False, 128, 64), (422, False, 128, 64), (423, False, 128, 32), (844, False, 128, 32),
+    (300, True, 128, 128), (60, False, 125, 125), (8, False, 1, 1), (300, False, 256, 64),
+])
+def test_thread_kernel_takes_fewer_queries_a_block_at_large_k(k, packed, tile, want):
+    """csrc/knn.cu keeps each query's k keys (and in exact mode k distances)
+    in shared memory beside 16 KB of staged candidates: a block takes the
+    largest of 128, 64 and 32 queries of its tile whose lists fit."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn as kk
+
+    qb = kk.thread_queries_per_block(k, tile, packed, H100_SMEM_OPTIN)
+    assert qb == want and tile % qb == 0
+    assert kk.THREAD_STAGED_BYTES + k * qb * (4 if packed else 8) <= H100_SMEM_OPTIN
+
+
+def test_thread_kernel_refuses_lists_beyond_32_queries_a_block_naming_the_limit():
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn as kk
+
+    with pytest.raises(ValueError, match=r"232448 bytes, so k <= 844"):
+        kk.thread_queries_per_block(845, 128, False, H100_SMEM_OPTIN)
+    with pytest.raises(ValueError, match=r"k <= 1688"):
+        kk.thread_queries_per_block(1689, 128, True, H100_SMEM_OPTIN)

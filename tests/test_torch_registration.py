@@ -144,8 +144,8 @@ def test_register_fpfh_window_method_matches_jax(bumpy):
 
 def test_register_fpfh_rejects_what_is_not_ported(bumpy):
     src, tgt, _, _ = _pair(bumpy, 3)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        treg.register_fpfh(src, tgt, n_points=N_POINTS, icp_voxels=(0.1, 0.0), device="cpu")
+    with pytest.raises(ValueError, match="must end at 0.0"):
+        treg.register_fpfh(src, tgt, n_points=N_POINTS, icp_voxels=(0.1, 0.05), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         treg.register_fpfh_batch(src[None], tgt[None], mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="knn_packed"):
