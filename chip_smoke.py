@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh,robust]
+    python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh,robust,cli]
 
 Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
@@ -54,7 +54,20 @@ everything runs):
   call against the same call on the CPU, timed with CUDA events after a
   warm-up and profiled, its launches counted by kernel variant (2 warp k-NN
   and 6 bf16 tile EGCL a Registrar call; 2 warp B4 and 2 'redux' B5 a
-  register_fpfh).
+  register_fpfh);
+- the command-line entry point (`cli`), `train/cli.main` as a user calls
+  it, at the 3dmatch and the kitti preset at full width (N=2048, k=16, 3
+  layers, B=8; C=32 with 4 heads and top_k=128, C=33 with 1 head and
+  top_k=2048), each on a dataset root in the reference's format written
+  here from a seed (16 train, 8 val, 8 test pairs of 5000 correspondences
+  drawn by `make_pair_batch`; 3DMatch train pickles of torch tensors, FPFH
+  33 for KITTI): `cli train` for one epoch (2 steps, a validation batch;
+  the whole-cloud exact warp k-NN, B2 and B3 on the fp32 tile kernels at
+  C=32 and on the SIMT kernels at C=33), `cli export` (no launch) read
+  back by `convert_reference_checkpoint`, `cli eval` on the card and with
+  `--device cpu`, one step with `engine.remat=true` (B2 launched 12 times
+  against 6), the same step on the CPU, and a step's time and profile. It runs with torch's default
+  TF32 flags and restores the smoke's after.
 Any failed check raises (non-zero exit, no result line). The last line is
 one JSON object with the device.
 
@@ -146,6 +159,25 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   does not (7630 of 135168 entries moved by more than 0.1, at most 27.9;
   not traced further), so the matches differ and 10 ICP steps end short of
   the fixed point (H100 80GB HBM3, 700 W).
+- cli: each command's launches by kernel exactly as counted from the
+  dataset (train: 2 k-NN, 6 B2 and 6 B3 a step and 2 k-NN and 6 B2 a
+  validation batch; eval: 2 and 6 a test batch; export: none); the export
+  reads back to the trained weights exactly; eval card vs CPU of one
+  checkpoint directory: every pair's pose at the accurate gate of
+  tests/test_torch_serving.py::_compare (‖ΔR‖_F/√2 and |Δt| ≤ 1e-4), the
+  summaries' translation error within 1e-2 cm and recall, precision and F1
+  within 1e-4 (the rotation error is printed, not held: arccos((tr - 1)/2)
+  in float32 moves ~4e-3 deg an ulp of the trace near the 0.03 deg the
+  KITTI test split's inlier-only pairs reach); because the pose of those
+  pairs is a Kabsch fit over correct correspondences whatever the EGNN
+  weighs them, eval also holds what the EGNN hands the head, card vs CPU:
+  the embeddings h_src and h_tgt, the correspondence logits and the Kabsch
+  weights within 1e-4 of their scale; remat: the loss equal bit for bit,
+  every parameter's gradient within 1e-4 of its scale (B3 sums by atomics,
+  so two backward runs differ in order); one train step on the same batch
+  and weights, card vs CPU: every loss term within 1e-4 relative, every
+  gradient at cosine >= 0.9999 and relative L2 <= 1e-4 (the train phase's
+  accurate gates).
 - register_fpfh card vs CPU, same seed: both within 0.5 deg and 5 mm of the
   ground truth; ‖ΔR‖_F/√2 ≤ 2e-3 and |Δt| ≤ 2e-3 m between them. The
   batch: all but at most one pair within 0.5 deg and 5 mm. The gap between
@@ -173,6 +205,7 @@ PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 SLEEP_CYCLES_PER_CALL = 400_000   # ~0.2 ms at the H100's clocks, above a wrapper's host time
 BWD_TOL_ACCURATE = 1e-4
+EGNN_TOL_ACCURATE = 1e-4     # card vs CPU after a whole accurate EGNN pass, of the scale
 BWD_TOL_FAST = 5e-3
 # csrc/spfh.cu, fp32 operations per edge: d and d² (8), sqrt and d̂ (5), the
 # two source-pick dots (12), the v cross, norm and divides (20), w (9), four
@@ -222,7 +255,8 @@ def bound_ms(nbytes, ops, peak_ops):
 
 def profile_call(torch, call, label):
     """Device time by kernel over one warm call under torch.profiler, and
-    the device-busy share of that call's wall time (profiler on)."""
+    the device-busy share of that call's wall time (profiler on); returns
+    (wall ms, device-busy ms), or None when no device time was recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -236,11 +270,12 @@ def profile_call(torch, call, label):
     total_ms = sum(e.self_device_time_total for e in dev) / 1e3
     if total_ms == 0:
         log("profile: the profiler recorded no device time (not measured)")
-        return
+        return None
     log(f"profile {label}: wall {wall_ms:.2f} ms (profiler on), device "
         f"busy {total_ms:.2f} ms ({100 * total_ms / wall_ms:.1f}%), {len(dev)} kernels")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return wall_ms, total_ms
 
 
 def egcl_errors(torch, got, ref, x, accurate):
@@ -512,14 +547,18 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
                 "accurate simt", ab, aby, "tile_f32"))
 
 
-PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh", "robust")
+PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh", "robust", "cli")
 ROW_ORDER = ("knn_window", "egcl_layer", "egcl_layer_f32", "egcl_backward", "egcl_backward_f32",
              "knn_chunked", "spfh")
 # the phases whose paths launch each kernel row's kernel
-DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust"),
-                 egcl_layer=("serve", "train", "robust"), egcl_layer_f32=("serve", "train"),
-                 egcl_backward=("train",), egcl_backward_f32=("train",),
+DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust", "cli"),
+                 egcl_layer=("serve", "train", "robust"),
+                 egcl_layer_f32=("serve", "train", "cli"),
+                 egcl_backward=("train",), egcl_backward_f32=("train", "cli"),
                  knn_chunked=("fpfh", "robust"), spfh=("fpfh", "robust"))
+# the phases whose paths launch the SIMT kernels (accurate mode at C=33, the
+# kitti preset), counted in the fp32 rows' `simt_launches`
+SIMT_DRIVEN_BY = dict(egcl_layer_f32=("cli",), egcl_backward_f32=("cli",))
 
 
 def main(argv=None) -> int:
@@ -542,10 +581,7 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()
-    log(smi[0] if smi else "nvidia-smi: no output")
+    log(card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
@@ -568,13 +604,26 @@ def main(argv=None) -> int:
     return 0
 
 
-def record_launches(rows, path, launches, by_variant=None):
-    """Write one path's launch counts {kernel name: n}, and for the k-NN
-    rows {kernel name: {variant: n}}, into the rows."""
+def card_line():
+    """The card's name and power limit as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi: no output"
+
+
+def record_launches(rows, path, launches, by_variant=None, simt=None):
+    """Write one path's launch counts {kernel name: n}, for the k-NN rows
+    {kernel name: {variant: n}}, and for the fp32 EGCL rows the SIMT
+    kernel's launches {kernel name: n}, into the rows."""
     for name, n in launches.items():
         if name in rows:
             rows[name].setdefault("launches_by_path", {})[path] = n
             rows[name]["launches"] = sum(rows[name]["launches_by_path"].values())
+    for name, n in (simt or {}).items():
+        if name in rows:
+            rows[name].setdefault("simt_launches_by_path", {})[path] = n
+            rows[name]["simt_launches"] = sum(rows[name]["simt_launches_by_path"].values())
     for name, counts in (by_variant or {}).items():
         if name in rows:
             for v, n in counts.items():
@@ -643,9 +692,14 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
         register_fpfh_default_phase(torch, dev, rows)
     if "robust" in phases:
         robust_phase(torch, dev, cfg, bsz, sd, rows)
+    if "cli" in phases:
+        cli_phase(torch, dev, rows)
     for name, row in rows.items():
         if any(ph in phases for ph in DRIVEN_BY[name]):
             check(row["launches"] > 0, f"{name}: no launch on the paths this run drove")
+        if any(ph in phases for ph in SIMT_DRIVEN_BY.get(name, ())):
+            check(row.get("simt_launches", 0) > 0,
+                  f"{name}: no SIMT launch on the paths this run drove")
     return [rows[name] for name in ROW_ORDER if name in rows]
 
 
@@ -1963,6 +2017,269 @@ def robust_phase(torch, dev, cfg, bsz, sd, rows):
     log(f"robust register_fpfh pyramid against the truth: {ef[0]:.4f} deg, "
         f"{1e3 * ef[1]:.3f} mm")
     return cases
+
+CLI_PAIRS = (16, 8, 8)        # train, val, test pairs of the cli phase's roots
+CLI_CORR = 5000               # putative correspondences a pair
+
+
+def write_cli_root(torch, root, dataset, c, seed):
+    """A dataset root in the reference's on-disk format: CLI_PAIRS pairs of
+    CLI_CORR correspondences drawn by `make_pair_batch` (a known pose, 70%
+    inliers), `{train,val,test}_files.txt`; 3DMatch train and val pickles
+    hold torch tensors with a leading batch axis written by torch.save, the
+    others numpy dicts (KITTI's features are the 33 FPFH channels)."""
+    import os
+    import pickle
+
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
+
+    rng = np.random.default_rng(seed)
+    names = dict(xyz_0="src_keypts", xyz_1="tgt_keypts", feat_0="src_features",
+                 feat_1="tgt_features", corr="corr", labels="gt_labels", gt_pose="gt_pose")
+    for split, count in zip(("train", "val", "test"), CLI_PAIRS):
+        sub = f"{'test' if split == 'test' else 'train'}_{dataset}"
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        pb = make_pair_batch(rng, batch=count, n=CLI_CORR, feat_dim=c)
+        files = []
+        for i in range(count):
+            d = dict(xyz_0=pb.src_pts[i], xyz_1=pb.tgt_pts[i], feat_0=pb.src_feat[i],
+                     feat_1=pb.tgt_feat[i], corr=pb.corr[i].astype(np.int64),
+                     labels=pb.labels[i], gt_pose=pb.gt_pose[i])
+            files.append(f"{split}_{i:03d}.pkl")
+            path = os.path.join(root, sub, files[-1])
+            if dataset == "3dmatch" and split != "test":
+                torch.save({names[k]: torch.from_numpy(v[None]) for k, v in d.items()}, path)
+            else:
+                with open(path, "wb") as f:
+                    pickle.dump(d, f)
+        with open(os.path.join(root, f"{split}_files.txt"), "w") as f:
+            f.write("\n".join(files) + "\n")
+
+
+def quiet_cli(cli, argv):
+    """cli.main(argv) with its standard output kept; returns (result, the
+    output's lines that are not the printed config)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = cli.main(argv)
+    return out, [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith(("[epoch", "done", "wrote", "resumed", "run."))]
+
+
+def cli_counts(knn, egcl, eb):
+    """{wrapper name: {variant: launches}} of the k-NN, EGCL forward and
+    EGCL backward wrappers since their counters were last set to 0."""
+    return dict(knn_window=dict(knn.knn_window.launches_by_variant),
+                egcl_layer=dict(egcl.egcl_layer.launches_by_variant),
+                egcl_backward=dict(eb.egcl_backward.launches_by_variant))
+
+
+def cli_phase(torch, dev, rows):
+    """The command-line entry point at full width on the card, for the
+    3dmatch and the kitti preset (N=2048, k=16, 3 layers, B=8; C=32 with 4
+    heads and top_k=128, C=33 with 1 head and top_k=2048): a dataset root in
+    the reference's format, `cli train` for one epoch (2 steps and a
+    validation batch), `cli export` of the checkpoint directory read back by
+    `convert_reference_checkpoint`, `cli eval` on the card and with
+    `--device cpu`, one step with `engine.remat=true` against one without,
+    then a step's wall time and a profile. Each command runs with the launch
+    counters set to 0 just before it. Runs with torch's default TF32 flags
+    (matmul off, cuDNN on) and restores the smoke's after."""
+    import os
+    import tempfile
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for preset, c in (("3dmatch", 32), ("kitti", 33)):
+                t0 = time.perf_counter()
+                cli_preset(torch, dev, rows, preset, c, os.path.join(tmp, preset))
+                log(f"cli {preset}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def cli_preset(torch, dev, rows, preset, c, base):
+    """One preset of the cli phase (its docstring), in the directory `base`."""
+    import os
+
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl, knn
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+    from se3_equi_graph_registration_tpu_torch.train import checkpoints, cli, config, engine
+
+    write_cli_root(torch, os.path.join(base, "data"), preset, c, seed=5)
+    ckpt, pth = os.path.join(base, "ckpt"), os.path.join(base, "export.pth")
+    # per-item sampling streams: the card's and the CPU's eval see the same pairs
+    common = ["--preset", preset, "--set", f"data.root={base}/data",
+              "data.legacy_sampling_rng=true", f"run.checkpoint_dir={ckpt}",
+              f"run.log_path={base}/log.jsonl", "run.epochs=1"]
+    cfg, _ = config.parse_cli(common)
+    ecfg, L = cfg.engine, cfg.engine.n_layers
+    variant = egcl.egcl_variant(ecfg.hidden_nf, ecfg.k, ecfg.hidden_nf // ecfg.num_heads, True)
+    check((preset, variant) in (("3dmatch", "tile_f32"), ("kitti", "simt")),
+          f"cli {preset}: accurate EGCL at C={ecfg.hidden_nf} runs {variant}")
+    steps = CLI_PAIRS[0] // cfg.data.batch_size
+    val, test = (n // cfg.data.batch_size for n in CLI_PAIRS[1:])     # drop_last
+    check(cfg.data.batch_size == 8 and ecfg.num_nodes == cfg.data.num_node == 2048,
+          f"cli {preset}: preset widths changed {cfg.data}")
+
+    def counted(what, argv, want):
+        reset_knn_counters(knn)
+        reset_egcl_counters(egcl)
+        reset_backward_counters(eb)
+        t1 = time.perf_counter()
+        out, lines = quiet_cli(cli, argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        counts = cli_counts(knn, egcl, eb)
+        got = {w: {v: n for v, n in cnt.items() if n} for w, cnt in counts.items()}
+        got = {w: cnt for w, cnt in got.items() if cnt}
+        check(got == want, f"cli {preset} {what}: launches by kernel {got}, want {want}")
+        for ln in lines:
+            log(f"  cli {preset} {what} | {ln}")
+        if want:
+            fwd, bwd = counts["egcl_layer"], counts["egcl_backward"]
+            record_launches(rows, f"cli {preset} {what}",
+                            dict(knn_window=knn.knn_window.launches, **by_row("egcl_layer", fwd),
+                                 **by_row("egcl_backward", bwd)),
+                            dict(knn_window=counts["knn_window"]),
+                            simt=dict(egcl_layer_f32=fwd["simt"], egcl_backward_f32=bwd["simt"]))
+        log(f"cli {preset} {what}: {secs:.2f} s (host clock), launches {got}")
+        return out
+
+    # --- train: one epoch of `steps` steps and the validation batches
+    state = counted("train", ["train", *common], {
+        "knn_window": {"warp": 2 * (steps + val)},
+        "egcl_layer": {variant: 2 * L * (steps + val)},
+        "egcl_backward": {variant: 2 * L * steps}})
+    check(state.step == steps, f"cli {preset} train: {state.step} steps, want {steps}")
+    rows_log = [json.loads(ln) for ln in open(f"{base}/log.jsonl")]
+    check(len(rows_log) == 1 and all(np.isfinite(v) for v in rows_log[0].values()),
+          f"cli {preset} train log {rows_log}")
+    sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    # --- export: no kernel; the file reads back to the trained weights
+    counted("export", ["export", *common, "--checkpoint", ckpt, "--out", pth], {})
+    back = checkpoints.convert_reference_checkpoint(pth, n_layers=L, num_heads=ecfg.num_heads,
+                                                    hidden=ecfg.hidden_nf)
+    check(set(back) == set(sd) and all(torch.equal(back[k], sd[k]) for k in sd),
+          f"cli {preset} export: the .pth does not read back to the trained weights")
+    # --- eval on the card and on the CPU; spies keep each pair's pose and
+    # what the EGNN gives the eval head (the embeddings, the correspondence
+    # logits and the Kabsch weights), which the pose alone may not show: at
+    # kitti every test correspondence is an inlier and top_k = N
+    poses, heads = {}, {}
+    real, real_apply = engine.metrics_lib.calculate_pose_error, engine._apply_with_graphs
+
+    def spy(gt, pred):
+        poses.setdefault(spy.device, []).append(pred.detach().cpu())
+        return real(gt, pred)
+
+    def apply_spy(*a, **kw):
+        out = real_apply(*a, **kw)
+        heads.setdefault(spy.device, []).append(
+            {k: getattr(out, k).detach().cpu() for k in ("h_src", "h_tgt", "scores", "weights")})
+        return out
+
+    engine.metrics_lib.calculate_pose_error = spy
+    engine._apply_with_graphs = apply_spy
+    try:
+        evals = {}
+        for device in ("cuda", "cpu"):
+            spy.device = device
+            argv = ["eval", *common, "--checkpoint", ckpt,
+                    "--set", f"run.eval_output={base}/eval_{device}.txt"]
+            if device == "cpu":
+                t1 = time.perf_counter()
+                evals[device], _ = quiet_cli(cli, argv + ["--device", "cpu"])
+                log(f"cli {preset} eval --device cpu: {time.perf_counter() - t1:.1f} s")
+            else:
+                evals[device] = counted("eval", argv, {"knn_window": {"warp": 2 * test},
+                                                       "egcl_layer": {variant: 2 * L * test}})
+    finally:
+        engine.metrics_lib.calculate_pose_error = real
+        engine._apply_with_graphs = real_apply
+    P = {d: torch.cat(v) for d, v in poses.items()}
+    H = {d: {k: torch.cat([o[k] for o in v]) for k in v[0]} for d, v in heads.items()}
+    rel = {k: float((H["cuda"][k] - H["cpu"][k]).abs().max() / H["cpu"][k].abs().max())
+           for k in H["cpu"]}
+    log(f"cli {preset} eval card vs CPU, max|Δ| of the scale: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in rel.items()))
+    check(all(v <= EGNN_TOL_ACCURATE for v in rel.values()),
+          f"cli {preset} eval: card vs CPU EGNN embeddings and head outputs {rel}")
+    check(P["cuda"].shape == P["cpu"].shape == (CLI_PAIRS[2], 4, 4)
+          and bool(torch.isfinite(P["cuda"]).all()), f"cli {preset} eval poses {P['cuda'].shape}")
+    dR = float((P["cuda"][:, :3, :3] - P["cpu"][:, :3, :3]).flatten(1).norm(dim=1).max())
+    dR /= 2 ** 0.5
+    dt = float((P["cuda"][:, :3, 3] - P["cpu"][:, :3, 3]).abs().max())
+    ds = {k: abs(evals["cuda"][k] - evals["cpu"][k]) for k in evals["cpu"]}
+    log(f"cli {preset} eval card vs CPU: per-pair max‖ΔR‖/√2 {dR:.3g}, max|Δt| {dt:.3g} m; "
+        f"summary card {json.dumps(evals['cuda'])}; |Δ| {json.dumps(ds)}")
+    check(dR <= 1e-4 and dt <= 1e-4, f"cli {preset} eval: card vs CPU poses dR {dR} dt {dt}")
+    check(evals["cuda"]["num_pairs"] == CLI_PAIRS[2] and ds["avg_translation_error_cm"] <= 1e-2
+          and all(ds[k] <= 1e-4 for k in ("avg_registration_recall", "avg_precision", "avg_f1")),
+          f"cli {preset} eval: card vs CPU summaries {evals}")
+    # --- remat: one step with engine.remat=true against one without, same weights and batch
+    batch = engine.batch_to_device(next(iter(cli._loader(cfg, "train", shuffle=False)())), dev)
+    losses = {}
+    for remat in (False, True):
+        rcfg, _ = config.parse_cli(common + ["--set", f"engine.remat={str(remat).lower()}"])
+        model = engine.build_model(rcfg.engine, device=dev)
+        model.load_state_dict(sd)
+        reset_egcl_counters(egcl)
+        reset_backward_counters(eb)
+        lb = engine.train_loss(model, rcfg.engine, batch)
+        lb.total.backward()
+        torch.cuda.synchronize()
+        losses[remat] = (lb.total.detach().cpu(), dict(egcl.egcl_layer.launches_by_variant),
+                         dict(eb.egcl_backward.launches_by_variant),
+                         {n: q.grad.detach().cpu() for n, q in model.named_parameters()})
+        terms = {k: float(v.detach()) for k, v in lb._asdict().items()}
+    (l0, f0, b0, g0), (l1, f1, b1, g1) = losses[False], losses[True]
+    worst = max(g0, key=lambda n: float((g1[n] - g0[n]).abs().max() / g0[n].abs().max()))
+    rel = float((g1[worst] - g0[worst]).abs().max() / g0[worst].abs().max())
+    log(f"cli {preset} remat step: loss {float(l1):.6f} vs {float(l0):.6f}; EGCL launches "
+        f"{f1} vs {f0}, backward {b1} vs {b0}; worst gradient |Δ| {worst} {rel:.3g} of its scale")
+    check(f0 == only(variant, 2 * L) and f1 == only(variant, 4 * L)
+          and b0 == b1 == only(variant, 2 * L),
+          f"cli {preset} remat: EGCL launches {f1} vs {f0}, backward {b1} vs {b0}")
+    check(torch.equal(l0, l1), f"cli {preset} remat: loss {l1} vs {l0}")
+    check(rel <= BWD_TOL_ACCURATE, f"cli {preset} remat: gradient {worst} moved {rel} of its scale")
+    # --- the same step on the CPU: every loss term and every gradient
+    model = engine.build_model(ecfg, device="cpu")
+    model.load_state_dict(sd)
+    t1 = time.perf_counter()
+    lb = engine.train_loss(model, ecfg, {k: v.cpu() for k, v in batch.items()})
+    lb.total.backward()
+    cpu_terms = {k: float(v.detach()) for k, v in lb._asdict().items()}
+    cos = grad_cosines(torch, g1, {n: q.grad for n, q in model.named_parameters()})
+    worst, worst_l2 = min(cos, key=lambda k: cos[k][0]), max(cos, key=lambda k: cos[k][1])
+    dl = {k: abs(terms[k] - cpu_terms[k]) / abs(cpu_terms[k]) for k in terms}
+    log(f"cli {preset} train step card vs CPU: loss terms card {json.dumps(terms)}, relative "
+        f"|Δ| {json.dumps(dl)}; worst gradient cosine {worst} {cos[worst][0]:.6f}, worst "
+        f"relative L2 {worst_l2} {cos[worst_l2][1]:.2g}; CPU side {time.perf_counter() - t1:.1f} s")
+    check(all(v <= 1e-4 for v in dl.values()), f"cli {preset} train card vs CPU: loss terms {dl}")
+    check(cos[worst][0] >= 0.9999 and cos[worst_l2][1] <= 1e-4,
+          f"cli {preset} train card vs CPU: gradients {worst} {cos[worst]}, {worst_l2} "
+          f"{cos[worst_l2]}")
+    # --- a step's wall time and a profile of one step
+    step = engine.make_train_step(state.model, state.optimizer, ecfg)
+    step(state, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(5):
+        step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t1) / 5 * 1e3
+    prof = profile_call(torch, lambda: step(state, batch),
+                        f"cli {preset} train step B={cfg.data.batch_size}")
+    busy = f"{100 * prof[1] / prof[0]:.1f}% device busy (profiler on)" if prof else "not measured"
+    log(f"cli {preset} train step B={cfg.data.batch_size} N={ecfg.num_nodes} C={ecfg.hidden_nf}: "
+        f"{wall:.2f} ms a step (host clock, 5 steps after a warm one, synchronized), {busy}; "
+        f"{card_line()}")
 
 
 def other_configs(torch, dev, cfg, sd, args, same, rows):

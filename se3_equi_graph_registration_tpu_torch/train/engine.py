@@ -16,18 +16,23 @@ spectral reweighting, IRLS, ICP single-scale or over a voxel pyramid);
 Training: `init_state` builds the model and Adam with the staircase
 schedule, `make_train_step` returns the step (forward, losses, backward,
 update, with gradient accumulation as optax.MultiSteps does), `fit` runs
-epochs with best-val checkpointing. Metrics stay on the device and are
-fetched once per epoch.
+epochs with best-val checkpointing (and with `profile_dir` a
+`torch.profiler` trace of the first epoch). Metrics stay on the device and
+are fetched once per epoch. `remat` recomputes the EGNN pass in the
+backward instead of keeping its activations.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import os
 import time
 from typing import Callable, Iterable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..device import resolve_device
 from ..models.pose_head import RegistrationModel, RegistrationOutputs
@@ -46,9 +51,11 @@ from .checkpoints import init_weights
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """The fields the port reads, with the reference's defaults. The model
-    is always 'center'/'frame'; head top-k is always exact (the reference's
-    approx top-k returns the exact sets on the CPU)."""
+    """The JAX package's fields in its order, with the reference's defaults,
+    but for three that the port reads nowhere (`train/config.py` takes them
+    from a config file and drops them). The model is 'center'/'frame'
+    without the PointNet encoder; the other variants and bf16 parameters
+    raise in `build_model` until they are ported."""
     num_nodes: int = 2048
     k: int = 16
     in_node_nf: int = 32
@@ -61,7 +68,12 @@ class EngineConfig:
     lr_gamma: float = 0.5
     lr_step_unit: str = "step"      # 'step' | 'epoch' (the reference's StepLR
                                     # counts epochs; needs steps_per_epoch)
+    direction: str = "center"       # 'center'; 'cluster' is not ported yet
+    so3_mode: str = "frame"         # 'frame'; 'invariant' is not ported yet
     loss_weights: losses_lib.LossWeights = losses_lib.LossWeights()
+    remat: bool = False             # training: recompute the EGNN pass in the
+                                    # backward (torch.utils.checkpoint) instead
+                                    # of keeping its activations
     egnn_impl: str = "xla"          # 'xla' | 'pallas': accepted so the
                                     # reference's configs carry across; both
                                     # run the fused EGCL path
@@ -93,7 +105,10 @@ class EngineConfig:
     icp_voxels: tuple = ()          # non-empty: coarse-to-fine ICP over this voxel
                                     # pyramid (ops/icp.icp_refine_multiscale),
                                     # ending at 0.0 (the raw clouds)
+    use_pointnet: bool = False      # the PointNet encoder: not ported yet
     grad_accum_steps: int = 1       # micro-batches per optimizer step
+    bf16_params: bool = False       # bf16 live parameters with stochastic
+                                    # rounding: not ported yet
     best_val_metric: str = "loss"   # fit's best-val checkpoint criterion:
                                     # 'loss' | 'rot_err_deg' | 'trans_err_cm'
 
@@ -148,10 +163,30 @@ def robust_pose(cfg: EngineConfig, src: torch.Tensor, tgt: torch.Tensor, R: torc
     return R, t, w, cov_tgt
 
 
+def _check_ported(cfg: EngineConfig) -> None:
+    """Raise NotImplementedError for the JAX package's options that the port
+    accepts in a config but cannot run yet, ValueError for unknown values."""
+    if cfg.direction not in ("center", "cluster"):
+        raise ValueError(f"unknown direction {cfg.direction!r}")
+    if cfg.so3_mode not in ("frame", "invariant"):
+        raise ValueError(f"unknown so3_mode {cfg.so3_mode!r}")
+    for name, value in (("direction", "cluster"), ("so3_mode", "invariant"),
+                        ("use_pointnet", True)):
+        if getattr(cfg, name) == value:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported yet (ROADMAP Queue A item 3, model variants)")
+    if cfg.bf16_params:
+        raise NotImplementedError(
+            "bf16_params=True is not ported yet (ROADMAP Queue A item 4, "
+            "utils/bf16_training.py)")
+
+
 def build_model(cfg: EngineConfig, head_mode: str = "train",
                 device: Union[str, torch.device, None] = None) -> RegistrationModel:
     """The model on `device` (the CUDA card unless told otherwise), in eval
-    mode with torch's default initialization."""
+    mode with torch's default initialization. A model variant or bf16
+    parameters the port does not have yet raise NotImplementedError."""
+    _check_ported(cfg)
     if cfg.knn_method not in ("exact", "approx", "pallas", "morton"):
         raise ValueError(f"unknown knn_method {cfg.knn_method!r}")
     if cfg.egnn_impl not in ("xla", "pallas"):
@@ -190,16 +225,26 @@ def _forward_with_graphs(model: RegistrationModel, cfg: EngineConfig, batch: dic
     wrappers: 'morton' sorts each cloud along the curve, builds the window
     graph in sorted space, runs the EGNN and un-sorts; the others search the
     whole cloud. The head runs on the original order. Differentiable when
-    `kp` was built with autograd on."""
+    `kp` was built with autograd on; with `cfg.remat` the EGNN pass runs
+    under `torch.utils.checkpoint` whenever autograd records."""
     _check_batch(model, batch)
     tile, window = _tile_and_window(cfg, batch["src_pts"].shape[1])
     packed = cfg.knn_packed and window is not None and window <= 1024
+
+    def egnn(h, x, nbr):
+        if cfg.remat and torch.is_grad_enabled():
+            # the backward runs the EGNN pass (every EGCL forward launch)
+            # again and keeps none of its activations; the folded weights in
+            # `kp` are built outside, so their gradients flow as without remat
+            return torch.utils.checkpoint.checkpoint(
+                egnn_forward, kp, h, x, nbr, cfg.egnn_accurate, use_reentrant=False)
+        return egnn_forward(kp, h, x, nbr, accurate=cfg.egnn_accurate)
 
     def embed(h, x):
         if window is not None:
             h, x, perm = morton.sort_by_curve(h, x, cfg.curve)
         nbr = knn_window(x.contiguous(), cfg.k, tile=tile, window=window, packed=packed)
-        out = egnn_forward(kp, h, x, nbr, accurate=cfg.egnn_accurate)
+        out = egnn(h, x, nbr)
         return out if window is None else morton.unsort_rows(out, perm)
 
     h_s, x_s = embed(batch["src_feat"], batch["src_pts"])
@@ -366,12 +411,16 @@ def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
         state: TrainState, train_batches: Callable[[], Iterable], epochs: int,
         val_batches: Optional[Callable[[], Iterable]] = None,
         checkpointer=None, checkpoint_every: int = 20,
-        logger: Optional[Callable[[int, dict], None]] = None) -> TrainState:
+        logger: Optional[Callable[[int, dict], None]] = None,
+        profile_dir: Optional[str] = None) -> TrainState:
     """Epoch loop: per-epoch loss means (fetched once per epoch), a
     validation pass, and checkpoints through any `checkpointer` with
     `.save(step, state, metrics=...)`: the best validation score
     (`cfg.best_val_metric`, lower is better) and every `checkpoint_every`
-    epochs. Batches are the reference 7-tuples or engine dicts."""
+    epochs. Batches are the reference 7-tuples or engine dicts.
+    `profile_dir` runs the first epoch's training steps under
+    `torch.profiler` (CPU and, with a card, CUDA activities) and writes the
+    trace there as `trace.json` (chrome trace format)."""
     if cfg.best_val_metric not in ("loss", "rot_err_deg", "trans_err_cm"):
         raise ValueError(f"unknown best_val_metric {cfg.best_val_metric!r}; expected "
                          "'loss', 'rot_err_deg' or 'trans_err_cm'")
@@ -379,11 +428,22 @@ def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
     eval_step = make_eval_step(model, cfg, with_loss=cfg.best_val_metric == "loss")
     best_val = np.inf
     for epoch in range(epochs):
+        profiling = bool(profile_dir) and epoch == 0
+        prof = contextlib.nullcontext()
+        if profiling:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
         t0 = time.time()
         ms = []
-        for batch in train_batches():
-            state, m = train_step(state, _as_batch(batch, model))
-            ms.append(m)
+        with prof:
+            for batch in train_batches():
+                state, m = train_step(state, _as_batch(batch, model))
+                ms.append(m)
+        if profiling:
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
         train_metrics = {}
         if ms:   # one stack and one fetch per epoch
             means = torch.stack([torch.stack([m[k] for m in ms]).mean() for k in ms[0]])

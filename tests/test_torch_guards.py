@@ -1,5 +1,6 @@
 """Guards of the port: it imports no jax and nothing of the JAX package, and
 its entry points never carry on quietly on the CPU."""
+import json
 import os
 import subprocess
 import sys
@@ -25,20 +26,42 @@ PORT_MODULES = [
     "se3_equi_graph_registration_tpu_torch.ops.icp",
     "se3_equi_graph_registration_tpu_torch.ops.voxel",
     "se3_equi_graph_registration_tpu_torch.core.quaternions",
+    "se3_equi_graph_registration_tpu_torch.core.se3_np",
+    "se3_equi_graph_registration_tpu_torch.train.config",
+    "se3_equi_graph_registration_tpu_torch.train.cli",
+    "se3_equi_graph_registration_tpu_torch.data.threedmatch",
+    "se3_equi_graph_registration_tpu_torch.data.kitti",
+    "se3_equi_graph_registration_tpu_torch.data.redwood",
+    "se3_equi_graph_registration_tpu_torch.utils.trajectory",
+    "se3_equi_graph_registration_tpu_torch.utils.timer",
+    "se3_equi_graph_registration_tpu_torch.utils.logging",
+    "se3_equi_graph_registration_tpu_torch.utils.debugging",
 ]
 
 
-@pytest.mark.parametrize("module", PORT_MODULES)
-def test_import_pulls_in_no_jax(module):
-    code = (f"import sys, {module}\n"
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == "
-            "'se3_equi_graph_registration_tpu' or m.startswith('se3_equi_graph_registration_tpu.')]\n"
-            "print(bad)\n"
-            "sys.exit(1 if bad else 0)\n")
+@pytest.fixture(scope="module")
+def imported_jax():
+    """{module: the jax and JAX-package modules loaded once it is imported},
+    from one fresh interpreter that imports PORT_MODULES in order: a module
+    that pulls one in shows it, and so does every module after it."""
+    code = ("import importlib, json, sys\n"
+            "out = {}\n"
+            f"for name in {PORT_MODULES!r}:\n"
+            "    importlib.import_module(name)\n"
+            "    out[name] = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or "
+            "m == 'se3_equi_graph_registration_tpu' or "
+            "m.startswith('se3_equi_graph_registration_tpu.')]\n"
+            "print(json.dumps(out))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    return json.loads(res.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", PORT_MODULES)
+def test_import_pulls_in_no_jax(module, imported_jax):
+    assert imported_jax[module] == [], imported_jax[module]
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "spfh_sweep.py", "egcl_f32_sweep.py"])
@@ -147,11 +170,21 @@ def test_engine_rejects_unported_modes():
     for bad in (dict(knn_method="kd-tree"), dict(egnn_impl="triton")):
         with pytest.raises(ValueError):
             engine.build_model(engine.EngineConfig(**bad), device="cpu")
-    for unported in (dict(direction="cluster"),
-                     dict(onehot_h_permute=True), dict(bf16_params=True),
-                     dict(remat=True), dict(use_pointnet=True)):
+    # the JAX package's fields load; the variants not ported yet raise when built
+    for unported in (dict(direction="cluster"), dict(so3_mode="invariant"),
+                     dict(bf16_params=True), dict(use_pointnet=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
+            engine.build_model(engine.fast_tpu_config(**unported), device="cpu")
+    for bad in (dict(direction="sideways"), dict(so3_mode="euler")):
+        with pytest.raises(ValueError):
+            engine.build_model(engine.EngineConfig(**bad), device="cpu")
+    engine.build_model(engine.fast_tpu_config(num_nodes=128, remat=True), device="cpu")
+    # a field neither package has, and the JAX package's fields that the port
+    # reads nowhere (train/config.py drops them from a config file)
+    for absent in (dict(nonsense=True), dict(onehot_h_permute=True), dict(knn_recall=0.95),
+                   dict(topk_method="approx")):
         with pytest.raises(TypeError):
-            engine.fast_tpu_config(**unported)
+            engine.fast_tpu_config(**absent)
 
 
 def test_seeded_init_is_reproducible():

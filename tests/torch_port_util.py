@@ -121,3 +121,66 @@ def port_grads(model, cfg, batch):
 def cosine(a, b):
     a, b = a.ravel().astype(np.float64), b.ravel().astype(np.float64)
     return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-300))
+
+
+def write_pair_root(root, dataset: str = "3dmatch", n_pairs=(4, 2, 4), n_pts: int = 300,
+                    feat_dim: int = 32, seed: int = 0, torch_train: bool = True,
+                    inlier_ratio: float = 0.5) -> str:
+    """A dataset root in the reference's on-disk format, written by the test:
+    `{train,val,test}_files.txt` and pair pickles under `train_<dataset>/`
+    (train and val) and `test_<dataset>/`, `n_pairs` = (train, val, test).
+    Each pair: `n_pts` source keypoints, the target cloud a posed copy with
+    2 cm noise in another order (`corr[:, 1]` a permutation), a share
+    `1 - inlier_ratio` of its rows moved elsewhere (label 0), descriptors
+    as make_pair_batch draws them. 3DMatch train/val pickles hold torch
+    tensors with a leading batch axis, written by torch.save (`torch_train`),
+    else numpy dicts."""
+    import os
+    import pickle
+
+    import torch
+
+    from se3_equi_graph_registration_tpu.data.synthetic import random_rotation
+
+    rng = np.random.default_rng(seed)
+    sub = {"train": f"train_{dataset}", "val": f"train_{dataset}", "test": f"test_{dataset}"}
+    for split, count in zip(("train", "val", "test"), n_pairs):
+        os.makedirs(os.path.join(root, sub[split]), exist_ok=True)
+        names = []
+        for i in range(count):
+            src = rng.uniform(-1.5, 1.5, (n_pts, 3)).astype(np.float32)
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, :3] = random_rotation(rng)
+            pose[:3, 3] = rng.standard_normal(3) * 0.5
+            inl = rng.uniform(size=n_pts) < inlier_ratio
+            moved = src @ pose[:3, :3].T + pose[:3, 3] + rng.standard_normal((n_pts, 3)) * 0.02
+            moved = np.where(inl[:, None], moved, rng.uniform(-1.5, 1.5, (n_pts, 3)))
+            perm = rng.permutation(n_pts)
+            tgt = np.empty_like(src)
+            tgt[perm] = moved
+            f = rng.standard_normal((n_pts, feat_dim)).astype(np.float32)
+            f /= np.linalg.norm(f, axis=1, keepdims=True) + 1e-6
+            ft = np.where(inl[:, None], f + rng.standard_normal(f.shape) * 0.1,
+                          rng.standard_normal(f.shape)).astype(np.float32)
+            tgt_feat = np.empty_like(ft)
+            tgt_feat[perm] = ft
+            corr = np.stack([np.arange(n_pts), perm], 1)
+            d = {"xyz_0": src, "xyz_1": tgt.astype(np.float32), "feat_0": f,
+                 "feat_1": tgt_feat, "corr": corr, "labels": inl.astype(np.float32),
+                 "gt_pose": pose}
+            if dataset == "3dmatch" and split != "test" and torch_train:
+                keys = dict(xyz_0="src_keypts", xyz_1="tgt_keypts", feat_0="src_features",
+                            feat_1="tgt_features", corr="corr", labels="gt_labels",
+                            gt_pose="gt_pose")
+                d = {keys[k]: torch.from_numpy(np.asarray(v)[None]) for k, v in d.items()}
+            name = f"{split}_{i:03d}.pkl"
+            path = os.path.join(root, sub[split], name)
+            if isinstance(d["corr"], torch.Tensor):
+                torch.save(d, path)             # the reference's files: torch.save zips
+            else:
+                with open(path, "wb") as fh:
+                    pickle.dump(d, fh)
+            names.append(name)
+        with open(os.path.join(root, f"{split}_files.txt"), "w") as fh:
+            fh.write("\n".join(names) + "\n")
+    return str(root)
