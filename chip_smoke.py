@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh,robust,cli]
+    python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh,robust,cli,serve_extra]
 
 Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
@@ -67,7 +67,22 @@ everything runs):
   back by `convert_reference_checkpoint`, `cli eval` on the card and with
   `--device cpu`, one step with `engine.remat=true` (B2 launched 12 times
   against 6), the same step on the CPU, and a step's time and profile. It runs with torch's default
-  TF32 flags and restores the smoke's after.
+  TF32 flags and restores the smoke's after;
+- the rest of serving (`serve_extra`): (a) `register(clique_prefilter=True)`
+  at `fast_tpu_config` on 2048 correspondences, 40% of them gross outliers,
+  the exact clique timed on the host; (b) `register_raw` at the kitti
+  preset's engine config (N=2048, C=33, 1 head, top_k=2048; the SIMT EGCL)
+  on a bumpy-surface pair of 20 000 points a cloud, without and with a
+  0.03 m voxel, with the gather FPFH's card-vs-CPU divergence by stage
+  printed (normals, the source pick, the bins); (c) the Registrar exported
+  on the card at B=16, saved, and loaded in a fresh interpreter that
+  imports torch and the port's op library only, its run-time launches
+  counted (2 warp k-NN and 6 bf16 tile EGCL a call), run again with TF32 on
+  globally, and the host time of a loaded call against eager `_apply` and
+  `register()`; (d) the fused pipeline (chunked, W=768, N=2048, batch 8,
+  SVD Kabsch) exported and loaded, 2 B4 and 2 B5 counted in the loaded
+  call; (e) the host cost of a knn_window call through its custom op
+  against the allocation and ctypes launch alone, over 1000 calls.
 Any failed check raises (non-zero exit, no result line). The last line is
 one JSON object with the device.
 
@@ -178,6 +193,20 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   and weights, card vs CPU: every loss term within 1e-4 relative, every
   gradient at cosine >= 0.9999 and relative L2 <= 1e-4 (the train phase's
   accurate gates).
+- serve_extra: (a) the clique keeps ≥ 80% of the inliers and ≤ 10% of the
+  outliers, the card's clique_inliers equal the host labels' count (both
+  sides label on the host), R and t at the serving gate (2e-3); (b) the
+  fitted clouds and both k-NN tables identical card vs CPU, matches equal
+  on ≥ 99.5% of the rows (the gather FPFH's fp floor can flip a near-tie
+  match: one bin flip moves its center's row and the ~60 rows that average
+  it), the card's register() on the CPU's matched set at the serving gate;
+  the full register_raw gap is printed, not held (its inputs differ where
+  a match flipped; 1.9e-3 to 3.1e-3 in ‖ΔR‖/√2 over this smoke's runs, H100
+  80GB HBM3, 700 W); (c) the loaded Registrar's
+  R, t, similarity mean and covariance within 1e-6 (of the scale for the
+  last two) of register()'s on the same batch, equal with TF32 on, launches
+  exact, no model, train, serving or data module imported; (d) each output
+  within 1e-6 of its scale of register_fpfh_batch's, launches exact.
 - register_fpfh card vs CPU, same seed: both within 0.5 deg and 5 mm of the
   ground truth; ‖ΔR‖_F/√2 ≤ 2e-3 and |Δt| ≤ 2e-3 m between them. The
   batch: all but at most one pair within 0.5 deg and 5 mm. The gap between
@@ -547,18 +576,19 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
                 "accurate simt", ab, aby, "tile_f32"))
 
 
-PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh", "robust", "cli")
+PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh", "robust", "cli", "serve_extra")
 ROW_ORDER = ("knn_window", "egcl_layer", "egcl_layer_f32", "egcl_backward", "egcl_backward_f32",
              "knn_chunked", "spfh")
 # the phases whose paths launch each kernel row's kernel
-DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust", "cli"),
-                 egcl_layer=("serve", "train", "robust"),
+DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust", "cli", "serve_extra"),
+                 egcl_layer=("serve", "train", "robust", "serve_extra"),
                  egcl_layer_f32=("serve", "train", "cli"),
                  egcl_backward=("train",), egcl_backward_f32=("train", "cli"),
-                 knn_chunked=("fpfh", "robust"), spfh=("fpfh", "robust"))
+                 knn_chunked=("fpfh", "robust", "serve_extra"),
+                 spfh=("fpfh", "robust", "serve_extra"))
 # the phases whose paths launch the SIMT kernels (accurate mode at C=33, the
 # kitti preset), counted in the fp32 rows' `simt_launches`
-SIMT_DRIVEN_BY = dict(egcl_layer_f32=("cli",), egcl_backward_f32=("cli",))
+SIMT_DRIVEN_BY = dict(egcl_layer_f32=("cli", "serve_extra"), egcl_backward_f32=("cli",))
 
 
 def main(argv=None) -> int:
@@ -694,6 +724,8 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
         robust_phase(torch, dev, cfg, bsz, sd, rows)
     if "cli" in phases:
         cli_phase(torch, dev, rows)
+    if "serve_extra" in phases:
+        serve_extra_phase(torch, dev, cfg, sd, rows)
     for name, row in rows.items():
         if any(ph in phases for ph in DRIVEN_BY[name]):
             check(row["launches"] > 0, f"{name}: no launch on the paths this run drove")
@@ -2345,6 +2377,400 @@ def other_configs(torch, dev, cfg, sd, args, same, rows):
                     dict(knn_window=knn_by_variant))
     log(f"register() at EngineConfig() defaults, 2 calls: launches knn "
         f"{knn.knn_window.launches} ({knn_by_variant}) egcl {by_variant}")
+
+
+# serve_extra: the clique prefilter's correspondences (CLIQUE_N, a share
+# CLIQUE_OUTLIERS of gross outliers), register_raw's raw clouds (points a
+# cloud, the voxel of the downsampled case), the Registrar export's batch
+EXTRA_CLIQUE_N, EXTRA_CLIQUE_OUTLIERS = 2048, 0.4
+EXTRA_RAW_POINTS, EXTRA_RAW_VOXEL = 20000, 0.03
+EXTRA_EXPORT_B, EXTRA_FPFH_B = 16, 8
+OP_OVERHEAD_CALLS = 1000
+
+# The deployment site of a Registrar artifact: a fresh interpreter that
+# imports torch and the port's op library only, loads the program, runs it
+# on the saved inputs with the launch counters at 0, then again with TF32
+# switched on globally, and reports what it counted and imported.
+EXPORT_CHILD = r"""
+import json, sys, time
+import torch
+from se3_equi_graph_registration_tpu_torch.ops.kernels import load_program
+from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl, knn
+path, inputs, outputs = sys.argv[1:4]
+fn = load_program(path)
+params, batch = torch.load(inputs)
+def run():
+    out = fn(params, batch)
+    torch.cuda.synchronize()
+    return out
+run()
+t0 = time.perf_counter()
+for _ in range(10):
+    run()
+host_ms = (time.perf_counter() - t0) * 100.0
+counts = []
+results = []
+for tf32 in (False, True):
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    knn.knn_window.launches_by_variant = {"warp": 0, "thread": 0}
+    egcl.egcl_layer.launches_by_variant = dict.fromkeys(egcl.VARIANTS, 0)
+    results.append([t.cpu() for t in run()])
+    counts.append({"knn_window": knn.knn_window.launches_by_variant,
+                   "egcl_layer": egcl.egcl_layer.launches_by_variant,
+                   "tf32_after": torch.backends.cuda.matmul.allow_tf32})
+torch.save(results, outputs)
+mods = sorted(m for m in sys.modules if m.startswith("se3_equi_graph_registration_tpu")
+              or m == "jax" or m.startswith("jax."))
+print(json.dumps({"counts": counts, "host_ms": host_ms, "modules": mods}))
+"""
+
+
+def outlier_requests(n, frac, c, seed):
+    """One correspondence set as the JAX prefilter test builds it: a rigid
+    copy of n Gaussian points with the first `frac` of the targets replaced
+    by gross outliers, and random descriptors; (src, feat, tgt, n_bad)."""
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import random_rotation
+
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((n, 3)).astype(np.float32)
+    R = random_rotation(rng).astype(np.float32)
+    tgt = src @ R.T + np.float32([0.2, -0.1, 0.3])
+    n_bad = int(frac * n)
+    tgt[:n_bad] = rng.standard_normal((n_bad, 3)).astype(np.float32) * 2.0
+    return src, rng.standard_normal((n, c)).astype(np.float32), tgt, n_bad
+
+
+def serve_extra_phase(torch, dev, cfg, sd, rows):
+    """The rest of serving, at full width on the card (module docstring):
+    (a) the clique prefilter, (b) register_raw at the kitti preset, (c) the
+    Registrar's torch.export artifact loaded in a fresh process, (d) the
+    pipeline's artifact, (e) export times, sizes and the ops' host cost."""
+    import os
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        extra_clique(torch, dev, cfg, sd, rows)
+        extra_register_raw(torch, dev, rows)
+        extra_registrar_export(torch, dev, cfg, sd, rows, tmp)
+        extra_pipeline_export(torch, dev, rows, os.path.join(tmp, "register.pt2"))
+    extra_op_overhead(torch, dev)
+    log(f"serve_extra: {time.perf_counter() - t_phase:.1f} s")
+
+
+def extra_clique(torch, dev, cfg, sd, rows):
+    """(a) register(clique_prefilter=True) at `cfg`, card against CPU: the
+    labels come from the host on both sides (equal); the poses at the serve
+    gate; the solver's time printed."""
+    from se3_equi_graph_registration_tpu_torch import serving
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl, knn
+
+    reg = serving.Registrar(sd, cfg, device=dev)
+    cpu_reg = serving.Registrar(sd, cfg, device="cpu")
+    src, feat, tgt, n_bad = outlier_requests(EXTRA_CLIQUE_N, EXTRA_CLIQUE_OUTLIERS,
+                                             cfg.in_node_nf, 7)
+    t0 = time.perf_counter()
+    lbl = reg._clique_labels(src, tgt, 0.10)
+    solve_s = time.perf_counter() - t0
+    kept_in, kept_out = lbl[n_bad:].mean(), lbl[:n_bad].mean()
+    check(kept_in >= 0.8 and kept_out <= 0.1,
+          f"clique: kept {kept_in:.3f} of the inliers and {kept_out:.3f} of the outliers")
+    reset_knn_counters(knn)
+    reset_egcl_counters(egcl)
+    t0 = time.perf_counter()
+    card = reg.register(src, feat, tgt, feat, clique_prefilter=True)
+    card_s = time.perf_counter() - t0
+    kd, by_variant = knn.knn_window.launches, dict(egcl.egcl_layer.launches_by_variant)
+    want = egcl.egcl_variant(cfg.hidden_nf, cfg.k, cfg.hidden_nf // cfg.num_heads,
+                             cfg.egnn_accurate)
+    check(kd == 2 and by_variant == only(want, 2 * cfg.n_layers),
+          f"clique register(): launches knn {kd}, egcl {by_variant}")
+    record_launches(rows, "serve_extra clique", dict(knn_window=kd,
+                                                     **by_row("egcl_layer", by_variant)),
+                    dict(knn_window=check_knn_warp(knn.knn_window, "clique register()")))
+    check(card[2]["clique_inliers"] == [int(lbl.sum())],
+          f"clique: card clique_inliers {card[2]['clique_inliers']}, host labels {lbl.sum()}")
+    dR, dt, _, _ = serve_gap(card, cpu_reg.register(src, feat, tgt, feat, labels=lbl),
+                             "clique register()")
+    log(f"clique prefilter (N={EXTRA_CLIQUE_N}, {EXTRA_CLIQUE_OUTLIERS:.0%} outliers, tau "
+        f"0.10): consistency graph + exact clique {solve_s:.2f} s on the host, clique "
+        f"{int(lbl.sum())} (inliers kept {kept_in:.4f}, outliers {kept_out:.4f}); card "
+        f"register(clique_prefilter=True) {card_s:.2f} s; card vs CPU max‖ΔR‖/√2 {dR:.3g}, "
+        f"max|Δt| {dt:.3g} m")
+
+
+def extra_register_raw(torch, dev, rows):
+    """(b) register_raw at the kitti preset's engine config (N=2048, C=33, 1
+    head, top_k=2048; the SIMT EGCL kernels), seeded weights, on a bumpy
+    surface pair of EXTRA_RAW_POINTS points, without and with a voxel:
+    the k-NN tables identical card vs CPU, descriptor entries apart by more
+    than 0.1 counted, matches equal on ≥ 99.5% of the rows, the card's
+    register() on the CPU's matched set at the serve gate; the full
+    register_raw gap card vs CPU printed."""
+    from se3_equi_graph_registration_tpu_torch import serving
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import random_rotation
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl, knn
+    from se3_equi_graph_registration_tpu_torch.train import checkpoints, config, engine
+
+    kcfg = config.preset("kitti").engine
+    model = engine.build_model(kcfg, "eval_fusion", device="cpu")
+    checkpoints.init_weights(model, torch.Generator().manual_seed(1))
+    reg = serving.Registrar(model.state_dict(), kcfg, device=dev)
+    cpu_reg = serving.Registrar(model.state_dict(), kcfg, device="cpu")
+    surf, rng = bumpy_surface(), np.random.default_rng(11)
+    R = random_rotation(rng).astype(np.float32)
+    src = surf(rng, EXTRA_RAW_POINTS)
+    tgt = (surf(rng, EXTRA_RAW_POINTS) @ R.T + np.float32([0.1, -0.2, 0.05])).astype(np.float32)
+    keys = ("src_pts", "src_feat", "tgt_pts", "tgt_feat")
+    for voxel in (0.0, EXTRA_RAW_VOXEL):
+        reset_knn_counters(knn)
+        reset_egcl_counters(egcl)
+        t0 = time.perf_counter()
+        card = reg.register_raw(src, tgt, voxel=voxel)
+        card_s = time.perf_counter() - t0
+        kd, by_variant = knn.knn_window.launches, dict(egcl.egcl_layer.launches_by_variant)
+        check(kd == 3 and by_variant == only("simt", 2 * kcfg.n_layers),
+              f"register_raw voxel={voxel}: launches knn {kd} (1 descriptor table, 2 "
+              f"graphs), egcl {by_variant}")
+        record_launches(rows, f"serve_extra register_raw voxel={voxel}", dict(knn_window=kd),
+                        dict(knn_window=check_knn_warp(knn.knn_window, "register_raw")),
+                        simt=dict(egcl_layer_f32=by_variant["simt"]))
+        c = {k: v.cpu() for k, v in reg.raw_correspondences(src, tgt, voxel=voxel).items()}
+        ref = cpu_reg.raw_correspondences(src, tgt, voxel=voxel)
+        check(torch.equal(c["src_pts"], ref["src_pts"]), "register_raw: fitted clouds differ")
+        check(torch.equal(c["nbr_src"], ref["nbr_src"]) and torch.equal(c["nbr_tgt"],
+                                                                          ref["nbr_tgt"]),
+              f"register_raw voxel={voxel}: k-NN tables differ card vs CPU")
+        far = int((c["src_feat"] - ref["src_feat"]).abs().gt(0.1).sum())
+        same_rows = float((c["matches"] == ref["matches"]).float().mean())
+        log(f"register_raw voxel={voxel}: gather FPFH card vs CPU by stage (source "
+            f"clouds): {fpfh_divergence(torch, dev, ref['src_pts'], ref['nbr_src'], 30, 60)}")
+        check(same_rows >= 0.995, f"register_raw voxel={voxel}: matches equal on only "
+              f"{same_rows:.4f} of the rows")
+        on_cpu_set = reg.register(*(ref[k].numpy() for k in keys))
+        dR, dt, _, _ = serve_gap(on_cpu_set, cpu_reg.register(*(ref[k].numpy() for k in keys)),
+                                 f"register() on the CPU's matched set, voxel={voxel}")
+        full = cpu_reg.register_raw(src, tgt, voxel=voxel)
+        fR = np.linalg.norm(card[0] - full[0]) / np.sqrt(2)
+        ft = float(np.abs(card[1] - full[1]).max())
+        log(f"register_raw voxel={voxel} ({EXTRA_RAW_POINTS} points a cloud, kitti preset, "
+            f"N={kcfg.num_nodes}): card {card_s:.2f} s; k-NN tables identical; source "
+            f"descriptor entries apart by > 0.1: {far} of {c['src_feat'].numel()}; matches "
+            f"equal {same_rows:.4f}; register() on the CPU's set card vs CPU max‖ΔR‖/√2 "
+            f"{dR:.3g}, max|Δt| {dt:.3g} m; full register_raw card vs CPU ‖ΔR‖/√2 {fR:.3g}, "
+            f"|Δt| {ft:.3g} m")
+
+
+def fpfh_divergence(torch, dev, x, nbr, k_normals, k_fpfh):
+    """Where the gather FPFH of the same clouds x [B, N, 3] and k-NN table
+    nbr [B, N, K] (CPU tensors) parts card from CPU, stage by stage as
+    `ops/fpfh.fpfh` computes it: the normals (max |Δ|, sign flips),
+    the Darboux source pick (edges whose source end swapped), and the α, φ
+    and θ bins (edges in another bin, all and where the pick agrees)."""
+    from se3_equi_graph_registration_tpu_torch.ops import fpfh
+    from se3_equi_graph_registration_tpu_torch.ops.knn import gather_rows
+
+    per = {}
+    for d in ("cpu", dev):
+        xd, nd = x.to(d), nbr.to(d)
+        normals = fpfh.estimate_normals(xd, orient="local", nbr=nd[..., :k_normals])
+        nf = nd[..., :k_fpfh]
+        p_j, n_j = gather_rows(xd, nf), gather_rows(normals, nf)
+        n_i = normals[..., :, None, :].expand_as(p_j)
+        dv = p_j - xd[..., :, None, :]
+        dist = torch.linalg.vector_norm(dv, dim=-1)
+        dhat = dv / (dist[..., None] + 1e-12)
+        cos_i = torch.abs(torch.sum(n_i * dhat, dim=-1))
+        cos_j = torch.abs(torch.sum(n_j * dhat, dim=-1))
+        take_i = (cos_i >= cos_j - fpfh.PICK_TIE)[..., None]
+        u = torch.where(take_i, n_i, n_j)
+        n_t = torch.where(take_i, n_j, n_i)
+        dvec = torch.where(take_i, dhat, -dhat)
+        v = torch.linalg.cross(dvec, u, dim=-1)
+        v = v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-12)
+        w = torch.linalg.cross(u, v, dim=-1)
+        feats = (torch.sum(v * n_t, dim=-1), torch.sum(u * dvec, dim=-1),
+                 torch.atan2(torch.sum(w * n_t, dim=-1), torch.sum(u * n_t, dim=-1)))
+        spans = ((-1.0, 1.0), (-1.0, 1.0), (-np.pi, np.pi))
+        bins = [torch.floor(torch.clamp((f - lo) / (hi - lo), 0.0, 1.0 - 1e-7) * 11)
+                for f, (lo, hi) in zip(feats, spans)]
+        per[d] = [t.cpu() for t in (normals, take_i[..., 0], cos_i - cos_j, *bins)]
+    (na, ta, ga, *ba), (nb, tb, gb, *bb) = per["cpu"], per[dev]
+    pick = ta != tb
+    flips = [int((a != b).sum()) for a, b in zip(ba, bb)]
+    flips_same_pick = [int(((a != b) & ~pick).sum()) for a, b in zip(ba, bb)]
+    return dict(normals_max=float((na - nb).abs().max()),
+                normals_opposed=int(((na * nb).sum(-1) < 0).sum()),
+                pick_swapped=int(pick.sum()), edges=int(pick.numel()),
+                pick_gap_max=float(ga[pick].abs().max()) if pick.any() else 0.0,
+                bin_flips_alpha_phi_theta=flips,
+                bin_flips_where_pick_agrees=flips_same_pick)
+
+
+def extra_registrar_export(torch, dev, cfg, sd, rows, tmp):
+    """(c) The Registrar at `cfg` exported on the card at B=EXTRA_EXPORT_B,
+    saved, and loaded in a fresh interpreter (EXPORT_CHILD): its outputs
+    equal register()'s on the same batch (within 1e-6, of the scale for the
+    covariance and the similarity), 2 warp k-NN and 2·L bf16 tile EGCL
+    launches counted at run time, and the same outputs with TF32 switched
+    on globally."""
+    import json
+    import os
+
+    from se3_equi_graph_registration_tpu_torch import serving
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
+
+    reg = serving.Registrar(sd, cfg, device=dev)
+    b, n = EXTRA_EXPORT_B, cfg.num_nodes
+    pb = make_pair_batch(np.random.default_rng(3), batch=b, n=n, feat_dim=cfg.in_node_nf)
+    path, inputs, outputs = (os.path.join(tmp, f) for f in ("registrar.pt2", "in.pt", "out.pt"))
+    t0 = time.perf_counter()
+    size = reg.export_compiled(path, batch=b)
+    export_s = time.perf_counter() - t0
+    batch = {"src_pts": pb.src_pts, "src_feat": pb.src_feat, "tgt_pts": pb.tgt_pts,
+             "tgt_feat": pb.tgt_feat, "labels": np.ones((b, n), np.float32)}
+    batch = {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev) for k, v in batch.items()}
+    params = {k: v.detach() for k, v in reg.model.state_dict().items()}
+    torch.save((params, batch), inputs)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", EXPORT_CHILD, path, inputs, outputs],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    child_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"export child failed:\n{res.stdout}\n{res.stderr[-4000:]}")
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    allowed = ("se3_equi_graph_registration_tpu_torch", "se3_equi_graph_registration_tpu_torch.ops")
+    stray = [m for m in report["modules"]
+             if m not in allowed and not m.startswith(("se3_equi_graph_registration_tpu_torch.ops.",))]
+    check(not stray, f"the artifact's loader imported {stray}")
+    want_counts = {"knn_window": {"warp": 2, "thread": 0},
+                   "egcl_layer": only("tile", 2 * cfg.n_layers), "tf32_after": None}
+    for counts, tf32 in zip(report["counts"], (False, True)):
+        check({**counts, "tf32_after": None} == want_counts and counts["tf32_after"] == tf32,
+              f"loaded Registrar (TF32 {tf32}): run-time launches {counts}")
+    record_launches(rows, "serve_extra loaded Registrar", dict(knn_window=4,
+                                                               egcl_layer=4 * cfg.n_layers),
+                    dict(knn_window={"warp": 4, "thread": 0}))
+    R, t, info = reg.register(*(np.asarray(a) for a in (pb.src_pts, pb.src_feat, pb.tgt_pts,
+                                                         pb.tgt_feat)))
+    loaded = torch.load(outputs)
+    gaps = []
+    for out in loaded:
+        lR, lt, lsim, lcov = (a.numpy() for a in out)
+        gaps.append((float(np.abs(lR - R).max()), float(np.abs(lt - t).max()),
+                     abs(float(lsim.mean()) - info["similarity_mean"]) / abs(info["similarity_mean"]),
+                     float(np.abs(lcov - info["pose_covariance"]).max()
+                           / np.abs(info["pose_covariance"]).max())))
+        check(max(gaps[-1]) <= 1e-6, f"loaded Registrar vs register(): gaps {gaps[-1]}")
+    check(all(torch.equal(a, c) for a, c in zip(*loaded)),
+          "loaded Registrar: TF32 on globally changed the outputs")
+    with torch.no_grad():
+        reg._apply(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            reg._apply(batch)
+        torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 100.0
+    args = tuple(np.asarray(a) for a in (pb.src_pts, pb.src_feat, pb.tgt_pts, pb.tgt_feat))
+    reg.register(*args)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        reg.register(*args)
+    register_ms = (time.perf_counter() - t0) * 100.0
+    log(f"Registrar export (fast_tpu_config, B={b}): export {export_s:.2f} s, artifact "
+        f"{size} bytes; fresh-process load + runs {child_s:.1f} s, imports {report['modules']}; "
+        f"run-time launches {report['counts'][0]}; loaded vs register() gaps (R, t, sim, cov) "
+        f"{gaps[0]}, TF32 on {gaps[1]} (outputs equal); host ms a call: loaded program "
+        f"{report['host_ms']:.2f} (device-resident batch), eager _apply {eager_ms:.2f}, "
+        f"register() {register_ms:.2f} (numpy in and out)")
+
+
+def extra_pipeline_export(torch, dev, rows, path):
+    """(d) The checkpoint-free pipeline exported at knn_method='fused',
+    knn_packed='chunked', window 768, N=2048, batch EXTRA_FPFH_B and the SVD
+    Kabsch (the other knobs register_fpfh's defaults), loaded: equal to
+    register_fpfh_batch with the same seed's noise (within 1e-6 of each
+    output's scale), 2 B4 and 2 B5 launches counted in the loaded call, no
+    B1. The quaternion Kabsch's 60 power steps a solve unroll in the trace:
+    at the default solver the export took 101.35 s and the artifact 36.0 MB,
+    with SVD 63.84 s and 29.5 MB (the card machine's host, torch 2.11)."""
+    from se3_equi_graph_registration_tpu_torch import registration
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl, knn, spfh
+    from se3_equi_graph_registration_tpu_torch.ops.ransac import gumbel_noise
+
+    b, seed = EXTRA_FPFH_B, 5
+    kw = dict(knn_method="fused", knn_packed="chunked", window=FPFH_WINDOW, solver="svd")
+    t0 = time.perf_counter()
+    size = registration.export_compiled(path, batch=b, n_points=FPFH_N, **kw)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn = registration.load_exported(path)
+    load_s = time.perf_counter() - t0
+    pairs = surface_pairs(b, 21)
+    src = np.stack([p[0] for p in pairs])
+    tgt = np.stack([p[1] for p in pairs])
+    R, t, info = registration.register_fpfh_batch(src, tgt, seed=seed, **kw)
+    noise = torch.as_tensor(gumbel_noise(seed, (512, 3, 512), b)).to(dev)
+    xs, xt = torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev)
+    fn(xs, xt, noise)
+    torch.cuda.synchronize()
+    reset_all_counters(knn, egcl, spfh)
+    t0 = time.perf_counter()
+    out = [a.cpu().numpy() for a in fn(xs, xt, noise)]
+    call_ms = (time.perf_counter() - t0) * 1e3
+    counts = counted_launches(knn, egcl, spfh)
+    check(counts["knn_chunked"] == {"warp": 2, "thread": 0}
+          and counts["spfh"] == {"redux": 2, "ballot": 0}
+          and sum(counts["knn_window"].values()) == 0,
+          f"loaded pipeline: run-time launches {counts}")
+    record_launches(rows, "serve_extra loaded pipeline", dict(knn_chunked=2, spfh=2),
+                    dict(knn_chunked=counts["knn_chunked"], spfh=counts["spfh"]))
+    gaps = [float(np.abs(g - w).max() / max(1.0, np.abs(w).max()))
+            for g, w in zip(out, (R, t, info["weights"], info["pose_covariance"]))]
+    check(max(gaps) <= 1e-6, f"loaded pipeline vs register_fpfh_batch: gaps {gaps}")
+    log(f"pipeline export (fused, chunked, W={FPFH_WINDOW}, N={FPFH_N}, batch {b}, SVD): export "
+        f"{export_s:.2f} s, artifact {size} bytes, load {load_s:.2f} s; loaded call "
+        f"{call_ms:.1f} ms (host clock, incl. the result copy); launches {counts}; gaps "
+        f"(R, t, weights, cov) {gaps}")
+
+
+def extra_op_overhead(torch, dev):
+    """(e) The host cost of a custom op: one knn_window call on one cloud
+    (packed keys, k=16, W=384) through the wrapper and its op, the op called
+    directly, and the allocation plus the ctypes launch alone, each over
+    OP_OVERHEAD_CALLS calls."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn
+
+    x = torch.rand(1, 2048, 3, device=dev)
+    b, n, k, tile, w = 1, 2048, 16, 128, 384
+    _, pad_tiles, max_tile = knn._geometry(n, tile, w, True, k)
+
+    def direct():
+        out = torch.empty((b, n, k), dtype=torch.int32, device=dev)
+        knn._launch("knn_warp", "knn_warp_launch", x, out, b, n, k, tile, w, pad_tiles,
+                    max_tile, 1, knn._queries_per_warp(b, n))
+
+    paths = {"wrapper + op": lambda: knn.knn_window(x, k, tile, w, packed=True),
+             "op": lambda: knn.knn_window_op(x, k, tile, w, True, True, "warp", 0),
+             "alloc + ctypes launch": direct}
+    times = {}
+    for name, fn in paths.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OP_OVERHEAD_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e6 / OP_OVERHEAD_CALLS
+    fx_config = getattr(torch.fx, "config", None)
+    log(f"torch {torch.__version__}: the export's stack-trace switch "
+        f"(torch.fx.config.do_not_emit_stack_traces) "
+        f"{'present' if hasattr(fx_config, 'do_not_emit_stack_traces') else 'absent'}")
+    log("host µs a knn_window call on one cloud: " + ", ".join(
+        f"{name} {us:.2f}" for name, us in times.items())
+        + f"; the op adds {times['op'] - times['alloc + ctypes launch']:.2f}")
 
 
 if __name__ == "__main__":

@@ -32,6 +32,9 @@ SOURCES = ("knn", "knn_warp", "knn_exact_warp", "knn_chunked", "knn_chunked_warp
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the namespace of the kernels' custom ops (`torch.ops.se3gspr_torch`)
+OPS = "se3gspr_torch"
+
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 

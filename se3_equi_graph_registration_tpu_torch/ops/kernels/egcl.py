@@ -21,13 +21,16 @@ contiguous). Two precision modes:
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import TYPE_CHECKING, NamedTuple
 
 import torch
 from torch.nn import functional as F
 
-from ...models.egnn import EGCL, EGNN
 from . import build
+from .build import OPS
+
+if TYPE_CHECKING:                 # an exported program's loader imports this module
+    from ...models.egnn import EGCL, EGNN
 
 _EPS = 1e-8
 _DEGEN = 1e-6
@@ -356,7 +359,7 @@ def check_inputs(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
         raise ValueError(f"the kernel takes 1 <= C <= 64 with whole heads, got C={c}")
 
 
-def _launch_tile(h, x, nbr, p, tile, agg_m, dbg):
+def _launch_tile(h, x, nbr, head_width, tile, agg_m, dbg):
     """Launch `csrc/egcl_tile.cu` → (h', x'); fills agg_m and dbg if given."""
     b, n, _ = h.shape
     h_out, x_out = torch.empty_like(h), torch.empty_like(x)
@@ -368,12 +371,12 @@ def _launch_tile(h, x, nbr, p, tile, agg_m, dbg):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), tile.data_ptr(),
                  h_out.data_ptr(), x_out.data_ptr(), ptr(agg_m), ptr(dbg), b, n,
-                 nbr.shape[-1], p.head_width, stream)
+                 nbr.shape[-1], head_width, stream)
     build.check(err, "egcl_tile_launch")
     return h_out, x_out
 
 
-def _launch_tile_f32(h, x, nbr, p, f32, agg_m):
+def _launch_tile_f32(h, x, nbr, head_width, f32, agg_m):
     """Launch `csrc/egcl_tile_f32.cu` → (h', x'); fills agg_m if given."""
     b, n, _ = h.shape
     h_out, x_out = torch.empty_like(h), torch.empty_like(x)
@@ -385,12 +388,12 @@ def _launch_tile_f32(h, x, nbr, p, f32, agg_m):
         err = fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), f32.data_ptr(),
                  h_out.data_ptr(), x_out.data_ptr(),
                  None if agg_m is None else agg_m.data_ptr(), b, n, nbr.shape[-1],
-                 p.head_width, stream)
+                 head_width, stream)
     build.check(err, "egcl_tile_f32_launch")
     return h_out, x_out
 
 
-def _launch_simt(h, x, nbr, p, simt, agg_m, accurate):
+def _launch_simt(h, x, nbr, head_width, simt, agg_m, accurate):
     """Launch `csrc/egcl.cu` → (h', x'); fills agg_m if given."""
     b, n, c = h.shape
     h_out, x_out = torch.empty_like(h), torch.empty_like(x)
@@ -402,23 +405,31 @@ def _launch_simt(h, x, nbr, p, simt, agg_m, accurate):
         err = fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), simt.data_ptr(),
                  h_out.data_ptr(), x_out.data_ptr(),
                  None if agg_m is None else agg_m.data_ptr(), b, n, nbr.shape[-1], c,
-                 p.head_width, int(not accurate), stream)
+                 head_width, int(not accurate), stream)
     build.check(err, "egcl_launch")
     return h_out, x_out
 
 
-# variant → (h, x, nbr, p, packed or None, agg_m or None, accurate) → (h', x')
+# variant → (h, x, nbr, the variant's weight buffer, head width, agg_m or None,
+# accurate) → (h', x')
 LAUNCHERS = {
-    "tile": lambda h, x, nbr, p, packed, agg_m, accurate: _launch_tile(
-        h, x, nbr, p, pack_params_tile(p).to(h.device) if packed is None else packed.tile,
-        agg_m, None),
-    "tile_f32": lambda h, x, nbr, p, packed, agg_m, accurate: _launch_tile_f32(
-        h, x, nbr, p, pack_params_f32(p).to(h.device) if packed is None else packed.f32,
-        agg_m),
-    "simt": lambda h, x, nbr, p, packed, agg_m, accurate: _launch_simt(
-        h, x, nbr, p, pack_params(p).to(h.device) if packed is None else packed.simt,
-        agg_m, accurate),
+    "tile": lambda h, x, nbr, buf, hw, agg_m, accurate: _launch_tile(
+        h, x, nbr, hw, buf, agg_m, None),
+    "tile_f32": lambda h, x, nbr, buf, hw, agg_m, accurate: _launch_tile_f32(
+        h, x, nbr, hw, buf, agg_m),
+    "simt": lambda h, x, nbr, buf, hw, agg_m, accurate: _launch_simt(
+        h, x, nbr, hw, buf, agg_m, accurate),
 }
+
+
+def kernel_buffer(variant: str, p: EGCLParams, packed: Packed | None) -> torch.Tensor:
+    """The weight buffer `variant`'s kernel reads: from `packed` when the
+    caller keeps it, else packed from `p` (tensor ops only, so it traces)."""
+    if variant == "tile":
+        return pack_params_tile(p) if packed is None else packed.tile
+    if variant == "tile_f32":
+        return pack_params_f32(p) if packed is None else packed.f32
+    return pack_params(p) if packed is None else packed.simt
 
 
 def launch_layer(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor, p: EGCLParams,
@@ -426,15 +437,28 @@ def launch_layer(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor, p: EGCLPar
                  return_aggm: bool = False, variant: str | None = None
                  ) -> tuple[torch.Tensor, ...]:
     """The kernel side of `egcl_layer`, whatever the device: checks the
-    inputs, picks the variant (`check_variant`), launches it through
-    `LAUNCHERS` and counts the launch."""
+    inputs, picks the variant (`check_variant`) and its weight buffer, and
+    calls the custom op `se3gspr_torch::egcl_layer` (`layer_op`)."""
     check_inputs(h, x, nbr, p.head_width)
     variant = check_variant(variant, h.shape[-1], nbr.shape[-1], p.head_width, accurate)
+    buf = kernel_buffer(variant, p, packed).to(h.device)
+    h_out, x_out, agg_m = layer_op(h, x, nbr, buf, variant, p.head_width, accurate,
+                                   return_aggm)
+    return (h_out, x_out, agg_m) if return_aggm else (h_out, x_out)
+
+
+def run_layer(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor, buf: torch.Tensor,
+              variant: str, head_width: int, accurate: bool, return_aggm: bool
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CUDA side of `se3gspr_torch::egcl_layer`: allocates agg_m when
+    asked (else returns an empty tensor in its place), launches the
+    variant's kernel through `LAUNCHERS` and counts the launch (at call
+    time, so an exported program counts each of its runs)."""
     agg_m = torch.empty_like(h) if return_aggm else None
-    h_out, x_out = LAUNCHERS[variant](h, x, nbr, p, packed, agg_m, accurate)
+    h_out, x_out = LAUNCHERS[variant](h, x, nbr, buf, head_width, agg_m, accurate)
     egcl_layer.launches += 1
     egcl_layer.launches_by_variant[variant] += 1
-    return (h_out, x_out, agg_m) if return_aggm else (h_out, x_out)
+    return h_out, x_out, h.new_empty(0) if agg_m is None else agg_m
 
 
 def egcl_layer(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
@@ -458,6 +482,14 @@ def egcl_layer(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
 
 egcl_layer.launches = 0
 egcl_layer.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+layer_op = torch.library.custom_op(OPS + "::egcl_layer", run_layer, mutates_args=(),
+                                   device_types="cuda")
+
+
+@layer_op.register_fake
+def _(h, x, nbr, buf, variant, head_width, accurate, return_aggm):
+    return (torch.empty_like(h), torch.empty_like(x),
+            torch.empty_like(h) if return_aggm else h.new_empty(0))
 
 
 def egcl_tile_stages(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
@@ -470,7 +502,7 @@ def egcl_tile_stages(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
                                                False) != "tile":
         raise ValueError("the tile kernel takes CUDA tensors at C=32 with whole heads")
     dbg = torch.zeros(*nbr.shape, 2 * TILE_C, dtype=torch.float32, device=h.device)
-    _launch_tile(h, x, nbr, p, pack_params_tile(p).to(h.device), None, dbg)
+    _launch_tile(h, x, nbr, p.head_width, pack_params_tile(p).to(h.device), None, dbg)
     return dbg[..., :TILE_C], dbg[..., TILE_C:]
 
 

@@ -54,6 +54,7 @@ import torch
 from .. import morton
 from ..knn import cross_dots, smallest_k, sq_norms
 from . import build
+from .build import OPS
 
 _PACK_MASK = ~0x3FF
 
@@ -195,18 +196,31 @@ def knn_window(x: torch.Tensor, k: int, tile: int = 128,
     `window=None` searches the whole cloud. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel `knn_variant` names
     (`csrc/knn_warp.cu` for packed keys, `csrc/knn_exact_warp.cu` for exact
-    keys). `variant='thread'` asks for `csrc/knn.cu` where a warp kernel
-    would run (to compare the two); 'warp' where there is none, or any
-    variant on a CPU tensor, raises.
+    keys) through the custom op `se3gspr_torch::knn_window`. `variant='thread'`
+    asks for `csrc/knn.cu` where a warp kernel would run (to compare the
+    two); 'warp' where there is none, or any variant on a CPU tensor, raises.
     """
     by_shape = knn_variant(packed, window, k)
     _check_call(x, tile, variant, by_shape)
     if x.device.type == "cpu":
         return knn_window_plain(x, k, tile, window, packed, include_self)
+    _geometry(x.shape[1], tile, window, packed, k)
+    variant = variant or by_shape
+    qb = 0
+    if variant == "thread":
+        optin = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
+        qb = thread_queries_per_block(k, tile, packed, optin)
+    return knn_window_op(x, k, tile, window, packed, include_self, variant, qb)
+
+
+def run_knn_window(x: torch.Tensor, k: int, tile: int, window: Optional[int], packed: bool,
+                   include_self: bool, variant: str, queries_per_block: int) -> torch.Tensor:
+    """The CUDA side of `se3gspr_torch::knn_window`: allocates the table,
+    launches the variant's kernel and counts the launch (at call time, so an
+    exported program counts each of its runs)."""
     b, n, _ = x.shape
     w, pad_tiles, max_tile = _geometry(n, tile, window, packed, k)
     out = torch.empty((b, n, k), dtype=torch.int32, device=x.device)
-    variant = variant or by_shape
     if variant == "warp" and packed:
         _launch("knn_warp", "knn_warp_launch", x, out, b, n, k, tile, w, pad_tiles, max_tile,
                 int(include_self), _queries_per_warp(b, n))
@@ -215,10 +229,8 @@ def knn_window(x: torch.Tensor, k: int, tile: int = 128,
                 *exact_warp_geometry(n, k, tile, window), int(include_self),
                 _queries_per_warp(b, n))
     else:
-        optin = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
-        qb = thread_queries_per_block(k, tile, packed, optin)
-        _launch("knn", "knn_launch", x, out, b, n, k, tile, qb, w, pad_tiles, max_tile,
-                int(packed), int(include_self))
+        _launch("knn", "knn_launch", x, out, b, n, k, tile, queries_per_block, w, pad_tiles,
+                max_tile, int(packed), int(include_self))
     knn_window.launches += 1
     knn_window.launches_by_variant[variant] += 1
     return out
@@ -226,6 +238,13 @@ def knn_window(x: torch.Tensor, k: int, tile: int = 128,
 
 knn_window.launches = 0
 knn_window.launches_by_variant = {"warp": 0, "thread": 0}
+knn_window_op = torch.library.custom_op(OPS + "::knn_window", run_knn_window,
+                                        mutates_args=(), device_types="cuda")
+
+
+@knn_window_op.register_fake
+def _(x, k, tile, window, packed, include_self, variant, queries_per_block):
+    return x.new_empty(x.shape[:2] + (k,), dtype=torch.int32)
 
 
 def _chunked_geometry(n: int, tile: int, window: int, k: int
@@ -268,14 +287,22 @@ def knn_chunked(x: torch.Tensor, k: int, tile: int = 128, window: int = 768,
     """Chunked packed-key k-NN (B4) of curve-sorted clouds x [B, N, 3] f32 →
     nbr [B, N, K] int32. A CPU tensor takes the plain version; a CUDA tensor
     launches `csrc/knn_chunked_warp.cu`, or with `variant='thread'` the
-    thread-a-query `csrc/knn_chunked.cu` (to compare the two)."""
+    thread-a-query `csrc/knn_chunked.cu` (to compare the two), through the
+    custom op `se3gspr_torch::knn_chunked`."""
     _check_call(x, tile, variant, knn_variant("chunked", window))
     if x.device.type == "cpu":
         return knn_chunked_plain(x, k, tile, window, include_self)
+    _chunked_geometry(x.shape[1], tile, window, k)
+    return knn_chunked_op(x, k, tile, window, include_self, variant or "warp")
+
+
+def run_knn_chunked(x: torch.Tensor, k: int, tile: int, window: int, include_self: bool,
+                    variant: str) -> torch.Tensor:
+    """The CUDA side of `se3gspr_torch::knn_chunked`: allocates, launches,
+    counts."""
     b, n, _ = x.shape
     pad_tiles, max_tile, _, s_pc = _chunked_geometry(n, tile, window, k)
     out = torch.empty((b, n, k), dtype=torch.int32, device=x.device)
-    variant = variant or "warp"
     if variant == "warp":
         _launch("knn_chunked_warp", "knn_chunked_warp_launch", x, out, b, n, k, tile, window,
                 s_pc, pad_tiles, max_tile, int(include_self), _queries_per_warp(b, n))
@@ -289,3 +316,10 @@ def knn_chunked(x: torch.Tensor, k: int, tile: int = 128, window: int = 768,
 
 knn_chunked.launches = 0
 knn_chunked.launches_by_variant = {"warp": 0, "thread": 0}
+knn_chunked_op = torch.library.custom_op(OPS + "::knn_chunked", run_knn_chunked,
+                                         mutates_args=(), device_types="cuda")
+
+
+@knn_chunked_op.register_fake
+def _(x, k, tile, window, include_self, variant):
+    return x.new_empty(x.shape[:2] + (k,), dtype=torch.int32)

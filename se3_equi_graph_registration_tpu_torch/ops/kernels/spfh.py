@@ -33,6 +33,7 @@ import torch
 
 from .knn import _geometry
 from . import build
+from .build import OPS
 
 BINS = 11
 _CLIP_HI = 1.0 - 1e-7
@@ -147,7 +148,8 @@ def spfh(x: torch.Tensor, normals: torch.Tensor, nbr: torch.Tensor,
     window k-NN at the same tile/window. A CPU tensor takes the plain
     version; a CUDA tensor launches `csrc/spfh_redux.cu`, or with
     `variant='ballot'` the ballot kernel `csrc/spfh.cu` kept to compare (a
-    variant on a CPU tensor raises)."""
+    variant on a CPU tensor raises), through the custom op
+    `se3gspr_torch::spfh`."""
     if variant not in (None, *VARIANTS):
         raise ValueError(f"no {variant!r} SPFH kernel; have {VARIANTS}")
     if x.device.type == "cpu":
@@ -161,7 +163,13 @@ def spfh(x: torch.Tensor, normals: torch.Tensor, nbr: torch.Tensor,
         raise ValueError("nbr must be int32")
     if not (x.is_contiguous() and normals.is_contiguous() and nbr.is_contiguous()):
         raise ValueError("x, normals and nbr must be contiguous")
-    variant = variant or "redux"
+    return spfh_op(x, normals, nbr, tile, window, accurate, variant or "redux")
+
+
+def run_spfh(x: torch.Tensor, normals: torch.Tensor, nbr: torch.Tensor, tile: int,
+             window: int, accurate: bool, variant: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA side of `se3gspr_torch::spfh`: allocates the outputs,
+    launches the variant's kernel and counts the launch."""
     b, n, k = nbr.shape
     w, pad_tiles, max_tile = _geometry(n, tile, window, False, k)
     out = torch.empty((b, n, 3 * BINS), dtype=torch.float32, device=x.device)
@@ -187,6 +195,13 @@ def spfh(x: torch.Tensor, normals: torch.Tensor, nbr: torch.Tensor,
 
 spfh.launches = 0
 spfh.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+spfh_op = torch.library.custom_op(OPS + "::spfh", run_spfh, mutates_args=(),
+                                  device_types="cuda")
+
+
+@spfh_op.register_fake
+def _(x, normals, nbr, tile, window, accurate, variant):
+    return x.new_empty(nbr.shape[:2] + (3 * BINS,)), x.new_empty(nbr.shape)
 
 
 def occupancy(variant: str, b: int, n: int, k: int, tile: int, window: int,

@@ -29,11 +29,14 @@ TF32 (`ops/numerics.fp32_matmuls`).
 
 Entry points run on the card unless device='cpu'. `register_fpfh_batch`
 sends its B pairs through each kernel as one launch per cloud side.
-Not ported yet: the `mesh` of register_fpfh_batch (ROADMAP Queue A item 9),
-export_compiled and load_exported (Queue A item 7).
+`export_compiled` writes the whole pipeline at fixed shapes as a
+`torch.export` artifact (the kernels as the custom ops `se3gspr_torch::*`);
+`load_exported` loads it. Not ported yet: the `mesh` of register_fpfh_batch
+(ROADMAP Queue A item 9).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import numpy as np
@@ -48,13 +51,15 @@ from .ops.icp import (icp_refine, icp_refine_multiscale, nearest_neighbor,
                       point_covariances)
 from .ops.kabsch import kabsch_irls, kabsch_weighted, pose_covariance
 from .ops.kernels import knn as knn_kernels
+from .ops.kernels import load_program
 from .ops.kernels import spfh as spfh_kernel
 from .ops.knn import cross_dots, gather_rows, pairwise_sq_dists, sq_norms
 from .ops.numerics import fp32_matmuls
 from .ops.ransac import gumbel_noise, ransac_pose, ransac_pose_branches
 from .ops.spectral import spectral_match_weights
 
-__all__ = ["register_fpfh", "register_fpfh_batch", "match_features"]
+__all__ = ["register_fpfh", "register_fpfh_batch", "match_features", "export_compiled",
+           "load_exported"]
 
 _TILE = 128
 
@@ -297,3 +302,93 @@ def register_fpfh_batch(src_pts, tgt_pts, *, seed: int = 0, mesh=None,
     out = torch.cat([R.reshape(b, 9), t, cov.reshape(b, 36), w], dim=-1).cpu().numpy()
     return (out[:, :9].reshape(b, 3, 3), out[:, 9:12],
             {"weights": out[:, 48:], "pose_covariance": out[:, 12:48].reshape(b, 6, 6)})
+
+
+def _export_device(platforms: Optional[tuple],
+                   own: Optional[torch.device] = None) -> torch.device:
+    """The device an export traces on. `own` is the exporter's device (a
+    Registrar's) or None (the pipeline: the default device). platforms=None
+    takes it; a single 'cuda' or 'cpu' must name it, or names the device
+    where `own` is None. A `torch.export` artifact holds one device's graph,
+    so any other value raises ValueError."""
+    if platforms is not None and (
+            not isinstance(platforms, (tuple, list)) or len(platforms) != 1
+            or platforms[0] not in ("cuda", "cpu")
+            or (own is not None and platforms[0] != own.type)):
+        have = "None, ('cuda',) or ('cpu',)" if own is None else f"None or ({own.type!r},)"
+        raise ValueError(f"platforms={platforms!r}: a torch.export artifact holds one "
+                         f"device's graph; pass {have}")
+    if own is not None:
+        return own
+    return resolve_device(None if platforms is None else platforms[0])
+
+
+def _save_export(module: torch.nn.Module, args: tuple, path: str) -> int:
+    """torch.export (non-strict, no autograd) → torch.export.save; the size.
+    The trace records no Python stack trace a node (`torch.fx.config`, where
+    this torch has the switch): that halves the export's time and trims the
+    artifact, and a deployed program has no use for the trace."""
+    fx_config = getattr(torch.fx, "config", None)
+    prev = getattr(fx_config, "do_not_emit_stack_traces", None)
+    if prev is not None:
+        fx_config.do_not_emit_stack_traces = True
+    try:
+        with torch.no_grad():
+            program = torch.export.export(module, args, strict=False)
+    finally:
+        if prev is not None:
+            fx_config.do_not_emit_stack_traces = prev
+    torch.export.save(program, path)
+    return os.path.getsize(path)
+
+
+class _Pipeline(torch.nn.Module):
+    """`_register_core` at fixed knobs, as a module for `torch.export`."""
+
+    def __init__(self, kw: dict):
+        super().__init__()
+        self.kw = kw
+
+    def forward(self, src: torch.Tensor, tgt: torch.Tensor,
+                noise: Optional[torch.Tensor] = None):
+        return _register_core(src, tgt, noise, **self.kw)
+
+
+def export_compiled(path: str, *, batch: int = 1, n_points: int = 2048,
+                    platforms: Optional[tuple] = None, **knobs) -> int:
+    """Export the checkpoint-free pipeline (descriptor k-NN, normals, FPFH,
+    matching, the coarse stage, IRLS, ICP, covariance) as a `torch.export`
+    artifact at fixed shapes, written with `torch.export.save` to `path`;
+    returns its size in bytes. The knobs are `register_fpfh_batch`'s
+    (`DEFAULTS`), fixed in the program; `top_m` is clamped to `n_points`.
+
+    The program takes ``(src [batch, n_points, 3], tgt [batch, n_points, 3],
+    noise [batch, hypotheses, 3, top_m])`` for coarse 'ransac' or 'fgr',
+    ``(src, tgt)`` for 'spectral', all float32, and returns ``(R [batch, 3, 3],
+    t [batch, 3], weights [batch, n_points], pose_covariance [batch, 6, 6])``.
+    The port draws RANSAC's and FGR's triplets from host Gumbel noise, not
+    from JAX's PRNG keys: ``ops.ransac.gumbel_noise(seed, (hypotheses, 3,
+    top_m), batch)`` is the noise with which the loaded call equals
+    `register_fpfh_batch(seed=seed)`.
+
+    `platforms=None` exports for the default device (the card, or an error
+    without one); ("cuda",) or ("cpu",) names the device. A `torch.export`
+    artifact holds one device's graph, so anything else raises ValueError."""
+    kw = _knobs(knobs, "export_compiled")
+    kw["top_m"] = min(kw["top_m"], n_points)
+    _check_knobs(n_points, kw)
+    dev = _export_device(platforms)
+    args = [torch.zeros(batch, n_points, 3, device=dev) for _ in range(2)]
+    if kw["coarse"] in ("ransac", "fgr"):
+        args.append(torch.zeros(batch, kw["hypotheses"], 3, kw["top_m"], device=dev))
+    return _save_export(_Pipeline(kw), tuple(args), path)
+
+
+def load_exported(path: str):
+    """Load an `export_compiled` artifact; returns
+    ``fn(src, tgt[, noise]) -> (R, t, weights, pose_covariance)``, run under
+    `torch.no_grad()` and in full float32 matrix products (`fp32_matmuls`;
+    TF32 is process state, which the artifact cannot carry). The deployment
+    site needs torch and the port's kernel op library (`ops/kernels`);
+    a JAX export needs only jax."""
+    return load_program(path)

@@ -36,6 +36,7 @@ PORT_MODULES = [
     "se3_equi_graph_registration_tpu_torch.utils.timer",
     "se3_equi_graph_registration_tpu_torch.utils.logging",
     "se3_equi_graph_registration_tpu_torch.utils.debugging",
+    "se3_equi_graph_registration_tpu_torch.native.max_clique",
 ]
 
 
@@ -321,7 +322,7 @@ def test_register_fpfh_rejects_unported_options():
                                    device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         registration.register_fpfh_batch(pts[None], pts[None], mesh=object(), device="cpu")
-    assert not hasattr(registration, "export_compiled")
+    assert callable(registration.export_compiled) and callable(registration.load_exported)
 
 
 @pytest.mark.parametrize("c,head_width,accurate,want", [
@@ -404,7 +405,8 @@ def test_fp32_weight_packing_round_trips(heads):
 def test_default_config_entry_points_launch_only_the_fp32_tile_kernels(monkeypatch, path):
     """At `EngineConfig()` (accurate mode, C=32, 4 heads) every EGCL launch of
     `register()` and of a train step goes to the fp32 tile kernels: the
-    wrappers' kernel side (`launch_layer`, `launch_backward`) runs on CPU
+    wrappers' kernel side (`launch_layer`, with the custom op's CUDA side
+    `run_layer` in place of the op, and `launch_backward`) runs on CPU
     tensors with the launchers stubbed by the plain versions, and records
     which kernel each launch would start."""
     from se3_equi_graph_registration_tpu_torch import serving
@@ -416,9 +418,10 @@ def test_default_config_entry_points_launch_only_the_fp32_tile_kernels(monkeypat
     launched = []
 
     def fake_fwd(variant):
-        def run(h, x, nbr, p, packed, agg_m, accurate):
+        def run(h, x, nbr, buf, head_width, agg_m, accurate):
             launched.append(("egcl", variant))
-            assert packed is not None and packed.f32 is not None
+            assert buf.numel() == 12416                # the fp32 tile layout
+            p = egcl.unpack_params_f32(buf, head_width)
             out = egcl.egcl_layer_plain(h, x, nbr, p, accurate, return_aggm=True)
             if agg_m is not None:
                 agg_m.copy_(out[2])
@@ -440,6 +443,7 @@ def test_default_config_entry_points_launch_only_the_fp32_tile_kernels(monkeypat
         return wrapped
 
     monkeypatch.setattr(egcl, "LAUNCHERS", {v: fake_fwd(v) for v in egcl.VARIANTS})
+    monkeypatch.setattr(egcl, "layer_op", egcl.run_layer)   # the op's CUDA side, on CPU tensors
     monkeypatch.setattr(egcl, "egcl_layer", kernel_side(egcl.launch_layer, egcl.VARIANTS))
     monkeypatch.setattr(eb, "LAUNCH", fake_bwd)
     monkeypatch.setattr(eb, "egcl_backward", kernel_side(eb.launch_backward, egcl.VARIANTS))
