@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh,robust,cli,serve_extra]
+    python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh,robust,cli,serve_extra,variants]
 
 Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
@@ -82,7 +82,19 @@ everything runs):
   `register()`; (d) the fused pipeline (chunked, W=768, N=2048, batch 8,
   SVD Kabsch) exported and loaded, 2 B4 and 2 B5 counted in the loaded
   call; (e) the host cost of a knn_window call through its custom op
-  against the allocation and ctypes launch alone, over 1000 calls.
+  against the allocation and ctypes launch alone, over 1000 calls;
+- the model variants (`variants`), at full width, each timed with CUDA
+  events after a warm-up: (a) a 'cluster' Registrar (the reference
+  checkpoints' edge orientation) from a `.pth` the port's exporter writes
+  from the seeded weights, eval_fusion head, B=16 (2 whole-cloud warp k-NN
+  and no EGCL kernel a call: the plain EGNN, as the JAX package routes
+  'cluster'); (b) an 'invariant' Registrar, B=16, the same counts, and the
+  rotation equivariance of its pose and its EGNN on the card; (c) 5 train
+  steps at `fast_tpu_config(bf16_params=True)`, B=16 (2 packed warp k-NN,
+  6 bf16 tile B2 and 6 bf16 tile B3 a step; bf16 live parameters within
+  one bf16 ulp of their fp32 masters); (d) one train step with the PointNet
+  encoder at `EngineConfig(use_pointnet=True)`, B=8 (2 whole-cloud warp
+  k-NN, 6 fp32 tile B2 and B3).
 Any failed check raises (non-zero exit, no result line). The last line is
 one JSON object with the device.
 
@@ -193,6 +205,35 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   and weights, card vs CPU: every loss term within 1e-4 relative, every
   gradient at cosine >= 0.9999 and relative L2 <= 1e-4 (the train phase's
   accurate gates).
+- variants: (a) and (b) card vs CPU, R and t within 2e-5 (the plain EGNN
+  in fp32 on both sides, the 'cluster' sums by atomics on the card); (b)
+  the target rotated by Q: R' = QR and t' = Qt within 1e-4; the EGNN in
+  fp64 (a copy of the weights): h(Qx) = h(x) and its coordinate update
+  u(Qx) = Q u(x) within 1e-6 of their scales (measured on the CPU 4.5e-8
+  and 5.3e-8). In fp32 the invariant mode's ratio feature √‖x_row ×
+  x_col‖² / ‖rel‖² is ill-conditioned at N=2048 (‖x_row × x_col‖² comes
+  from a cancellation, then divides by the ‖rel‖² of close neighbours: 2.2
+  off its fp64 value at a scale of 138), so the fp32 h moves by ~3e-2 of
+  its scale under a rotation, bounded by its fp32-against-fp64 gaps at x
+  and Qx; both printed; (c) after 5 fast steps every live parameter bf16
+  and within one bf16 ulp of its fp32 master, the losses finite; step 1
+  card vs CPU from the same init and batch in fast mode is printed, not
+  held (bf16 operands summed in another order, at the seeded weights'
+  saturated similarity softmax: the first card run found a master 2 lr
+  off, an Adam first step of the other sign, where the gradient exceeded
+  1e-2 of its tensor's max); the same bf16 step in accurate mode (fp32
+  tile B2 and B3) is held at the train gate: the loss within 1e-4
+  relative, the gradients at cosine >= 0.9999, the fp32 masters within
+  1e-6 where the CPU's first gradient exceeds 1e-3 of its tensor's max and
+  2 lr everywhere (plus the fp32 rounding of the two updates); (d) the
+  cli phase's train gates, every loss term within 1e-4 relative and every
+  gradient at cosine >= 0.9999, and the relative L2 within the larger of
+  1e-4 and two fp32 spacings of the largest similarity: at the seeded
+  weights the train head's softmax over similarities of ~8e3 is one-hot,
+  and a spacing there scales the runner-up's weight and every gradient on
+  the Kabsch path by that much (the first card run measured 1.01e-4 on
+  `egnn.gcl_1.edge_mlp.head_biases` at cosine 1 - 3.6e-11: a scale, not a
+  direction).
 - serve_extra: (a) the clique keeps ≥ 80% of the inliers and ≤ 10% of the
   outliers, the card's clique_inliers equal the host labels' count (both
   sides label on the host), R and t at the serving gate (2e-3); (b) the
@@ -576,14 +617,17 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
                 "accurate simt", ab, aby, "tile_f32"))
 
 
-PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh", "robust", "cli", "serve_extra")
+PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh", "robust", "cli", "serve_extra",
+          "variants")
 ROW_ORDER = ("knn_window", "egcl_layer", "egcl_layer_f32", "egcl_backward", "egcl_backward_f32",
              "knn_chunked", "spfh")
 # the phases whose paths launch each kernel row's kernel
-DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust", "cli", "serve_extra"),
-                 egcl_layer=("serve", "train", "robust", "serve_extra"),
-                 egcl_layer_f32=("serve", "train", "cli"),
-                 egcl_backward=("train",), egcl_backward_f32=("train", "cli"),
+DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust", "cli", "serve_extra",
+                             "variants"),
+                 egcl_layer=("serve", "train", "robust", "serve_extra", "variants"),
+                 egcl_layer_f32=("serve", "train", "cli", "variants"),
+                 egcl_backward=("train", "variants"),
+                 egcl_backward_f32=("train", "cli", "variants"),
                  knn_chunked=("fpfh", "robust", "serve_extra"),
                  spfh=("fpfh", "robust", "serve_extra"))
 # the phases whose paths launch the SIMT kernels (accurate mode at C=33, the
@@ -726,6 +770,8 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
         cli_phase(torch, dev, rows)
     if "serve_extra" in phases:
         serve_extra_phase(torch, dev, cfg, sd, rows)
+    if "variants" in phases:
+        variants_phase(torch, dev, cfg, sd, rows)
     for name, row in rows.items():
         if any(ph in phases for ph in DRIVEN_BY[name]):
             check(row["launches"] > 0, f"{name}: no launch on the paths this run drove")
@@ -2771,6 +2817,296 @@ def extra_op_overhead(torch, dev):
     log("host µs a knn_window call on one cloud: " + ", ".join(
         f"{name} {us:.2f}" for name, us in times.items())
         + f"; the op adds {times['op'] - times['alloc + ctypes launch']:.2f}")
+
+
+VARIANTS_PAIRS = 16           # register() requests of (a), (b); train pairs of (c)
+VARIANTS_POINTNET_PAIRS = 8   # train pairs of (d)
+
+
+def variants_phase(torch, dev, cfg, sd, rows):
+    """The model variants at full width (N=2048, k=16, C=32, 3 layers, 4
+    heads, top_k=128), each timed with CUDA events after a warm-up and
+    profiled over one call, its
+    launches counted by kernel with the counters at 0 just before it:
+    (a) a 'cluster' Registrar from a `.pth` the port's exporter writes from
+    the seeded weights (the reference checkpoints' orientation), eval_fusion
+    head, at `EngineConfig()` otherwise; (b) an 'invariant' Registrar and
+    the EGNN's rotation equivariance on the card; (c) 5 train steps at
+    `fast_tpu_config(bf16_params=True)`, then its first step and the same
+    step in accurate mode against the CPU; (d) one train step with the
+    PointNet encoder at `EngineConfig(use_pointnet=True)`. Each against the
+    same call on the CPU."""
+    import copy
+    import dataclasses
+    import os
+
+    from se3_equi_graph_registration_tpu_torch import serving
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import build, egcl, knn
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+    from se3_equi_graph_registration_tpu_torch.train import checkpoints, engine
+
+    t_phase = time.perf_counter()
+    width = dict(num_nodes=cfg.num_nodes, k=cfg.k, in_node_nf=cfg.in_node_nf,
+                 hidden_nf=cfg.hidden_nf, n_layers=cfg.n_layers, num_heads=cfg.num_heads,
+                 top_k=cfg.top_k)
+    L, b = cfg.n_layers, VARIANTS_PAIRS
+    pb = make_pair_batch(np.random.default_rng(41), batch=b, n=cfg.num_nodes,
+                         feat_dim=cfg.in_node_nf)
+    args = (pb.src_pts, pb.src_feat, pb.tgt_pts, pb.tgt_feat)
+
+    def counts():
+        return (dict(knn.knn_window.launches_by_variant),
+                dict(egcl.egcl_layer.launches_by_variant),
+                dict(eb.egcl_backward.launches_by_variant))
+
+    def reset():
+        reset_knn_counters(knn)
+        reset_egcl_counters(egcl)
+        reset_backward_counters(eb)
+
+    def record(path, got):
+        kc, fc, bc = got
+        record_launches(rows, f"variants {path}",
+                        dict(knn_window=sum(kc.values()), **by_row("egcl_layer", fc),
+                             **by_row("egcl_backward", bc)), dict(knn_window=kc))
+
+    results = {}
+
+    def serve(name, reg, cpu_reg):
+        """One Registrar at B=16: one counted call, card vs CPU (R and t
+        within 2e-5), CUDA-event time; 2 whole-cloud warp k-NN and no EGCL
+        kernel a call (the plain EGNN)."""
+        reset()
+        R, t, info = reg.register(*args)
+        got = counts()
+        check(got == ({"warp": 2, "thread": 0}, only("simt", 0), only("simt", 0)),
+              f"variants {name}: launches knn/egcl/egcl_backward {got}, want 2 warp k-NN, "
+              f"no EGCL")
+        record(name, got)
+        ms = event_ms(torch, lambda: reg.register(*args), 5)
+        profile_call(torch, lambda: reg.register(*args), f"variants {name} register() B={b}")
+        t1 = time.perf_counter()
+        Rc, tc, ic = cpu_reg.register(*args)
+        cpu_s = time.perf_counter() - t1
+        dR, dt = float(np.abs(R - Rc).max()), float(np.abs(t - tc).max())
+        check(np.all(np.isfinite(R)) and np.all(np.isfinite(t))
+              and np.abs(np.linalg.det(R) - 1).max() < 1e-3, f"variants {name}: bad pose")
+        check(dR <= 2e-5 and dt <= 2e-5, f"variants {name}: card vs CPU max|ΔR| {dR} max|Δt| {dt}")
+        results[name] = ms
+        log(f"variants {name} register() B={b}: {ms:.2f} ms a call (CUDA events, 5 calls "
+            f"after a warm-up); card vs CPU max|ΔR| {dR:.3g}, max|Δt| {dt:.3g} m; launches "
+            f"k-NN {got[0]}, EGCL none; CPU run {cpu_s:.1f} s")
+        return R, t
+
+    # (a) 'cluster' from a .pth: the reference checkpoints' own semantics
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    path = os.path.join(build.BUILD_DIR, "variants_smoke.pth")
+    checkpoints.export_reference_checkpoint(sd, path, n_layers=cfg.n_layers,
+                                            num_heads=cfg.num_heads, hidden=cfg.hidden_nf)
+    kw = dict(width, fast=False, direction="cluster")
+    reg = serving.Registrar.from_checkpoint(path, device=dev, **kw)
+    cpu_reg = serving.Registrar.from_checkpoint(path, device="cpu", **kw)
+    check(reg.cfg == engine.EngineConfig(**width, direction="cluster") and reg._kp is None,
+          f"variants: from_checkpoint built {reg.cfg}")
+    serve("(a) cluster .pth", reg, cpu_reg)
+
+    # (b) 'invariant': the served call, then the EGNN's equivariance on the card
+    icfg = engine.EngineConfig(**width, so3_mode="invariant")
+    reg = serving.Registrar(sd, icfg, device=dev)
+    R, t = serve("(b) invariant", reg, serving.Registrar(sd, icfg, device="cpu"))
+    Q = torch.from_numpy(np.asarray([[0.36, 0.48, -0.8], [-0.8, 0.6, 0.0], [0.48, 0.64, 0.6]],
+                                    np.float32)).to(dev)
+    Rq, tq, _ = reg.register(pb.src_pts, pb.src_feat,
+                             (torch.from_numpy(pb.tgt_pts).to(dev) @ Q.T).cpu().numpy(),
+                             pb.tgt_feat)
+    Qn = Q.cpu().numpy()
+    eq_R = float(np.abs(Rq - Qn @ R).max())
+    eq_t = float(np.abs(tq - t @ Qn.T).max())
+    # the EGNN's property, in fp64 on the card (an fp64 copy of the weights):
+    # the ratio feature √‖x_row × x_col‖² / ‖rel‖² of the invariant mode is
+    # ill-conditioned in fp32 at N=2048 (close neighbours), so the fp32 gap
+    # is printed beside the fp32-against-fp64 gap that bounds it
+    x = torch.from_numpy(pb.src_pts).to(dev)
+    h = torch.from_numpy(pb.src_feat).to(dev)
+    nbr = knn.knn_window(x, cfg.k, tile=128, window=None)
+    e64 = copy.deepcopy(reg.model.egnn).double()
+    with torch.no_grad():
+        H1, X1 = e64(h.double(), x.double(), nbr)
+        H2, X2 = e64(h.double(), x.double() @ Q.double().T, nbr)
+        h1, _ = reg.model.egnn(h, x, nbr)
+        h2, _ = reg.model.egnn(h, x @ Q.T, nbr)
+    scale = H1.abs().max()
+    eq_h = float((H2 - H1).abs().max() / scale)
+    U1, U2 = X1 - x.double(), X2 - x.double() @ Q.double().T
+    eq_u = float((U2 - U1 @ Q.double().T).abs().max() / U1.abs().max())
+    gap32 = float((h2 - h1).abs().max() / scale)
+    floor32 = float(((h1 - H1).abs().max() + (h2 - H2).abs().max()) / scale)
+    log(f"variants (b) invariant equivariance on the card, target rotated by Q: max|R' - QR| "
+        f"{eq_R:.3g}, max|t' - Qt| {eq_t:.3g} m; the EGNN in fp64: h(Qx) vs h(x) {eq_h:.3g} "
+        f"of the scale, update u(Qx) vs Q u(x) {eq_u:.3g} of the scale (update max "
+        f"{float(U1.abs().max()):.3g}); in fp32: h(Qx) vs h(x) {gap32:.3g}, fp32 against fp64 "
+        f"at x and Qx {floor32:.3g} of the scale")
+    check(eq_R <= 1e-4 and eq_t <= 1e-4 and eq_h <= 1e-6 and eq_u <= 1e-6,
+          f"variants (b) invariant: not equivariant on the card: R {eq_R} t {eq_t} h {eq_h} "
+          f"u {eq_u}")
+
+    def batches(n_pairs, seed, dv):
+        rng = np.random.default_rng(seed)
+        return [engine.batch_to_device(tuple(make_pair_batch(
+            rng, batch=n_pairs, n=cfg.num_nodes, feat_dim=cfg.in_node_nf)), dv)
+            for _ in range(2)]
+
+    def first_step(bcfg, bt, seed):
+        """One bf16 train step from the same seeded init on the card and on
+        the CPU: (loss card, loss CPU, [master gradients], [masters after],
+        for each side), the gradients as Adam sees them (a pre-step hook)."""
+        out = []
+        for dv in (dev, "cpu"):
+            st = engine.init_state(bcfg, torch.Generator().manual_seed(seed), device=dv)
+            g = []
+            st.optimizer.adam.register_step_pre_hook(lambda *_, g=g, st=st: g.extend(
+                t_.grad.detach().cpu().clone() for t_ in st.optimizer.sr.master))
+            st, m_ = engine.make_train_step(st.model, st.optimizer, bcfg)(
+                st, {k: v.to(dv) for k, v in bt.items()})
+            out.append((float(m_["total"]), g,
+                        [t_.detach().cpu().clone() for t_ in st.optimizer.sr.master]))
+        return out
+
+    def master_gaps(card, cpu_, floor):
+        """(max|Δ| of the masters where the CPU's first gradient exceeds
+        `floor` of its tensor's max, max|Δ| everywhere, the worst gradient
+        cosine)."""
+        worst, worst_big, cos = 0.0, 0.0, 1.0
+        for a, r, ga, g in zip(card[2], cpu_[2], card[1], cpu_[1]):
+            d = (a - r).abs()
+            big = g.abs() > floor * g.abs().max()
+            worst = max(worst, float(d.max()))
+            worst_big = max(worst_big, float(d[big].max()) if bool(big.any()) else 0.0)
+            x, y = ga.double().flatten(), g.double().flatten()
+            cos = min(cos, float(x @ y / (x.norm() * y.norm()).clamp_min(1e-300)))
+        return worst_big, worst, cos
+
+    # (c) bf16 parameters, fast_tpu_config: 2 packed B1, 6 bf16-tile B2 and B3 a step
+    bcfg = engine.fast_tpu_config(**width, bf16_params=True)
+    state = engine.init_state(bcfg, torch.Generator().manual_seed(3), device=dev)
+    check(all(p.dtype == torch.bfloat16 for p in state.model.parameters())
+          and all(m.dtype == torch.float32 for m in state.optimizer.sr.master),
+          "variants (c): live parameters not bf16 or masters not fp32")
+    cards = batches(b, 43, dev)
+    step = engine.make_train_step(state.model, state.optimizer, bcfg)
+    reset()
+    per_step, losses = [], []
+    for i in range(5):
+        before = (knn.knn_window.launches, egcl.egcl_layer.launches, eb.egcl_backward.launches)
+        state, m = step(state, cards[i % 2])
+        per_step.append([n - n0 for n, n0 in zip(
+            (knn.knn_window.launches, egcl.egcl_layer.launches, eb.egcl_backward.launches),
+            before)])
+        losses.append(m["total"])
+    got = counts()
+    torch.cuda.synchronize()
+    check(all(c == [2, 2 * L, 2 * L] for c in per_step)
+          and got == ({"warp": 10, "thread": 0}, only("tile", 10 * L), only("tile", 10 * L)),
+          f"variants (c) bf16: launches per step {per_step}, by kernel {got}")
+    record("(c) bf16 train", got)
+    ulps = max(float(((p.detach().float() - m_).abs() / torch.ldexp(
+        torch.ones_like(m_), torch.frexp(m_).exponent - 8)).max())
+        for p, m_ in zip(state.model.parameters(), state.optimizer.sr.master))
+    losses = [float(v) for v in losses]
+    check(all(p.dtype == torch.bfloat16 for p in state.model.parameters()) and ulps <= 1.0
+          and all(np.isfinite(losses)),
+          f"variants (c): live parameters not bf16, or {ulps} bf16 ulps from their masters, "
+          f"or losses {losses}")
+    ms = event_ms(torch, lambda: step(state, cards[0]), 3)
+    profile_call(torch, lambda: step(state, cards[0]), f"variants (c) bf16 train step B={b}")
+    results["(c) bf16 train"] = ms
+    t1 = time.perf_counter()
+    fast = first_step(bcfg, cards[0], 3)
+    fb, fa, fcos = master_gaps(*fast, 1e-3)
+    log(f"variants (c) bf16 train step B={b}: {ms:.2f} ms a step (CUDA events, 3 steps after "
+        f"5); launches per step {per_step[0]} (knn {got[0]}, egcl {got[1]}, egcl_backward "
+        f"{got[2]}); losses {[round(v, 4) for v in losses]}; live within {ulps:.3g} bf16 ulps "
+        f"of the masters after 5 steps. Step 1 card vs CPU in fast mode (printed, not held: "
+        f"bf16 operands summed in another order, at a saturated similarity softmax): loss "
+        f"{fast[0][0]:.6f} vs {fast[1][0]:.6f}, worst gradient cosine {fcos:.6f}, masters "
+        f"max|Δ| {fb:.3g} where |g| > 1e-3 of its max, {fa:.3g} everywhere (lr {bcfg.lr}); "
+        f"CPU step {time.perf_counter() - t1:.1f} s")
+    # the same bf16 step in accurate mode (fp32 tile B2 and B3), held at the train gate
+    acfg = dataclasses.replace(bcfg, egnn_accurate=True)
+    reset()
+    acc = first_step(acfg, cards[0], 3)
+    got = counts()
+    check(got == ({"warp": 2, "thread": 0}, only("tile_f32", 2 * L), only("tile_f32", 2 * L)),
+          f"variants (c) bf16 accurate: launches {got}")
+    record("(c) bf16 accurate step", got)
+    ab, aa, acos = master_gaps(*acc, 1e-3)
+    dl = abs(acc[0][0] - acc[1][0]) / abs(acc[1][0])
+    log(f"variants (c) bf16 accurate step 1, B={b}, card vs CPU: loss {acc[0][0]:.6f} vs "
+        f"{acc[1][0]:.6f} (rel {dl:.2g}), worst gradient cosine {acos:.8f}, masters max|Δ| "
+        f"{ab:.3g} where |g| > 1e-3 of its max, {aa:.3g} everywhere; launches knn {got[0]}, "
+        f"egcl {got[1]}, egcl_backward {got[2]}")
+    # 2 lr, and the fp32 rounding of the two updates of an element
+    check(dl <= 1e-4 and acos >= 0.9999 and ab <= 1e-6 and aa <= 2.001 * acfg.lr,
+          f"variants (c) bf16 accurate: card vs CPU loss {dl}, cosine {acos}, masters {ab}, {aa}")
+
+    # (d) the PointNet encoder, EngineConfig: 2 exact B1, 6 fp32-tile B2 and B3 a step
+    pcfg = engine.EngineConfig(**width, use_pointnet=True)
+    state = engine.init_state(pcfg, torch.Generator().manual_seed(4), device="cpu")
+    psd = state.model.state_dict()
+    card_model = engine.build_model(pcfg, device=dev)
+    card_model.load_state_dict(psd)
+    card = engine.TrainState(card_model, engine.build_optimizer(card_model, pcfg))
+    pbatch = batches(VARIANTS_POINTNET_PAIRS, 44, dev)[0]
+
+    def grads(model, bt):
+        model.zero_grad(set_to_none=True)
+        lb = engine.train_loss(model, pcfg, bt)
+        lb.total.backward()
+        g = {n: q.grad.detach().float().cpu() for n, q in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return {k: float(v.detach()) for k, v in lb._asdict().items()}, g
+
+    reset()
+    terms, gg = grads(card.model, pbatch)
+    got = counts()
+    torch.cuda.synchronize()
+    check(got == ({"warp": 2, "thread": 0}, only("tile_f32", 2 * L), only("tile_f32", 2 * L)),
+          f"variants (d) pointnet: launches {got}")
+    record("(d) pointnet train", got)
+    pstep = engine.make_train_step(card.model, card.optimizer, pcfg)
+    ms = event_ms(torch, lambda: pstep(card, pbatch), 3)
+    profile_call(torch, lambda: pstep(card, pbatch),
+                 f"variants (d) pointnet train step B={VARIANTS_POINTNET_PAIRS}")
+    t1 = time.perf_counter()
+    cpu_terms, gc = grads(state.model, {k: v.cpu() for k, v in pbatch.items()})
+    cpu_s = time.perf_counter() - t1
+    cos = grad_cosines(torch, gg, gc)
+    worst, worst_l2 = min(cos, key=lambda k: cos[k][0]), max(cos, key=lambda k: cos[k][1])
+    dl = {k: abs(terms[k] - cpu_terms[k]) / abs(cpu_terms[k]) for k in terms}
+    # the train head's softmax over similarities in the thousands is one-hot
+    # at seeded weights: an fp32 spacing of the largest similarity moves the
+    # runner-up's weight, and with it every Kabsch-path gradient, by that
+    # much relative (a scale: the cosine stays at 1); the relative L2 gate is
+    # the cli phase's 1e-4 or two such spacings, whichever is larger
+    with torch.no_grad():
+        sim = float(engine._apply_with_graphs(card.model, pcfg, pbatch).similarity.abs().max())
+    l2_tol = max(1e-4, 2 * float(np.finfo(np.float32).eps) * sim)
+    check(all(v <= 1e-4 for v in dl.values()), f"variants (d) pointnet: loss terms {dl}")
+    check(cos[worst][0] >= 0.9999 and cos[worst_l2][1] <= l2_tol,
+          f"variants (d) pointnet: gradients {worst} {cos[worst]}, {worst_l2} {cos[worst_l2]} "
+          f"(relative L2 gate {l2_tol:.3g})")
+    check(any(n.startswith("pointnet.") and float(g.abs().max()) > 0 for n, g in gg.items()),
+          "variants (d) pointnet: the encoder got no gradient")
+    results["(d) pointnet train"] = ms
+    log(f"variants (d) pointnet train step B={VARIANTS_POINTNET_PAIRS}: {ms:.2f} ms a step "
+        f"(CUDA events, 3 steps after a warm-up); launches knn {got[0]}, egcl {got[1]}, "
+        f"egcl_backward {got[2]}; card vs CPU: loss terms relative |Δ| max "
+        f"{max(dl.values()):.2g}, worst gradient cosine {worst} {cos[worst][0]:.12f}, worst "
+        f"relative L2 {worst_l2} {cos[worst_l2][1]:.3g} (gate {l2_tol:.3g}: max|similarity| "
+        f"{sim:.1f}); CPU side {cpu_s:.1f} s")
+    log(f"variants: {json.dumps({k: round(v, 3) for k, v in results.items()})} ms; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card_line()}")
 
 
 if __name__ == "__main__":

@@ -1,26 +1,66 @@
 """SE(3)-equivariant graph network, the readable plain model (counterpart of
-`models/egnn.py`) in the 'center' direction with the 'frame' so3 mode.
+`models/egnn.py`).
 
-Edges live in a dense k-regular layout [B, N, K]; aggregation onto centers
-is a sum over K. The per-head edge MLPs are fused: one first layer over the
-77-d edge input (at C=32), then a block-diagonal second layer. The edge
+Edges live in a dense k-regular layout [B, N, K]. In the 'center'
+direction, aggregation onto the centers is a sum over K; in 'cluster' (the
+reference's torch_cluster orientation, in which its checkpoints were
+trained) messages aggregate onto the neighbour endpoint, one flat segment
+sum with batch offsets, and h_row/h_col swap. `so3_mode='invariant'`
+replaces the raw frame axes with rotation-invariant features of the same
+width.
+
+The per-head edge MLPs are fused: one first layer over the 77-d edge input
+(at C=32), then a block-diagonal second layer. The edge
 input concatenates, in the reference's order,
   [h_row, h_col, radial, dist, dot, so3(9), edge_attr(=1)].
 
 Parameter names follow the JAX package's flax tree
 (`train/checkpoints.params_from_jax` maps one onto the other). The fused
-kernel path (`ops/kernels/egcl.py`) reads the same parameters.
+kernel path (`ops/kernels/egcl.py`, 'center'/'frame' only) reads the same
+parameters; the engine runs this module for 'cluster' and 'invariant', as
+the JAX package runs its XLA EGNN there.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from ..ops.edge_geometry import edge_geometry, gather_neighbors
-from ..ops.segment import kregular_sum
+from ..ops.segment import kregular_mean, kregular_sum, segment_sum
 
 GEO_DIM = 12   # radial, dist, dot, so3(9)
+
+
+def _aggregate(messages: torch.Tensor, nbr_idx: torch.Tensor, direction: str,
+               num_nodes: int, mask: Optional[torch.Tensor] = None,
+               reduce: str = "sum") -> torch.Tensor:
+    """Per-edge messages [B, N, K, C] → per-node [B, num_nodes, C].
+
+    'center': the receivers are the centers, a reduction over K.
+    'cluster': the receivers are the neighbours, one flat segment sum with
+    batch-offset ids. The mean counts only the real edges where `mask`
+    [B, N, K] (1 = real) is given, as the reference's unsorted_segment_mean
+    divides by the edges that contribute."""
+    if direction == "center":
+        return (kregular_sum if reduce == "sum" else kregular_mean)(messages, mask)
+    if direction != "cluster":
+        raise ValueError(f"unknown direction {direction!r}")
+    b, n, k, c = messages.shape
+    if mask is not None:
+        messages = messages * mask[..., None].to(messages.dtype)
+    offsets = (torch.arange(b, device=nbr_idx.device) * num_nodes)[:, None, None]
+    ids = (nbr_idx.long() + offsets).reshape(b * n * k)
+    out = segment_sum(messages.reshape(b * n * k, c), ids, b * num_nodes)
+    if reduce == "mean":
+        ones = (messages.new_ones(b * n * k) if mask is None
+                else mask.reshape(b * n * k).to(messages.dtype))
+        out = out / torch.clamp(segment_sum(ones, ids, b * num_nodes), min=1.0)[:, None]
+    elif reduce != "sum":
+        raise ValueError(f"unknown reduce {reduce!r}")
+    return out.reshape(b, num_nodes, c)
 
 
 class MultiHeadEdgeMLP(nn.Module):
@@ -45,10 +85,12 @@ class MultiHeadEdgeMLP(nn.Module):
 
 
 class EGCL(nn.Module):
-    """One equivariant graph convolution layer ('center', 'frame', sum)."""
+    """One equivariant graph convolution layer (sum aggregation)."""
 
-    def __init__(self, hidden_nf: int, num_heads: int = 4, edge_attr_dim: int = 1):
+    def __init__(self, hidden_nf: int, num_heads: int = 4, edge_attr_dim: int = 1,
+                 direction: str = "center", so3_mode: str = "frame"):
         super().__init__()
+        self.direction, self.so3_mode = direction, so3_mode
         self.edge_mlp = MultiHeadEdgeMLP(2 * hidden_nf + GEO_DIM + edge_attr_dim,
                                          hidden_nf, num_heads)
         self.layer_norm = nn.LayerNorm(hidden_nf, eps=1e-5)
@@ -59,15 +101,19 @@ class EGCL(nn.Module):
 
     def forward(self, h: torch.Tensor, x: torch.Tensor, nbr_idx: torch.Tensor,
                 edge_attr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        geom = edge_geometry(x, nbr_idx)
-        h_col = gather_neighbors(h, nbr_idx)
-        h_row = h[..., :, None, :].expand_as(h_col)
+        geom = edge_geometry(x, nbr_idx, self.direction, self.so3_mode)
+        h_nbr = gather_neighbors(h, nbr_idx)
+        h_center = h[..., :, None, :].expand_as(h_nbr)
+        h_row, h_col = ((h_center, h_nbr) if self.direction == "center"
+                        else (h_nbr, h_center))
         edge_in = torch.cat([h_row, h_col, geom.radial, geom.dist, geom.dot,
                              geom.so3, edge_attr], dim=-1)
         m = self.layer_norm(self.edge_mlp(edge_in))
         scale = self.coord_mlp_out(F.silu(self.coord_mlp_0(m)))
-        x = x + kregular_sum(geom.rel * scale)
-        out = self.node_mlp_0(torch.cat([h, kregular_sum(m)], dim=-1))
+        n = h.shape[-2]
+        x = x + _aggregate(geom.rel * scale, nbr_idx, self.direction, n)
+        out = self.node_mlp_0(torch.cat([h, _aggregate(m, nbr_idx, self.direction, n)],
+                                        dim=-1))
         out = self.node_mlp_1(F.silu(out))
         return h + out, x
 
@@ -81,13 +127,20 @@ class EGNN(nn.Module):
 
     def __init__(self, in_node_nf: int = 32, hidden_nf: int = 32,
                  out_node_nf: int = 32, n_layers: int = 3, num_heads: int = 4,
-                 edge_attr_dim: int = 1):
+                 edge_attr_dim: int = 1, direction: str = "center",
+                 so3_mode: str = "frame"):
         super().__init__()
+        if direction not in ("center", "cluster"):
+            raise ValueError(f"unknown direction {direction!r}")
+        if so3_mode not in ("frame", "invariant"):
+            raise ValueError(f"unknown so3_mode {so3_mode!r}")
         self.n_layers = n_layers
+        self.direction, self.so3_mode = direction, so3_mode
         self.edge_attr_dim = edge_attr_dim
         self.embedding_in = nn.Linear(in_node_nf, hidden_nf)
         for i in range(n_layers):
-            self.add_module(f"gcl_{i}", EGCL(hidden_nf, num_heads, edge_attr_dim))
+            self.add_module(f"gcl_{i}", EGCL(hidden_nf, num_heads, edge_attr_dim,
+                                             direction, so3_mode))
         self.embedding_out = nn.Linear(hidden_nf, out_node_nf)
 
     def layers(self) -> list[EGCL]:

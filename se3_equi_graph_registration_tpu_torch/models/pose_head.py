@@ -8,7 +8,9 @@ Two heads:
   the raw similarities, scattered back over N, then weighted Kabsch over
   the original coordinates.
 Head top-k is `torch.topk`; 'approx' maps to exact (sets, not order, matter
-downstream).
+downstream). With `use_pointnet` the PointNet encoder replaces the input
+features before the EGNN, and its output is the raw feature both heads
+read (the eval head picks its top-k by the raw similarity).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from torch.nn import functional as F
 
 from ..ops.kabsch import kabsch_weighted, masked_softmax
 from .egnn import EGNN
+from .pointnet import PointNet
 
 
 class RegistrationOutputs(NamedTuple):
@@ -74,14 +77,16 @@ class ScoreMLP(nn.Module):
 
 
 class RegistrationModel(nn.Module):
-    """End-to-end correspondence-graph registration model ('center'/'frame')."""
+    """End-to-end correspondence-graph registration model."""
 
     def __init__(self, num_nodes: int = 2048, hidden_nf: int = 32,
                  in_node_nf: int = 32, n_layers: int = 3, num_heads: int = 4,
                  top_k: int = 128, head_mode: str = "train",
                  kabsch_solver: str = "svd", weight_mode: str = "dot",
                  fusion_literal: bool = False,
-                 fusion_weighting: str = "reference", fusion_temp: float = 0.1):
+                 fusion_weighting: str = "reference", fusion_temp: float = 0.1,
+                 direction: str = "center", so3_mode: str = "frame",
+                 use_pointnet: bool = False):
         super().__init__()
         if head_mode not in ("train", "eval_fusion"):
             raise ValueError(f"unknown head_mode {head_mode!r}")
@@ -92,12 +97,16 @@ class RegistrationModel(nn.Module):
         self.fusion_weighting, self.fusion_temp = fusion_weighting, fusion_temp
         self.egnn = EGNN(in_node_nf=in_node_nf, hidden_nf=hidden_nf,
                          out_node_nf=hidden_nf, n_layers=n_layers,
-                         num_heads=num_heads)
+                         num_heads=num_heads, direction=direction, so3_mode=so3_mode)
         self.mlp = ScoreMLP(hidden_nf)
+        self.pointnet = (PointNet(hidden_channels=hidden_nf, out_channels=in_node_nf)
+                         if use_pointnet else None)
 
     def forward(self, h_src, x_src, nbr_src, h_tgt, x_tgt, nbr_tgt,
                 labels) -> RegistrationOutputs:
         """The plain path: both clouds through the plain EGNN module."""
+        if self.pointnet is not None:
+            h_src, h_tgt = self.pointnet(x_src, nbr_src), self.pointnet(x_tgt, nbr_tgt)
         e_src = self.egnn(h_src, x_src, nbr_src)
         e_tgt = self.egnn(h_tgt, x_tgt, nbr_tgt)
         return self.head_from_embeddings(h_src, h_tgt, x_src, x_tgt,

@@ -57,27 +57,36 @@ class EGCLParams(NamedTuple):
     head_width: int         # C / num_heads
 
 
+def _fp32(t: torch.Tensor) -> torch.Tensor:
+    """A parameter in fp32: the cast of a bf16 one, an fp32 one itself."""
+    return t.to(torch.float32)
+
+
 def live_params(layer: EGCL) -> EGCLParams:
     """Arrange one EGCL module's weights for the kernel (the counterpart of
     the reference's `params_from_tree`), from the live parameters. When
     autograd records, the folds carry gradients back: db1 reaches both
     `fused_in.bias` and the edge_attr column of `fused_in.weight`, dw2 the
     diagonal blocks of `head_kernels`. Under `torch.no_grad()` nothing is
-    recorded."""
+    recorded. bf16 parameters fold in fp32 (`params_from_tree(dtype=
+    float32)` in the JAX package): each is cast first, and autograd rounds
+    their gradients back to bf16 through the casts; fp32 parameters pass
+    as they are."""
     em = layer.edge_mlp
-    w1 = em.fused_in.weight                             # [C, 2C+13]
+    f = _fp32
+    w1 = f(em.fused_in.weight)                          # [C, 2C+13]
     c = w1.shape[0]
-    hk = em.head_kernels                                # [H, w, w] (in, out)
+    hk = f(em.head_kernels)                             # [H, w, w] (in, out)
     return EGCLParams(
         w1_hrow=w1[:, :c], w1_hcol=w1[:, c:2 * c], w1_geo=w1[:, 2 * c:2 * c + 12],
-        b1=em.fused_in.bias + w1[:, 2 * c + 12],
+        b1=f(em.fused_in.bias) + w1[:, 2 * c + 12],
         w2=torch.block_diag(*hk.unbind(0)).T,
-        b2=em.head_biases.reshape(-1),
-        ln_scale=layer.layer_norm.weight, ln_bias=layer.layer_norm.bias,
-        wc0=layer.coord_mlp_0.weight, bc0=layer.coord_mlp_0.bias,
-        wc1=layer.coord_mlp_out.weight,
-        wn0=layer.node_mlp_0.weight, bn0=layer.node_mlp_0.bias,
-        wn1=layer.node_mlp_1.weight, bn1=layer.node_mlp_1.bias,
+        b2=f(em.head_biases).reshape(-1),
+        ln_scale=f(layer.layer_norm.weight), ln_bias=f(layer.layer_norm.bias),
+        wc0=f(layer.coord_mlp_0.weight), bc0=f(layer.coord_mlp_0.bias),
+        wc1=f(layer.coord_mlp_out.weight),
+        wn0=f(layer.node_mlp_0.weight), bn0=f(layer.node_mlp_0.bias),
+        wn1=f(layer.node_mlp_1.weight), bn1=f(layer.node_mlp_1.bias),
         head_width=hk.shape[-1])
 
 
@@ -551,9 +560,9 @@ def egnn_forward(kp: KernelEGNN, h: torch.Tensor, x: torch.Tensor,
     forward kernel with agg_m, the backward kernel behind it."""
     from .egcl_backward import EGCLFunction
 
-    r = _round(not accurate)
+    r, f = _round(not accurate), _fp32        # bf16 parameters compute in fp32
     emb_in, emb_out = kp.egnn.embedding_in, kp.egnn.embedding_out
-    h = torch.matmul(r(h), r(emb_in.weight).T) + emb_in.bias
+    h = torch.matmul(r(h), r(f(emb_in.weight)).T) + f(emb_in.bias)
     x = x.to(torch.float32).contiguous()
     nbr = nbr.to(torch.int32).contiguous()
     for p, packed in zip(kp.layers, kp.packed):
@@ -563,5 +572,5 @@ def egnn_forward(kp: KernelEGNN, h: torch.Tensor, x: torch.Tensor,
             h, x = EGCLFunction.apply(h, x, nbr, p.head_width, accurate, packed, *p[:-1])
         else:
             h, x = egcl_layer(h, x, nbr, p, accurate, packed)
-    h = torch.matmul(r(h), r(emb_out.weight).T) + emb_out.bias
+    h = torch.matmul(r(h), r(f(emb_out.weight)).T) + f(emb_out.bias)
     return h, x

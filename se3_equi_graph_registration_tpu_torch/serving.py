@@ -20,7 +20,12 @@ and a micro-batching front end.
 - `export_compiled` writes the forward as a `torch.export` artifact with the
   weights as an input; `load_exported` loads it;
 - `from_checkpoint` loads a reference `.pth` or a `TrainCheckpointer`
-  directory;
+  directory; a reference `.pth` computes what the reference computed with
+  it in `direction='cluster'` (its torch_cluster edge orientation);
+- every model variant of the engine serves: 'cluster', 'invariant' (on the
+  plain EGNN over the k-NN kernel's graph), the PointNet encoder, and the
+  weights of a `bf16_params` run (held in fp32, where bf16 values are
+  exact, so the Registrar computes what the bf16 model computes);
 - `BatchingServer` coalesces concurrent register() calls into one dispatch.
 
 Runs on the CUDA card unless `device="cpu"` is passed. Not ported yet: the
@@ -73,8 +78,10 @@ class Registrar:
         self.model = engine.build_model(cfg, head_mode=head_mode, device=device)
         self.model.load_state_dict(params)
         self.device = next(self.model.parameters()).device
-        with torch.no_grad():                        # the weights never change
-            self._kp = kernel_params(self.model.egnn)
+        self._kp = None                              # the plain EGNN needs none
+        if engine._fused_egnn(cfg):
+            with torch.no_grad():                    # the weights never change
+                self._kp = kernel_params(self.model.egnn)
 
     @classmethod
     def from_checkpoint(cls, path: str, fast: bool = True, num_nodes: int = 2048,
@@ -106,7 +113,8 @@ class Registrar:
     def _forward(self, batch: dict, kp) -> tuple[torch.Tensor, ...]:
         """(R [B,3,3], t [B,3], similarity mean [B], covariance [B,6,6]): the
         head, the robust stages and the covariance, with the kernels' weight
-        layout `kp`."""
+        layout `kp` (None: built from the model's weights where the path
+        needs it)."""
         out = engine._apply_with_graphs(self.model, self.cfg, batch, kp)
         src = batch["src_pts"]
         R, t, w, cov_tgt = engine.robust_pose(self.stages, src, batch["tgt_pts"], out.R,
@@ -308,7 +316,8 @@ class Registrar:
 
 class _WithWeights(torch.nn.Module):
     """The Registrar's model as the one submodule, for `functional_call` to
-    swap its weights; the kernels' layout is built from the swapped ones."""
+    swap its weights; the kernels' layout (on the fused path) is built from
+    the swapped ones."""
 
     def __init__(self, reg: Registrar):
         super().__init__()
@@ -316,7 +325,7 @@ class _WithWeights(torch.nn.Module):
         self._reg = (reg,)
 
     def forward(self, batch: dict):
-        return self._reg[0]._forward(batch, kernel_params(self.model.egnn))
+        return self._reg[0]._forward(batch, None)
 
 
 class _ExportedForward(torch.nn.Module):

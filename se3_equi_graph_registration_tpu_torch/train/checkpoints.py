@@ -6,14 +6,16 @@
   edge MLPs fuse into one input layer and a stack of head kernels, stored
   as flax keeps them ([in, out]); its Linear weights stay [out, in]; the
   unused auxiliary modules (shared_mlp_decoder, shallow_mlp_pose, bn1/bn2)
-  are dropped;
+  are dropped. The reference's format has no PointNet weights, so a
+  checkpoint converts to a model without the encoder;
 - `export_reference_checkpoint`: the inverse, a `.pth` the reference loads
   with strict state_dicts, auxiliary modules drawn from a numpy seed as the
   JAX package draws them, and a fresh Adam state;
 - `TrainCheckpointer`: a directory of `step_<n>.pt` files (model,
-  optimizer, schedule, step) with retention and resume, for `fit`;
+  optimizer, with bf16 parameters the fp32 masters and the rounding
+  generator's state, schedule, step) with retention and resume, for `fit`;
 - `params_from_jax` takes the JAX package's flax `params` tree with numpy
-  leaves; `init_weights` draws weights from an explicit `torch.Generator`
+  leaves (bf16 leaves of a `bf16_params` state keep their dtype); `init_weights` draws weights from an explicit `torch.Generator`
   the way flax initializes them (LeCun-normal kernels, zero biases, the
   reference's tiny coord output).
 """
@@ -131,7 +133,10 @@ def export_reference_checkpoint(state_dict: Mapping[str, torch.Tensor], path: st
     by `np.random.default_rng(seed)` in the JAX exporter's order (so the
     two exporters write equal tensors for equal weights and seed), BatchNorm
     at identity. The optimizer entry is a fresh Adam state over the head's
-    parameter list."""
+    parameter list. Every tensor is written fp32, bf16 weights too (the
+    reference's schema is fp32). The PointNet encoder's weights
+    (`pointnet.*`) are not written: the reference's schema has no place for
+    them, and the JAX exporter drops them too."""
     egnn_sd = _egnn_to_reference(state_dict, "", n_layers, num_heads, hidden)
     ca = _egnn_to_reference(state_dict, "egnn.", n_layers, num_heads, hidden)
     for name, i in MLP_LAYERS:
@@ -172,6 +177,12 @@ def export_reference_checkpoint(state_dict: Mapping[str, torch.Tensor], path: st
     }, path)
 
 
+def _optimizer(state):
+    """What a checkpoint holds of the optimizer: with bf16 parameters the
+    wrapper (Adam, the fp32 masters, the rounding generator), else Adam."""
+    return state.optimizer.sr if state.optimizer.sr is not None else state.optimizer.adam
+
+
 class TrainCheckpointer:
     """A directory of `step_<n>.pt` checkpoints of a training state (the
     model's and the optimizer's state_dicts, the schedule's, the step, and
@@ -204,7 +215,7 @@ class TrainCheckpointer:
         if steps and steps[-1] >= step:
             return False
         payload = {"model": state.model.state_dict(),
-                   "optimizer": state.optimizer.adam.state_dict(),
+                   "optimizer": _optimizer(state).state_dict(),
                    "schedule": state.optimizer.schedule.state_dict(),
                    "step": int(state.step), "metrics": dict(metrics or {})}
         tmp = self._path(step) + ".tmp"
@@ -221,7 +232,7 @@ class TrainCheckpointer:
         dev = next(template.model.parameters()).device
         ck = torch.load(self._path(steps[-1]), map_location=dev, weights_only=True)
         template.model.load_state_dict(ck["model"])
-        template.optimizer.adam.load_state_dict(ck["optimizer"])
+        _optimizer(template).load_state_dict(ck["optimizer"])
         template.optimizer.schedule.load_state_dict(ck["schedule"])
         template.step = ck["step"]
         return template, steps[-1]
@@ -236,7 +247,9 @@ def _dense(prefix: str, leaf: Mapping[str, Any]) -> dict:
 
 def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """flax params (`{'params': {'egnn': ..., 'mlp': ...}}` or the inner
-    dict) → the port's RegistrationModel state_dict (float32 tensors)."""
+    dict, with a `pointnet` subtree for a PointNet model) → the port's
+    RegistrationModel state_dict: float32 tensors, bfloat16 for the
+    `ml_dtypes` bf16 leaves of a `bf16_params` state."""
     tree = tree["params"] if "params" in tree else tree
     sd: dict = {}
     egnn = tree["egnn"]
@@ -256,7 +269,22 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             sd.update(_dense(f"{p}.{sub}", gcl[sub]))
     for name, leaf in tree["mlp"].items():
         sd.update(_dense(f"mlp.{name}", leaf))
-    return {k: torch.tensor(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    for conv, leaves in tree.get("pointnet", {}).items():
+        if conv == "classifier":
+            sd.update(_dense("pointnet.classifier", leaves))
+        else:
+            for name, leaf in leaves.items():
+                sd.update(_dense(f"pointnet.{conv}.{name}", leaf))
+    return {k: _tensor(v) for k, v in sd.items()}
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy leaf → a tensor: bf16 (ml_dtypes, which torch cannot read)
+    through its fp32 value, exact, else float32."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(np.array(a, dtype=np.float32))
 
 
 @torch.no_grad()

@@ -6,8 +6,14 @@ EGNN (CUDA kernel `csrc/egcl.cu`, and in training its backward
 `csrc/egcl_backward.cu`), the head, a quaternion Kabsch solve. Every
 configuration runs through the kernels' wrappers, and which code runs
 depends on the device alone: CPU tensors take the kernels' plain versions,
-CUDA tensors launch the kernels. `models/egnn.EGNN` is the readable
-reference the tests hold the fused path to; the engine does not call it.
+CUDA tensors launch the kernels.
+
+The model variants route as the JAX package routes them: the fused EGCL
+kernel computes the 'center' direction with the 'frame' so3 mode, with or
+without the PointNet encoder in front of it; 'cluster' and 'invariant' run
+the plain `models/egnn.EGNN` (the JAX package's XLA EGNN) over the
+whole-cloud k-NN graph of the exact k-NN kernel. The curve-window graph
+('morton') is the fused path's and refuses them.
 
 Eval and serving may add the robust stages after the head (`robust_pose`:
 spectral reweighting, IRLS, ICP single-scale or over a voxel pyramid);
@@ -19,7 +25,10 @@ update, with gradient accumulation as optax.MultiSteps does), `fit` runs
 epochs with best-val checkpointing (and with `profile_dir` a
 `torch.profiler` trace of the first epoch). Metrics stay on the device and
 are fetched once per epoch. `remat` recomputes the EGNN pass in the
-backward instead of keeping its activations.
+backward instead of keeping its activations. With `bf16_params` the live
+parameters are bf16 and Adam runs on fp32 masters, with stochastic
+rounding back into the live ones (`utils/bf16_training.py`); every forward
+computes in fp32 from the bf16 values.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from ..ops.kernels.knn import knn_window
 from ..ops.knn import gather_rows
 from ..ops.numerics import fp32_matmuls
 from ..ops.spectral import spectral_match_weights
+from ..utils.bf16_training import Bf16SROptimizer, fp32_parameters
 from . import losses as losses_lib
 from . import metrics as metrics_lib
 from .checkpoints import init_weights
@@ -53,9 +63,8 @@ from .checkpoints import init_weights
 class EngineConfig:
     """The JAX package's fields in its order, with the reference's defaults,
     but for three that the port reads nowhere (`train/config.py` takes them
-    from a config file and drops them). The model is 'center'/'frame'
-    without the PointNet encoder; the other variants and bf16 parameters
-    raise in `build_model` until they are ported."""
+    from a config file and drops them). 'cluster' is the direction the
+    reference's checkpoints were trained in."""
     num_nodes: int = 2048
     k: int = 16
     in_node_nf: int = 32
@@ -68,8 +77,12 @@ class EngineConfig:
     lr_gamma: float = 0.5
     lr_step_unit: str = "step"      # 'step' | 'epoch' (the reference's StepLR
                                     # counts epochs; needs steps_per_epoch)
-    direction: str = "center"       # 'center'; 'cluster' is not ported yet
-    so3_mode: str = "frame"         # 'frame'; 'invariant' is not ported yet
+    direction: str = "center"       # 'center' | 'cluster' (the reference's
+                                    # torch_cluster orientation: aggregation
+                                    # onto the neighbour endpoint)
+    so3_mode: str = "frame"         # 'frame' (the reference's raw frame axes)
+                                    # | 'invariant' (exactly rotation-
+                                    # equivariant edge features)
     loss_weights: losses_lib.LossWeights = losses_lib.LossWeights()
     remat: bool = False             # training: recompute the EGNN pass in the
                                     # backward (torch.utils.checkpoint) instead
@@ -105,10 +118,11 @@ class EngineConfig:
     icp_voxels: tuple = ()          # non-empty: coarse-to-fine ICP over this voxel
                                     # pyramid (ops/icp.icp_refine_multiscale),
                                     # ending at 0.0 (the raw clouds)
-    use_pointnet: bool = False      # the PointNet encoder: not ported yet
+    use_pointnet: bool = False      # the PointNet encoder learns the descriptors
+                                    # from the coordinates (README.md:69)
     grad_accum_steps: int = 1       # micro-batches per optimizer step
-    bf16_params: bool = False       # bf16 live parameters with stochastic
-                                    # rounding: not ported yet
+    bf16_params: bool = False       # bf16 live parameters, fp32 masters in
+                                    # the optimizer, stochastic rounding
     best_val_metric: str = "loss"   # fit's best-val checkpoint criterion:
                                     # 'loss' | 'rot_err_deg' | 'trans_err_cm'
 
@@ -163,40 +177,46 @@ def robust_pose(cfg: EngineConfig, src: torch.Tensor, tgt: torch.Tensor, R: torc
     return R, t, w, cov_tgt
 
 
-def _check_ported(cfg: EngineConfig) -> None:
-    """Raise NotImplementedError for the JAX package's options that the port
-    accepts in a config but cannot run yet, ValueError for unknown values."""
-    if cfg.direction not in ("center", "cluster"):
-        raise ValueError(f"unknown direction {cfg.direction!r}")
-    if cfg.so3_mode not in ("frame", "invariant"):
-        raise ValueError(f"unknown so3_mode {cfg.so3_mode!r}")
-    for name, value in (("direction", "cluster"), ("so3_mode", "invariant"),
-                        ("use_pointnet", True)):
-        if getattr(cfg, name) == value:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (ROADMAP Queue A item 3, model variants)")
-    if cfg.bf16_params:
-        raise NotImplementedError(
-            "bf16_params=True is not ported yet (ROADMAP Queue A item 4, "
-            "utils/bf16_training.py)")
+def _fused_egnn(cfg: EngineConfig) -> bool:
+    """Whether the EGNN runs on the fused EGCL kernels: the 'center'
+    direction with the 'frame' so3 mode, whatever the encoder and the
+    parameters' dtype. 'cluster' and 'invariant' run the plain
+    `models/egnn.EGNN`: the JAX package's own routing (its pose head sends
+    every other mode to the XLA EGNN, not to the Pallas kernel), not a
+    fallback. Their graph is still the k-NN kernel's."""
+    return cfg.direction == "center" and cfg.so3_mode == "frame"
 
 
 def build_model(cfg: EngineConfig, head_mode: str = "train",
                 device: Union[str, torch.device, None] = None) -> RegistrationModel:
     """The model on `device` (the CUDA card unless told otherwise), in eval
-    mode with torch's default initialization. A model variant or bf16
-    parameters the port does not have yet raise NotImplementedError."""
-    _check_ported(cfg)
+    mode with torch's default initialization, its parameters fp32 (the
+    optimizer casts them to bf16 with `bf16_params`). Unknown values raise
+    ValueError, and so does the curve-window graph ('morton') with a model
+    variant: it is the fused kernel's path, as in the JAX package."""
+    if cfg.direction not in ("center", "cluster"):
+        raise ValueError(f"unknown direction {cfg.direction!r}")
+    if cfg.so3_mode not in ("frame", "invariant"):
+        raise ValueError(f"unknown so3_mode {cfg.so3_mode!r}")
     if cfg.knn_method not in ("exact", "approx", "pallas", "morton"):
         raise ValueError(f"unknown knn_method {cfg.knn_method!r}")
     if cfg.egnn_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown egnn_impl {cfg.egnn_impl!r}")
+    if cfg.knn_method == "morton" and not _fused_egnn(cfg):
+        raise ValueError(
+            f"knn_method='morton' runs the fused EGCL kernels, which compute "
+            f"direction='center' with so3_mode='frame' (got {cfg.direction!r}, "
+            f"{cfg.so3_mode!r}); use knn_method='exact' for the other modes")
+    if cfg.knn_method == "morton" and cfg.use_pointnet:
+        raise ValueError("knn_method='morton' bypasses the PointNet encoder stage; use "
+                         "knn_method='exact' with use_pointnet")
     model = RegistrationModel(
         num_nodes=cfg.num_nodes, hidden_nf=cfg.hidden_nf, in_node_nf=cfg.in_node_nf,
         n_layers=cfg.n_layers, num_heads=cfg.num_heads, top_k=cfg.top_k,
         head_mode=head_mode, kabsch_solver=cfg.kabsch_solver,
         weight_mode=cfg.weight_mode, fusion_literal=cfg.fusion_literal,
-        fusion_weighting=cfg.fusion_weighting, fusion_temp=cfg.fusion_temp)
+        fusion_weighting=cfg.fusion_weighting, fusion_temp=cfg.fusion_temp,
+        direction=cfg.direction, so3_mode=cfg.so3_mode, use_pointnet=cfg.use_pointnet)
     return model.to(resolve_device(device)).eval()
 
 
@@ -219,39 +239,53 @@ def _tile_and_window(cfg: EngineConfig, n: int) -> tuple[int, Optional[int]]:
 
 
 def _forward_with_graphs(model: RegistrationModel, cfg: EngineConfig, batch: dict,
-                         kp: KernelEGNN) -> RegistrationOutputs:
+                         kp: Optional[KernelEGNN] = None) -> RegistrationOutputs:
     """k-NN graphs + model forward for a batch dict of tensors on the
-    model's device. Every configuration goes through the k-NN and EGCL
-    wrappers: 'morton' sorts each cloud along the curve, builds the window
+    model's device. Every configuration builds its graphs with the k-NN
+    wrapper: 'morton' sorts each cloud along the curve, builds the window
     graph in sorted space, runs the EGNN and un-sorts; the others search the
-    whole cloud. The head runs on the original order. Differentiable when
-    `kp` was built with autograd on; with `cfg.remat` the EGNN pass runs
-    under `torch.utils.checkpoint` whenever autograd records."""
+    whole cloud. With `use_pointnet` the encoder's descriptors replace the
+    batch's features, for the EGNN and as the head's raw features. The EGNN
+    runs on the fused EGCL wrapper in 'center'/'frame' (`_fused_egnn`), with
+    `kp` (`kernel_params(model.egnn)`, built here when None), else the plain
+    `model.egnn`. The head runs on the original order. Differentiable when
+    autograd records; with `cfg.remat` the EGNN pass runs under
+    `torch.utils.checkpoint` whenever autograd records. bf16 parameters
+    compute in fp32 (`fp32_parameters`)."""
     _check_batch(model, batch)
-    tile, window = _tile_and_window(cfg, batch["src_pts"].shape[1])
-    packed = cfg.knn_packed and window is not None and window <= 1024
+    with fp32_parameters(model):
+        fused = _fused_egnn(cfg)
+        if fused and kp is None:
+            kp = kernel_params(model.egnn)
+        tile, window = _tile_and_window(cfg, batch["src_pts"].shape[1])
+        packed = cfg.knn_packed and window is not None and window <= 1024
 
-    def egnn(h, x, nbr):
-        if cfg.remat and torch.is_grad_enabled():
-            # the backward runs the EGNN pass (every EGCL forward launch)
-            # again and keeps none of its activations; the folded weights in
-            # `kp` are built outside, so their gradients flow as without remat
-            return torch.utils.checkpoint.checkpoint(
-                egnn_forward, kp, h, x, nbr, cfg.egnn_accurate, use_reentrant=False)
-        return egnn_forward(kp, h, x, nbr, accurate=cfg.egnn_accurate)
+        def egnn(h, x, nbr):
+            run, args = ((egnn_forward, (kp, h, x, nbr, cfg.egnn_accurate)) if fused
+                         else (model.egnn, (h, x, nbr)))
+            if cfg.remat and torch.is_grad_enabled():
+                # the backward runs the EGNN pass (every EGCL forward launch)
+                # again and keeps none of its activations; the folded weights
+                # in `kp` are built outside, so their gradients flow as
+                # without remat
+                return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+            return run(*args)
 
-    def embed(h, x):
-        if window is not None:
-            h, x, perm = morton.sort_by_curve(h, x, cfg.curve)
-        nbr = knn_window(x.contiguous(), cfg.k, tile=tile, window=window, packed=packed)
-        out = egnn(h, x, nbr)
-        return out if window is None else morton.unsort_rows(out, perm)
+        def embed(h, x):
+            """(the head's raw features, the EGNN's (h, x)) of one cloud."""
+            raw = h
+            if window is not None:
+                h, x, perm = morton.sort_by_curve(h, x, cfg.curve)
+            nbr = knn_window(x.contiguous(), cfg.k, tile=tile, window=window, packed=packed)
+            if model.pointnet is not None:      # never with a window (build_model)
+                h = raw = model.pointnet(x, nbr)
+            out = egnn(h, x, nbr)
+            return raw, (out if window is None else morton.unsort_rows(out, perm))
 
-    h_s, x_s = embed(batch["src_feat"], batch["src_pts"])
-    h_t, x_t = embed(batch["tgt_feat"], batch["tgt_pts"])
-    return model.head_from_embeddings(
-        batch["src_feat"], batch["tgt_feat"], batch["src_pts"], batch["tgt_pts"],
-        h_s, x_s, h_t, x_t, batch["labels"])
+        raw_s, (h_s, x_s) = embed(batch["src_feat"], batch["src_pts"])
+        raw_t, (h_t, x_t) = embed(batch["tgt_feat"], batch["tgt_pts"])
+        return model.head_from_embeddings(raw_s, raw_t, batch["src_pts"], batch["tgt_pts"],
+                                          h_s, x_s, h_t, x_t, batch["labels"])
 
 
 @torch.no_grad()
@@ -259,16 +293,16 @@ def _apply_with_graphs(model: RegistrationModel, cfg: EngineConfig, batch: dict,
                        kp: Optional[KernelEGNN] = None) -> RegistrationOutputs:
     """The inference forward (no autograd). `kp` is
     `kernel_params(model.egnn)` when the caller keeps it."""
-    kp = kernel_params(model.egnn) if kp is None else kp
     return _forward_with_graphs(model, cfg, batch, kp)
 
 
 def train_loss(model: RegistrationModel, cfg: EngineConfig,
                batch: dict) -> losses_lib.LossBreakdown:
     """The training forward and its losses, with autograd on the live
-    parameters: the k-NN graphs, the EGNN through `EGCLFunction` (forward
-    and backward kernels), the train head, `total_loss`."""
-    out = _forward_with_graphs(model, cfg, batch, kernel_params(model.egnn))
+    parameters: the k-NN graphs, the encoder, the EGNN (on the fused path
+    through `EGCLFunction`, forward and backward kernels), the train head,
+    `total_loss`."""
+    out = _forward_with_graphs(model, cfg, batch)
     return losses_lib.total_loss(out, batch["gt_pose"], batch["labels"],
                                  cfg.loss_weights)
 
@@ -292,26 +326,36 @@ def lr_schedule(cfg: EngineConfig, steps_per_epoch: Optional[int] = None
 
 
 class Optimizer(NamedTuple):
-    """Adam and its schedule; the schedule steps once per Adam step."""
+    """Adam and its schedule; the schedule steps once per Adam step. With
+    bf16 parameters, `sr` is the wrapper that keeps the fp32 masters and
+    `adam` runs on the masters."""
     adam: torch.optim.Adam
     schedule: torch.optim.lr_scheduler.LambdaLR
+    sr: Optional[Bf16SROptimizer] = None
 
 
 def build_optimizer(model: RegistrationModel, cfg: EngineConfig,
                     steps_per_epoch: Optional[int] = None) -> Optimizer:
     """Adam at optax's defaults (b1 0.9, b2 0.999, eps 1e-8 added after the
     square root, no eps inside it) with the staircase schedule — the
-    reference's Adam(lr) + StepLR(200, 0.5)."""
-    adam = torch.optim.Adam(model.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    reference's Adam(lr) + StepLR(200, 0.5). With `bf16_params` Adam runs
+    on fp32 masters copied from the model's parameters as they are here
+    (the fp32 initialization), and the model's parameters then become bf16,
+    rounded to nearest: the JAX `init_state` initializes its optimizer
+    before that cast too."""
+    make_adam = lambda ps: torch.optim.Adam(ps, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    sr = Bf16SROptimizer(model.parameters(), make_adam) if cfg.bf16_params else None
+    adam = sr.inner if sr is not None else make_adam(model.parameters())
     sched = lr_schedule(cfg, steps_per_epoch)
     return Optimizer(adam, torch.optim.lr_scheduler.LambdaLR(
-        adam, lambda step: sched(step) / cfg.lr))
+        adam, lambda step: sched(step) / cfg.lr), sr)
 
 
 @dataclasses.dataclass
 class TrainState:
     """The live training state: the model holds the parameters, the
-    optimizer Adam's moments and the schedule; `step` counts micro-batches."""
+    optimizer Adam's moments, the schedule and, with bf16 parameters, the
+    fp32 masters; `step` counts micro-batches."""
     model: RegistrationModel
     optimizer: Optimizer
     step: int = 0
@@ -321,7 +365,8 @@ def init_state(cfg: EngineConfig, generator: torch.Generator,
                device: Union[str, torch.device, None] = None,
                steps_per_epoch: Optional[int] = None) -> TrainState:
     """A train-head model on `device` (the CUDA card unless told otherwise)
-    with weights drawn from `generator`, and its optimizer."""
+    with weights drawn from `generator`, and its optimizer (which makes the
+    parameters bf16 with `bf16_params`)."""
     model = build_model(cfg, head_mode="train", device=device)
     init_weights(model, generator)
     return TrainState(model, build_optimizer(model, cfg, steps_per_epoch))
@@ -332,24 +377,34 @@ def make_train_step(model: RegistrationModel, optimizer: Optimizer,
     """(state, batch) → (state, {loss name: 0-d tensor on the device}).
 
     Each call is one micro-batch: the forward and backward through the
-    kernels, gradients summed into `.grad`. Every `grad_accum_steps`-th call
-    averages them (as optax.MultiSteps does), steps Adam and the schedule,
-    and clears them. Nothing is fetched to the host."""
+    kernels, gradients summed into `.grad` (with bf16 parameters, into the
+    fp32 masters' `.grad`). Every `grad_accum_steps`-th call averages them
+    (as optax.MultiSteps does), steps Adam and the schedule, and clears
+    them; with bf16 parameters it then writes the stochastically rounded
+    masters into the live parameters, and a micro-step between leaves both
+    untouched. Nothing is fetched to the host."""
     k = cfg.grad_accum_steps
     if k < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {k}")
+    sr = optimizer.sr
+    opt = optimizer.adam if sr is None else sr
+    stepped = list(model.parameters()) if sr is None else sr.master
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        lb = train_loss(model, cfg, batch)
-        lb.total.backward()
+        # the backward inside too: a remat pass recomputes from the fp32 views
+        with fp32_parameters(model):
+            lb = train_loss(model, cfg, batch)
+            lb.total.backward()
+        if sr is not None:
+            sr.accumulate()
         if (state.step + 1) % k == 0:
             if k > 1:
-                for p in model.parameters():
+                for p in stepped:
                     if p.grad is not None:      # Adam skips them too
                         p.grad.div_(k)
-            optimizer.adam.step()
+            opt.step()
             optimizer.schedule.step()
-            optimizer.adam.zero_grad(set_to_none=True)
+            opt.zero_grad()
         state.step += 1
         return state, {name: v.detach() for name, v in lb._asdict().items()}
 

@@ -280,9 +280,10 @@ def test_cli_refuses_what_it_cannot_run(tmp_path, monkeypatch):
         tcli.main(["eval", "--device", "cpu", *SYNTH, "--checkpoint", str(tmp_path / "none")])
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         tcli.main(["train", "--device", "cpu", *SYNTH, "run.point_parallel=2"])
-    for extra in ("engine.direction=cluster", "engine.bf16_params=true"):
-        with pytest.raises(NotImplementedError, match="Queue A item"):
-            tcli.main(["train", "--device", "cpu", *SYNTH, extra,
+    # a model variant runs on the whole-cloud graph; the curve window refuses it
+    for extra in ("engine.direction=cluster", "engine.use_pointnet=true"):
+        with pytest.raises(ValueError, match="knn_method='exact'"):
+            tcli.main(["train", "--device", "cpu", *SYNTH, extra, "engine.knn_method=morton",
                        f"run.checkpoint_dir={tmp_path}/ck"])
     with pytest.raises(SystemExit):
         tcli.main(["eval", "--device", "cpu", *SYNTH])
@@ -292,6 +293,36 @@ def test_cli_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(["train", *SYNTH, f"run.checkpoint_dir={tmp_path}/ck2"])
+
+
+@pytest.mark.parametrize("extra", ["engine.direction=cluster", "engine.bf16_params=true"])
+def test_cli_trains_evaluates_and_exports_a_model_variant(extra, tmp_path):
+    """`cli train` one epoch on the synthetic preset with a model variant,
+    then `cli eval` of its checkpoint directory, which reads the trained
+    weights back (the summary equals `engine.evaluate` of the trained model
+    on the same batches, exactly), and `cli export` (fp32 tensors)."""
+    d = str(tmp_path)
+    state = tcli.main(["train", "--device", "cpu", *SYNTH, extra, "run.epochs=1",
+                       f"run.checkpoint_dir={d}/ck", f"run.log_path={d}/log.jsonl"])
+    assert state.step == 4
+    bf16 = extra == "engine.bf16_params=true"
+    assert {p.dtype for p in state.model.parameters()} == {
+        torch.bfloat16 if bf16 else torch.float32}
+    assert (state.optimizer.sr is not None) == bf16
+    if bf16:
+        assert all(m.dtype == torch.float32 for m in state.optimizer.sr.master)
+    got = tcli.main(["eval", "--device", "cpu", "--checkpoint", f"{d}/ck", *SYNTH, extra,
+                     f"run.eval_output={d}/eval.txt"])
+    cfg = tconfig.parse_cli(SYNTH + [extra])[0]
+    model = tengine.build_model(cfg.engine, head_mode="eval_fusion", device="cpu")
+    model.load_state_dict(state.model.state_dict())
+    want = tengine.evaluate(model, cfg.engine, tcli._synthetic_batches(cfg))
+    assert got == want and got["num_pairs"] == 8
+    assert all(np.isfinite(v) for v in got.values())
+    tcli.main(["export", "--device", "cpu", "--checkpoint", f"{d}/ck", "--out", f"{d}/x.pth",
+               *SYNTH, extra])
+    ca = torch.load(f"{d}/x.pth", weights_only=False)["cross_attention_state_dict"]
+    assert {v.dtype for k, v in ca.items() if "num_batches" not in k} == {torch.float32}
 
 
 def test_cli_imports_no_jax(tmp_path):

@@ -93,6 +93,26 @@ def test_loaded_registrar_artifact_equals_register(exported):
     np.testing.assert_allclose(cov, cr, rtol=0, atol=1e-6 * np.abs(cr).max())
 
 
+def test_cluster_registrar_artifact_equals_register(tmp_path):
+    """A 'cluster' Registrar (the plain EGNN, segment sums onto the
+    neighbours) exports and loads as the fused path's does; the artifact
+    equals `register()` (same tolerance as above; measured equal)."""
+    cfg = tengine.EngineConfig(**SMALL, direction="cluster")
+    _, params = jax_model_params(jengine.EngineConfig(**SMALL, direction="cluster"),
+                                 "eval_fusion")
+    reg = tserving.Registrar(params_from_jax(params), cfg, head_mode="eval_fusion",
+                             device="cpu")
+    path = str(tmp_path / "cluster.pt2")
+    reg.export_compiled(path, batch=1)
+    fn = tserving.Registrar.load_exported(path)
+    batch = _batch(3)
+    R, t, _, _ = (a.numpy() for a in fn(_weights(reg), _as_torch(batch)))
+    Rr, tr, _ = reg.register(batch["src_pts"], batch["src_feat"], batch["tgt_pts"],
+                             batch["tgt_feat"])
+    np.testing.assert_allclose(R, Rr, atol=1e-6)
+    np.testing.assert_allclose(t, tr, atol=1e-6)
+
+
 def test_loaded_registrar_artifact_equals_jax(exported):
     batch = _batch(1)
     R, t, sim, cov = (a.numpy() for a in

@@ -37,6 +37,8 @@ PORT_MODULES = [
     "se3_equi_graph_registration_tpu_torch.utils.logging",
     "se3_equi_graph_registration_tpu_torch.utils.debugging",
     "se3_equi_graph_registration_tpu_torch.native.max_clique",
+    "se3_equi_graph_registration_tpu_torch.models.pointnet",
+    "se3_equi_graph_registration_tpu_torch.utils.bf16_training",
 ]
 
 
@@ -171,11 +173,15 @@ def test_engine_rejects_unported_modes():
     for bad in (dict(knn_method="kd-tree"), dict(egnn_impl="triton")):
         with pytest.raises(ValueError):
             engine.build_model(engine.EngineConfig(**bad), device="cpu")
-    # the JAX package's fields load; the variants not ported yet raise when built
-    for unported in (dict(direction="cluster"), dict(so3_mode="invariant"),
-                     dict(bf16_params=True), dict(use_pointnet=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-            engine.build_model(engine.fast_tpu_config(**unported), device="cpu")
+    # the model variants build on the whole-cloud graph; the curve window is
+    # the fused kernel's path and refuses them, naming the graph that runs them
+    variants = (dict(direction="cluster"), dict(so3_mode="invariant"), dict(use_pointnet=True))
+    for variant in variants + (dict(bf16_params=True),):
+        engine.build_model(engine.EngineConfig(**variant), device="cpu")
+    for variant in variants:
+        with pytest.raises(ValueError, match="knn_method='exact'"):
+            engine.build_model(engine.fast_tpu_config(**variant), device="cpu")
+    engine.build_model(engine.fast_tpu_config(bf16_params=True), device="cpu")
     for bad in (dict(direction="sideways"), dict(so3_mode="euler")):
         with pytest.raises(ValueError):
             engine.build_model(engine.EngineConfig(**bad), device="cpu")
@@ -401,19 +407,14 @@ def test_fp32_weight_packing_round_trips(heads):
     assert o % 4 == 0 and all(s[-1] % 4 == 0 for _, s in egcl.F32_LAYOUT)  # float4 rows
 
 
-@pytest.mark.parametrize("path", ["register", "train_step"])
-def test_default_config_entry_points_launch_only_the_fp32_tile_kernels(monkeypatch, path):
-    """At `EngineConfig()` (accurate mode, C=32, 4 heads) every EGCL launch of
-    `register()` and of a train step goes to the fp32 tile kernels: the
-    wrappers' kernel side (`launch_layer`, with the custom op's CUDA side
-    `run_layer` in place of the op, and `launch_backward`) runs on CPU
-    tensors with the launchers stubbed by the plain versions, and records
-    which kernel each launch would start."""
-    from se3_equi_graph_registration_tpu_torch import serving
-    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
+def _kernel_sides(monkeypatch) -> list:
+    """Run the EGCL wrappers' kernel side on CPU tensors: `launch_layer`,
+    with the custom op's CUDA side `run_layer` in place of the op, and
+    `launch_backward`, the launchers stubbed by the plain versions. Each
+    launch appends (wrapper, variant) to the returned list and counts in the
+    wrappers' `launches` / `launches_by_variant` (fresh, at 0)."""
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
-    from se3_equi_graph_registration_tpu_torch.train import engine
 
     launched = []
 
@@ -447,6 +448,24 @@ def test_default_config_entry_points_launch_only_the_fp32_tile_kernels(monkeypat
     monkeypatch.setattr(egcl, "egcl_layer", kernel_side(egcl.launch_layer, egcl.VARIANTS))
     monkeypatch.setattr(eb, "LAUNCH", fake_bwd)
     monkeypatch.setattr(eb, "egcl_backward", kernel_side(eb.launch_backward, egcl.VARIANTS))
+    return launched
+
+
+@pytest.mark.parametrize("path", ["register", "train_step"])
+def test_default_config_entry_points_launch_only_the_fp32_tile_kernels(monkeypatch, path):
+    """At `EngineConfig()` (accurate mode, C=32, 4 heads) every EGCL launch of
+    `register()` and of a train step goes to the fp32 tile kernels: the
+    wrappers' kernel side (`launch_layer`, with the custom op's CUDA side
+    `run_layer` in place of the op, and `launch_backward`) runs on CPU
+    tensors with the launchers stubbed by the plain versions, and records
+    which kernel each launch would start."""
+    from se3_equi_graph_registration_tpu_torch import serving
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+    from se3_equi_graph_registration_tpu_torch.train import engine
+
+    launched = _kernel_sides(monkeypatch)
     cfg = engine.EngineConfig(num_nodes=256)
     assert cfg.egnn_accurate and cfg.hidden_nf == 32 and cfg.num_heads == 4 and cfg.k == 16
     rng = np.random.default_rng(3)
@@ -468,3 +487,46 @@ def test_default_config_entry_points_launch_only_the_fp32_tile_kernels(monkeypat
                                           + [("egcl_backward", "tile_f32")] * (2 * L))
         assert eb.egcl_backward.launches_by_variant == {"tile": 0, "tile_f32": 2 * L,
                                                         "simt": 0}
+
+
+@pytest.mark.parametrize("variant,path,want", [
+    (dict(), "register", (2, 6, 0)),
+    (dict(direction="cluster"), "register", (2, 0, 0)),
+    (dict(so3_mode="invariant"), "register", (2, 0, 0)),
+    (dict(bf16_params=True), "train_step", (2, 6, 6)),
+    (dict(use_pointnet=True), "train_step", (2, 6, 6)),
+], ids=["canonical", "cluster", "invariant", "bf16", "pointnet"])
+def test_model_variants_route_as_the_jax_package_does(monkeypatch, variant, path, want):
+    """The routing of the variants, counted at full depth (3 layers, C=32, 4
+    heads, N=256): a `register()` at the canonical config launches B2 per
+    layer and cloud; 'cluster' and 'invariant' run the plain EGNN (the JAX
+    package sends them to its XLA EGNN) and launch no B2, but still the two
+    whole-cloud k-NN graphs (B1); a train step with bf16 parameters or the
+    PointNet encoder launches B1, B2 and B3. B2 and B3 count in the
+    wrappers' launch counters through their kernel side (`_kernel_sides`),
+    B1 by a spy on the engine's k-NN wrapper."""
+    from se3_equi_graph_registration_tpu_torch import serving
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+    from se3_equi_graph_registration_tpu_torch.train import engine
+
+    _kernel_sides(monkeypatch)
+    knn_calls = []
+    knn = engine.knn_window
+    monkeypatch.setattr(engine, "knn_window", lambda x, k, **kw: (
+        knn_calls.append(kw.get("window")), knn(x, k, **kw))[1])
+    cfg = engine.EngineConfig(num_nodes=256, **variant)
+    pb = make_pair_batch(np.random.default_rng(3), batch=1, n=256, feat_dim=cfg.in_node_nf)
+    if path == "register":
+        sd = engine.build_model(cfg, "eval_fusion", device="cpu").state_dict()
+        R, _, _ = serving.Registrar(sd, cfg, device="cpu").register(
+            pb.src_pts, pb.src_feat, pb.tgt_pts, pb.tgt_feat)
+        assert np.all(np.isfinite(R))
+    else:
+        state = engine.init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+        step = engine.make_train_step(state.model, state.optimizer, cfg)
+        state, m = step(state, engine.batch_to_device(tuple(pb), "cpu"))
+        assert np.isfinite(float(m["total"]))
+    assert (len(knn_calls), egcl.egcl_layer.launches, eb.egcl_backward.launches) == want
+    assert knn_calls == [None, None]                 # whole-cloud graphs
