@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh,robust,cli,serve_extra,variants]
+    python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh,robust,cli,serve_extra,variants,
+                                    multiway]
 
 Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
@@ -94,7 +95,26 @@ everything runs):
   6 bf16 tile B2 and 6 bf16 tile B3 a step; bf16 live parameters within
   one bf16 ulp of their fp32 masters); (d) one train step with the PointNet
   encoder at `EngineConfig(use_pointnet=True)`, B=8 (2 whole-cloud warp
-  k-NN, 6 fp32 tile B2 and B3).
+  k-NN, 6 fp32 tile B2 and B3);
+- multiway registration (`multiway`), the offline path of
+  examples/multiway_registration.py: (a) its scenario at its own knobs (6
+  fragments of one bumpy terrain, 1024 points each, seed 0; 12 pairwise
+  `register_fpfh` edges at knn_method='approx', top_m 256, trimmed ICP of
+  15 steps, 2 whole-cloud exact warp k-NN an edge; one chain link
+  corrupted by 5 deg / 30 cm; the robust pose graph, geman, 30 steps),
+  the graph held within 0.5 deg / 1 cm of the truth; (b) the same scenario
+  at N=2048 through the fused path (chunked, W=768: 2 warp B4 and 2
+  'redux' B5 an edge), every edge's error printed, no truth gate (some
+  closures fail at this N in the reference too); (c) `tools/multiway.
+  optimize_logs` over `.log` files written and read back, card against
+  CPU for (a) and (b), and `optimize_pose_graph` at V=60, E=180 (a 3DMatch
+  scene's size), least squares and geman, card against CPU; (d) (b)'s
+  poses as quaternion `.txt` files against ground-truth `.pkl` files from
+  `data/preprocess/pairs` (the native FPFH on the card) through
+  `tools/eval_files`; (e) times with CUDA events, best of 3 after a
+  warm-up, of a pairwise `register_fpfh` at (a)'s and (b)'s knobs and of
+  the pose graph at V=6 and V=60, on the card and on the CPU, and the
+  launches of one pose-graph call.
 Any failed check raises (non-zero exit, no result line). The last line is
 one JSON object with the device.
 
@@ -257,7 +277,7 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   2e-3) while every run stayed within 0.19 deg and 1.8 mm of the truth
   (H100 80GB HBM3, 700 W). The check runs on pair 6 (2.8e-4 at both), and
   again at 60 ICP steps at the same gate, where ICP's fixed point leaves
-  only the descriptors' differences; the 12 pairs at 60 steps are printed,
+  only the descriptors' differences; pairs 0-5 at 60 steps are printed,
   not held.
 """
 from __future__ import annotations
@@ -286,6 +306,9 @@ SPFH_EDGE_OPS = 147
 # fused/chunked fast mode): N, k_normals, k_fpfh, tile, window
 FPFH_N, FPFH_KN, FPFH_K, FPFH_TILE, FPFH_WINDOW = 2048, 30, 60, 128, 768
 FPFH_BATCHES = (8, 32)      # register_fpfh_batch sizes timed
+# seeded pairs of the printed 60-step ICP sweep, card vs CPU: ~7.4 s a pair,
+# most of it the CPU side; 6 (once 12) keep the whole smoke near half its limit
+ICP60_SWEEP_PAIRS = 6
 KNN_LARGE_K = 300           # exact keys beyond the warp kernel's k <= 128
 # the robust phase's ICP cases: steps a scale, the pyramid's coarse cell (m),
 # and the Registrar's bumpy-surface pairs
@@ -326,7 +349,8 @@ def bound_ms(nbytes, ops, peak_ops):
 def profile_call(torch, call, label):
     """Device time by kernel over one warm call under torch.profiler, and
     the device-busy share of that call's wall time (profiler on); returns
-    (wall ms, device-busy ms), or None when no device time was recorded."""
+    (wall ms, device-busy ms, device operations: kernels and copies), or
+    None when no device time was recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -341,11 +365,13 @@ def profile_call(torch, call, label):
     if total_ms == 0:
         log("profile: the profiler recorded no device time (not measured)")
         return None
+    ops = sum(e.count for e in dev)
     log(f"profile {label}: wall {wall_ms:.2f} ms (profiler on), device "
-        f"busy {total_ms:.2f} ms ({100 * total_ms / wall_ms:.1f}%), {len(dev)} kernels")
+        f"busy {total_ms:.2f} ms ({100 * total_ms / wall_ms:.1f}%), {len(dev)} kernels, "
+        f"{ops} device operations")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    return wall_ms, total_ms
+    return wall_ms, total_ms, ops
 
 
 def egcl_errors(torch, got, ref, x, accurate):
@@ -618,18 +644,18 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
 
 
 PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh", "robust", "cli", "serve_extra",
-          "variants")
+          "variants", "multiway")
 ROW_ORDER = ("knn_window", "egcl_layer", "egcl_layer_f32", "egcl_backward", "egcl_backward_f32",
              "knn_chunked", "spfh")
 # the phases whose paths launch each kernel row's kernel
 DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust", "cli", "serve_extra",
-                             "variants"),
+                             "variants", "multiway"),
                  egcl_layer=("serve", "train", "robust", "serve_extra", "variants"),
                  egcl_layer_f32=("serve", "train", "cli", "variants"),
                  egcl_backward=("train", "variants"),
                  egcl_backward_f32=("train", "cli", "variants"),
-                 knn_chunked=("fpfh", "robust", "serve_extra"),
-                 spfh=("fpfh", "robust", "serve_extra"))
+                 knn_chunked=("fpfh", "robust", "serve_extra", "multiway"),
+                 spfh=("fpfh", "robust", "serve_extra", "multiway"))
 # the phases whose paths launch the SIMT kernels (accurate mode at C=33, the
 # kitti preset), counted in the fp32 rows' `simt_launches`
 SIMT_DRIVEN_BY = dict(egcl_layer_f32=("cli", "serve_extra"), egcl_backward_f32=("cli",))
@@ -772,6 +798,8 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
         serve_extra_phase(torch, dev, cfg, sd, rows)
     if "variants" in phases:
         variants_phase(torch, dev, cfg, sd, rows)
+    if "multiway" in phases:
+        multiway_phase(torch, dev, rows)
     for name, row in rows.items():
         if any(ph in phases for ph in DRIVEN_BY[name]):
             check(row["launches"] > 0, f"{name}: no launch on the paths this run drove")
@@ -1802,7 +1830,7 @@ def register_fpfh_phase(torch, dev, rows):
 def fused_icp60(torch, src, tgt, kw):
     """The fused path card against CPU with ICP run to its fixed point (60
     steps), on pair 6 at the default path's gate (module docstring), then
-    the 12-pair sweep at 60 steps, printed and not held."""
+    the sweep over ICP60_SWEEP_PAIRS pairs at 60 steps, printed and not held."""
     from se3_equi_graph_registration_tpu_torch import registration
 
     def gap(s, t):
@@ -1816,12 +1844,13 @@ def fused_icp60(torch, src, tgt, kw):
     check(dR <= 2e-3 and dt <= 2e-3,
           f"register_fpfh fused at 60 ICP steps: card vs CPU dR {dR} dt {dt}")
     t0 = time.perf_counter()
-    sweep = [gap(*surface_pairs(1, seed)[0][:2]) for seed in range(12)]
-    worst = max(range(12), key=lambda i: max(sweep[i]))
-    log(f"register_fpfh fused at 60 ICP steps, 12 seeded pairs (not held): card vs CPU "
+    sweep = [gap(*surface_pairs(1, seed)[0][:2]) for seed in range(ICP60_SWEEP_PAIRS)]
+    worst = max(range(ICP60_SWEEP_PAIRS), key=lambda i: max(sweep[i]))
+    log(f"register_fpfh fused at 60 ICP steps, {ICP60_SWEEP_PAIRS} seeded pairs (not held): "
+        f"card vs CPU "
         f"‖ΔR‖/√2 {min(a for a, _ in sweep):.3g} to {max(a for a, _ in sweep):.3g}, |Δt| "
         f"{min(b for _, b in sweep):.3g} to {max(b for _, b in sweep):.3g} m; over 2e-3: "
-        f"{sum(max(p) > 2e-3 for p in sweep)} of 12 (worst: pair {worst}); "
+        f"{sum(max(p) > 2e-3 for p in sweep)} of {ICP60_SWEEP_PAIRS} (worst: pair {worst}); "
         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -3107,6 +3136,369 @@ def variants_phase(torch, dev, cfg, sd, rows):
         f"{sim:.1f}); CPU side {cpu_s:.1f} s")
     log(f"variants: {json.dumps({k: round(v, 3) for k, v in results.items()})} ms; phase "
         f"{time.perf_counter() - t_phase:.1f} s; {card_line()}")
+
+# the multiway phase: examples/multiway_registration.py's scenario and knobs
+MULTIWAY_V, MULTIWAY_N = 6, 1024      # fragments, points a fragment
+MULTIWAY_ITERS = 30                   # the robust graph's Gauss-Newton steps
+MULTIWAY_KNOBS = dict(n_points=MULTIWAY_N, top_m=256, icp_trim="auto", icp_iters=15)
+MULTIWAY_GATE = (0.5, 1.0)            # (a)'s graph against the truth: deg, cm
+# graphs card vs CPU, ‖ΔR‖_F/√2 and max|Δt| (m): the same Gauss-Newton steps in
+# fp32, measured ≤ 4.8e-7 on an H100 80GB HBM3 at 700 W
+MULTIWAY_CPU_TOL = 1e-5
+GRAPH_V, GRAPH_ITERS = 60, 15         # a 3DMatch scene's fragments; its graph's steps
+
+
+def multiway_scene(torch, n, V=MULTIWAY_V, seed=0):
+    """examples/multiway_registration.py's scenario, its draws in its order:
+    one bumpy terrain, V fragment poses in gentle motion (windows overlap
+    ~70%), fragment i's n points in its own frame. Returns (fragments,
+    ground-truth poses [V, 4, 4])."""
+    from se3_equi_graph_registration_tpu_torch.core.se3 import matrix_exp_so3
+
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-2.0, 2.0 + 0.5 * V, (12 * V, 2))
+    amps = rng.uniform(-0.35, 0.35, 12 * V)
+    widths = rng.uniform(0.08, 0.3, 12 * V)
+
+    def sample_window(x0):
+        xy = np.stack([rng.uniform(x0, x0 + 2.0, n), rng.uniform(-1, 1, n)], -1)
+        z = np.zeros(n)
+        for (cx, cy), a, w in zip(centers, amps, widths):
+            z += a * np.exp(-((xy[:, 0] - cx) ** 2 + (xy[:, 1] - cy) ** 2) / w)
+        pts = np.concatenate([xy, z[:, None]], -1).astype(np.float32)
+        return pts + rng.standard_normal(pts.shape).astype(np.float32) * 0.002
+
+    gt = [np.eye(4, dtype=np.float32)]
+    for _ in range(1, V):
+        w = rng.standard_normal(3).astype(np.float32) * 0.05
+        d = np.eye(4, dtype=np.float32)
+        d[:3, :3] = matrix_exp_so3(torch.from_numpy(w)).numpy()
+        d[:3, 3] = [0.4, 0, 0] + rng.standard_normal(3) * 0.02
+        gt.append(gt[-1] @ d)
+    gt = np.stack(gt)
+    frags = [(sample_window(0.4 * i - 1.0) - gt[i, :3, 3]) @ gt[i, :3, :3] for i in range(V)]
+    return frags, gt
+
+
+def multiway_edges(V=MULTIWAY_V):
+    """The example's edges: the odometry chain, skip-2 and skip-3 closures."""
+    return ([(i, i + 1) for i in range(V - 1)] + [(i, i + 2) for i in range(V - 2)]
+            + [(i, i + 3) for i in range(V - 3)])
+
+
+def traj_err(traj, gt):
+    """Per-pose (rotation in degrees, translation in cm) of [V, 4, 4] poses
+    against the truth, as the example measures them: the angle from
+    ‖ΔR‖_F/√2, since arccos misreads near zero angle."""
+    d = np.linalg.norm(traj[:, :3, :3] - gt[:, :3, :3], axis=(1, 2)) / np.sqrt(2)
+    return (np.degrees(2 * np.arcsin(np.clip(d / 2, 0, 1))),
+            np.linalg.norm(traj[:, :3, 3] - gt[:, :3, 3], axis=1) * 100)
+
+
+def edge_truth(gt, edges):
+    """inv(T_i) @ T_j [E, 4, 4] in float64: the pose of fragment j in i's frame."""
+    g = gt.astype(np.float64)
+    return np.stack([np.linalg.inv(g[i]) @ g[j] for i, j in edges])
+
+
+def corrupt_chain_link(torch, rels):
+    """The example's simulated failure: the middle chain link off by 5 deg
+    about x and 30 cm along x."""
+    from se3_equi_graph_registration_tpu_torch.core.se3 import matrix_exp_so3
+
+    rels = rels.copy()
+    bad = (MULTIWAY_V - 1) // 2
+    rels[bad, :3, :3] = matrix_exp_so3(torch.from_numpy(np.float32([0.087, 0, 0]))).numpy() \
+        @ rels[bad, :3, :3]
+    rels[bad, :3, 3] += np.float32([0.3, 0, 0])
+    return rels
+
+
+def chain_init(rels, V=MULTIWAY_V):
+    """Absolute poses integrated along the odometry chain (the first V - 1 edges)."""
+    init = [np.eye(4, dtype=np.float32)]
+    for i in range(V - 1):
+        init.append(init[-1] @ rels[i])
+    return np.stack(init)
+
+
+def best_event_ms(torch, fn, reps=3):
+    """The least device-clock ms of `reps` calls, one call between two CUDA
+    events each, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1))
+    return best
+
+
+def best_host_ms(fn, reps=3):
+    """The least host-clock ms of `reps` calls after a warm-up call (CPU runs)."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def scene_graph(seed=0, V=GRAPH_V):
+    """A pose graph of a 3DMatch scene's size: V fragments on a rising
+    circle of 2 m radius, the chain, skip-2 and skip-3 edges and 6 closures
+    across the circle (E = 3V), each measured with 0.01 rad / 1 cm noise;
+    6 skip closures grossly wrong (0.3 rad, 50 cm); the init integrated
+    along the noisy chain. Returns (gt R, gt t, (R0, t0, edges, R_rel, t_rel))."""
+    rng = np.random.default_rng(seed)
+    a = 2 * np.pi * np.arange(V) / V
+    c, s_, o, z = np.cos(a), np.sin(a), np.ones(V), np.zeros(V)
+    Rg = np.stack([np.stack([c, -s_, z], -1), np.stack([s_, c, z], -1),
+                   np.stack([z, z, o], -1)], -2).astype(np.float32)
+    tg = np.stack([2 * (c - 1), 2 * s_, 0.02 * np.arange(V)], -1).astype(np.float32)
+    edges = multiway_edges(V) + [(i, i + V // 2) for i in range(6)]
+
+    def expm(w):
+        th = np.linalg.norm(w)
+        K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+        return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+    R_rel, t_rel = [], []
+    for i, j in edges:
+        R_rel.append(expm(rng.standard_normal(3) * 0.01) @ Rg[i].T @ Rg[j])
+        t_rel.append(Rg[i].T @ (tg[j] - tg[i]) + rng.standard_normal(3) * 0.01)
+    R_rel, t_rel = np.stack(R_rel).astype(np.float32), np.stack(t_rel).astype(np.float32)
+    for e in rng.choice(np.arange(V - 1, 3 * V - 6), 6, replace=False):
+        R_rel[e] = expm(np.float64([0.3, 0.0, 0.0])) @ R_rel[e]
+        t_rel[e] += np.float32([0.5, 0.0, 0.0])
+    R0, t0 = [Rg[0]], [tg[0]]
+    for k in range(V - 1):
+        t0.append(t0[-1] + R0[-1] @ t_rel[k])
+        R0.append(R0[-1] @ R_rel[k])
+    return Rg, tg, (np.stack(R0).astype(np.float32), np.stack(t0).astype(np.float32),
+                    np.asarray(edges, np.int32), R_rel, t_rel)
+
+
+def multiway_phase(torch, dev, rows):
+    """Multiway registration (module docstring, `multiway`): (a) the
+    example's scenario on the card with the truth gate; (b) at N=2048
+    through the fused path; (c) the pose graph card against CPU through
+    `.log` files, and at V=60; (d) file evaluation of (b)'s poses; (e)
+    times and the launches of a pose-graph call."""
+    import os
+    import tempfile
+
+    from se3_equi_graph_registration_tpu_torch import registration
+    from se3_equi_graph_registration_tpu_torch.core import se3_np
+    from se3_equi_graph_registration_tpu_torch.core.quaternions import (
+        rotation_matrix_to_quaternion)
+    from se3_equi_graph_registration_tpu_torch.data.preprocess import pairs
+    from se3_equi_graph_registration_tpu_torch.ops import pose_graph
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl, knn, spfh
+    from se3_equi_graph_registration_tpu_torch.tools import eval_files, multiway
+    from se3_equi_graph_registration_tpu_torch.utils.trajectory import (
+        read_trajectory_log, write_trajectory_log)
+
+    t_phase = time.perf_counter()
+    edges = multiway_edges()
+    E, V = len(edges), MULTIWAY_V
+    kind = {1: "chain", 2: "skip-2", 3: "skip-3"}
+    counters = dict(knn_window=knn.knn_window, knn_chunked=knn.knn_chunked, spfh=spfh.spfh,
+                    egcl_layer=egcl.egcl_layer)
+    knobs_b = dict(MULTIWAY_KNOBS, n_points=FPFH_N, knn_method="fused", knn_packed="chunked",
+                   window=FPFH_WINDOW)
+    times = {}
+
+    def register_edges(frags, knobs, want, tag):
+        """register_fpfh of fragment j onto fragment i for every edge (i, j),
+        each with its launches held to `want`: T_ij [E, 4, 4], j's frame to i's."""
+        rels = []
+        for i, j in edges:
+            before = {k: fn.launches for k, fn in counters.items()}
+            R, t, info = registration.register_fpfh(frags[j], frags[i], seed=i * 100 + j,
+                                                    device=dev, **knobs)
+            d = {k: fn.launches - before[k] for k, fn in counters.items()}
+            check(d == want, f"multiway {tag} edge {i}->{j}: launches {d}, want {want}")
+            check(all(np.isfinite(a).all() for a in (R, t, info["pose_covariance"])),
+                  f"multiway {tag} edge {i}->{j}: non-finite output")
+            T = np.eye(4, dtype=np.float32)
+            T[:3, :3], T[:3, 3] = R, t
+            rels.append(T)
+        return np.stack(rels)
+
+    def report_edges(rels, gt, tag):
+        rot, cm = traj_err(rels.astype(np.float64), edge_truth(gt, edges))
+        log(f"multiway {tag}, each edge against the truth: " + "; ".join(
+            f"{i}->{j} ({kind[j - i]}) {r:.3f} deg {c:.3f} cm"
+            for (i, j), r, c in zip(edges, rot, cm)))
+        return rot, cm
+
+    def robust_graph(rels, dv):
+        bad = corrupt_chain_link(torch, rels)
+        init = chain_init(bad)
+        opt = pose_graph.optimize_trajectory(init, np.asarray(edges, np.int32), bad,
+                                             weights=np.ones(E, np.float32), robust="geman",
+                                             iters=MULTIWAY_ITERS, device=dv)
+        return init, bad, opt.cpu().numpy()
+
+    # (a) the example's scenario at its own knobs: 2 exact warp B1 an edge
+    frags_a, gt_a = multiway_scene(torch, MULTIWAY_N)
+    reset_all_counters(knn, egcl, spfh)
+    t0 = time.perf_counter()
+    rels_a = register_edges(frags_a, MULTIWAY_KNOBS,
+                            dict(knn_window=2, knn_chunked=0, spfh=0, egcl_layer=0), "(a)")
+    reg_s = time.perf_counter() - t0
+    got = counted_launches(knn, egcl, spfh)
+    check(got["knn_window"] == {"warp": 2 * E, "thread": 0},
+          f"multiway (a): k-NN launches by kernel {got['knn_window']}, want all {2 * E} 'warp'")
+    record_launches(rows, "multiway (a)", dict(knn_window=2 * E),
+                    dict(knn_window=got["knn_window"]))
+    rot_a, cm_a = report_edges(rels_a, gt_a, f"(a) N={MULTIWAY_N} approx")
+    init, bad_a, opt = robust_graph(rels_a, dev)
+    (r0, c0), (r1, c1) = traj_err(init, gt_a), traj_err(opt, gt_a)
+    log(f"multiway (a) N={MULTIWAY_N}, {E} edges ({reg_s:.1f} s of register_fpfh on the card, "
+        f"launches {got['knn_window']}): odometry chain max {r0.max():.3f} deg / "
+        f"{c0.max():.3f} cm; optimized graph (geman, {MULTIWAY_ITERS} steps) max "
+        f"{r1.max():.3f} deg / {c1.max():.3f} cm (gate {MULTIWAY_GATE[0]} deg / "
+        f"{MULTIWAY_GATE[1]} cm)")
+    off = [f"{i}->{j}" for (i, j), r, c in zip(edges, rot_a, cm_a) if r > 2 or c > 5]
+    check(r1.max() <= MULTIWAY_GATE[0] and c1.max() <= MULTIWAY_GATE[1],
+          f"multiway (a): the graph is {r1.max()} deg / {c1.max()} cm from the truth; "
+          f"edges off by more than 2 deg or 5 cm: {off}")
+
+    # (b) full width through the fused path: 2 warp B4 and 2 'redux' B5 an edge
+    frags_b, gt_b = multiway_scene(torch, FPFH_N)
+    reset_all_counters(knn, egcl, spfh)
+    t0 = time.perf_counter()
+    rels_b = register_edges(frags_b, knobs_b,
+                            dict(knn_window=0, knn_chunked=2, spfh=2, egcl_layer=0), "(b)")
+    reg_s = time.perf_counter() - t0
+    got = counted_launches(knn, egcl, spfh)
+    check(got["knn_chunked"] == {"warp": 2 * E, "thread": 0}
+          and got["spfh"] == {**dict.fromkeys(spfh.VARIANTS, 0), "redux": 2 * E},
+          f"multiway (b): launches by kernel {got}")
+    record_launches(rows, "multiway (b)", dict(knn_chunked=2 * E, spfh=2 * E),
+                    dict(knn_chunked=got["knn_chunked"], spfh=got["spfh"]))
+    rot_b, cm_b = report_edges(rels_b, gt_b, f"(b) N={FPFH_N} fused")
+    init, bad_b, opt = robust_graph(rels_b, dev)
+    (r0, c0), (r1, c1) = traj_err(init, gt_b), traj_err(opt, gt_b)
+    log(f"multiway (b) N={FPFH_N} fused/chunked W={FPFH_WINDOW}, {E} edges ({reg_s:.1f} s, "
+        f"launches knn_chunked {got['knn_chunked']}, spfh {got['spfh']}): odometry chain max "
+        f"{r0.max():.3f} deg / {c0.max():.3f} cm; optimized graph max {r1.max():.3f} deg / "
+        f"{c1.max():.3f} cm (not held: closures can fail at this N)")
+
+    def rot_gap(a, b):
+        return float((np.linalg.norm(a[..., :3, :3] - b[..., :3, :3], axis=(-2, -1))
+                      / np.sqrt(2)).max())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) tools/multiway over .log files: main on the card, then with --device cpu
+        for tag, bad, gt in (("(a)", bad_a, gt_a), ("(b)", bad_b, gt_b)):
+            logs = []
+            for name, keep in (("odometry", lambda i, j: j == i + 1),
+                               ("closures", lambda i, j: j != i + 1)):
+                path = os.path.join(tmp, f"{name}{tag}.log")
+                write_trajectory_log(path, {f"{i}_{j}": bad[e] for e, (i, j) in enumerate(edges)
+                                            if keep(i, j)})
+                logs += ["--log", path]
+            outs = {}
+            for side, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+                out = os.path.join(tmp, f"optimized{tag}-{side}.log")
+                multiway.main(logs + ["--out", out, "--iters", str(MULTIWAY_ITERS)] + extra)
+                back = read_trajectory_log(out)
+                outs[side] = np.stack([back[f"0_{k}"] for k in range(V)])
+            dR, dt = rot_gap(outs["card"], outs["cpu"]), float(
+                np.abs(outs["card"][:, :3, 3] - outs["cpu"][:, :3, 3]).max())
+            r1, c1 = traj_err(outs["card"], gt)
+            log(f"multiway (c) {tag} tools/multiway over .log files: card vs CPU ‖ΔR‖/√2 "
+                f"{dR:.3g}, max|Δt| {dt:.3g} m (8 decimals in the file); the card's log "
+                f"against the truth max {r1.max():.3f} deg / {c1.max():.3f} cm")
+            check(dR <= MULTIWAY_CPU_TOL and dt <= MULTIWAY_CPU_TOL,
+                  f"multiway (c) {tag}: card vs CPU dR {dR} dt {dt}")
+            if tag == "(a)":
+                check(r1.max() <= MULTIWAY_GATE[0] and c1.max() <= MULTIWAY_GATE[1],
+                      f"multiway (c) (a): the card's log is {r1.max()} deg / {c1.max()} cm off")
+
+        # (c) a 3DMatch scene's size, least squares and geman, card vs CPU
+        Rg, tg, graph = scene_graph()
+        for robust in (None, "geman"):
+            Rc, tc = pose_graph.optimize_pose_graph(*graph, iters=GRAPH_ITERS, robust=robust,
+                                                    device=dev)
+            Rp, tp = pose_graph.optimize_pose_graph(*graph, iters=GRAPH_ITERS, robust=robust,
+                                                    device="cpu")
+            Rc, tc, Rp, tp = Rc.cpu().numpy(), tc.cpu().numpy(), Rp.numpy(), tp.numpy()
+            dR, dt = rot_gap(Rc, Rp), float(np.abs(tc - tp).max())
+            e0 = np.abs(graph[1] - tg).max() * 100
+            rd = np.degrees(2 * np.arcsin(np.clip(
+                np.linalg.norm(Rc - Rg, axis=(1, 2)) / np.sqrt(2) / 2, 0, 1))).max()
+            check(np.isfinite(Rc).all() and np.isfinite(tc).all() and dR <= MULTIWAY_CPU_TOL
+                  and dt <= MULTIWAY_CPU_TOL,
+                  f"multiway (c) V={GRAPH_V} robust={robust}: card vs CPU dR {dR} dt {dt}")
+            log(f"multiway (c) optimize_pose_graph V={GRAPH_V} E={len(graph[2])} "
+                f"robust={robust} ({GRAPH_ITERS} steps; 6 closures grossly wrong): card vs CPU "
+                f"‖ΔR‖/√2 {dR:.3g}, max|Δt| {dt:.3g} m; against the truth max {rd:.3f} deg / "
+                f"{np.abs(tc - tg).max() * 100:.3f} cm (init {e0:.3f} cm)")
+
+        # (d) (b)'s card poses as quaternion lines against build_pair truth files
+        gt_dir, pred_dir = os.path.join(tmp, "gt"), os.path.join(tmp, "pred")
+        os.makedirs(pred_dir)
+        truth = edge_truth(gt_b, edges)
+        feats = {j: pairs.extract_fpfh(frags_b[j], voxel_size=0.03, backend="native",
+                                       device=dev) for j in sorted({j for _, j in edges})}
+        names, inliers = [], []
+        for e, (i, j) in enumerate(edges):
+            pts, f = feats[j]
+            f = pairs.normalize_descriptors(f)
+            pair = pairs.build_pair(pts, se3_np.transform(pts, truth[e]), f, f, truth[e], 0.10,
+                                    file_0=f"fragment_{j}", file_1=f"fragment_{i}")
+            inliers.append(float(pair["labels"].mean()))
+            pairs.save_pair(os.path.join(gt_dir, f"{i}_{j}.pkl"), pair)
+            q = rotation_matrix_to_quaternion(torch.from_numpy(rels_b[e, :3, :3])).numpy()
+            with open(os.path.join(pred_dir, f"{i}_{j}.txt"), "w") as fh:
+                fh.write(" ".join(repr(float(v)) for v in
+                                  np.concatenate([q[1:], q[:1], rels_b[e, :3, 3]])) + "\n")
+            names.append(f"{i}_{j}")
+        summary = eval_files.evaluate_pairwise_frames(
+            [n + ".pkl" for n in names], [n + ".txt" for n in names], gt_dir, pred_dir, tmp)
+        with open(os.path.join(tmp, "evaluation_results.txt")) as fh:
+            report = fh.read().strip().replace("\n", "; ")
+        d_cm = abs(summary["avg_translation_error_cm"] - float(np.mean(cm_b)))
+        d_deg = abs(summary["avg_rotation_error_deg"] - float(np.mean(rot_b)))
+        log(f"multiway (d) tools/eval_files over (b)'s {E} card poses and build_pair truth "
+            f"files (native FPFH on the card at 0.03 m, {min(len(p) for p, _ in feats.values())}"
+            f"-{max(len(p) for p, _ in feats.values())} points, labels {min(inliers):.3f}-"
+            f"{max(inliers):.3f} inliers): {report}; against (b)'s own errors: translation "
+            f"|Δ| {d_cm:.3g} cm, rotation |Δ| {d_deg:.3g} deg (arccos near zero angle)")
+        check(all(np.isfinite(v) for v in summary.values()) and d_cm <= 1e-3 and d_deg <= 0.1
+              and 0.0 <= summary["avg_registration_recall"] <= 1.0,
+              f"multiway (d): report {summary}, against (b) {d_cm} cm {d_deg} deg")
+
+    # (e) times: CUDA events on the card, best of 3 after a warm-up; host clock on the CPU
+    times["register_fpfh (a) N=1024 approx"] = best_event_ms(
+        torch, lambda: registration.register_fpfh(frags_a[1], frags_a[0], seed=1, device=dev,
+                                                  **MULTIWAY_KNOBS))
+    times["register_fpfh (b) N=2048 fused"] = best_event_ms(
+        torch, lambda: registration.register_fpfh(frags_b[1], frags_b[0], seed=1, device=dev,
+                                                  **knobs_b))
+    small = (chain_init(bad_a), np.asarray(edges, np.int32), bad_a)
+    kw6 = dict(weights=np.ones(E, np.float32), robust="geman", iters=MULTIWAY_ITERS)
+    kw60 = dict(robust="geman", iters=GRAPH_ITERS)
+    calls = {f"pose graph V={V} E={E} geman {MULTIWAY_ITERS} steps":
+             lambda dv: pose_graph.optimize_trajectory(*small, device=dv, **kw6),
+             f"pose graph V={GRAPH_V} E={len(graph[2])} geman {GRAPH_ITERS} steps":
+             lambda dv: pose_graph.optimize_pose_graph(*graph, device=dv, **kw60)}
+    for name, call in calls.items():
+        times[name + ", card"] = best_event_ms(torch, lambda: call(dev))
+        times[name + ", CPU (host clock)"] = best_host_ms(lambda: call("cpu"))
+        profile_call(torch, lambda: (call(dev), torch.cuda.synchronize()),
+                     f"multiway (e) {name}, one call")
+    log("multiway (e) ms: " + json.dumps({k: round(v, 3) for k, v in times.items()}))
+    log(f"multiway: phase {time.perf_counter() - t_phase:.1f} s; {card_line()}")
 
 
 if __name__ == "__main__":

@@ -135,13 +135,27 @@ def kabsch_irls(src: torch.Tensor, tgt: torch.Tensor, weights: torch.Tensor,
 def pose_covariance(src: torch.Tensor, tgt: torch.Tensor, R: torch.Tensor,
                     t: torch.Tensor, weights: torch.Tensor,
                     eps: float = 1e-9) -> torch.Tensor:
-    """Gauss-Newton covariance [..., 6, 6] over [δω, δt]:
-    (σ̂² / N_eff) · (Σᵢ ŵᵢ JᵢᵀJᵢ)⁻¹ with Jᵢ = [−[R sᵢ]ₓ | I]."""
-    w = weights.float()
+    """Gauss-Newton covariance [..., 6, 6] (float32) over [δω, δt]:
+    (σ̂² / N_eff) · (Σᵢ ŵᵢ JᵢᵀJᵢ + eps·I)⁻¹ with Jᵢ = [−[R sᵢ]ₓ | I].
+
+    Evaluated in float64, where the reference computes in float32: a
+    deliberate divergence, and the reference's value is the fault. When the
+    weights sit on fewer than 3 points (or on collinear ones) M = Σ ŵ JᵀJ
+    has rank < 6, and the 1e-9 ridge that should keep it invertible lies
+    below float32's resolution of M's O(1) entries. The float32 inverse of
+    that singular matrix is then arbitrary: the reference's (XLA's LU)
+    returns NaN and inf entries at one weighted point and entries in the
+    thousands at two, LAPACK's others again. In float64 the ridge is
+    resolved, so the result is the formula's own: finite, at most
+    σ̂²/N_eff · 1e9 along the unobserved directions, and never NaN, so a
+    pose-graph edge weight taken from it stays finite. Wherever 3 or more
+    non-collinear points carry weight the two agree within the reference's
+    float32 rounding (tests/test_torch_head.py)."""
+    w = weights.double()
     w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-12)
     n_eff = 1.0 / (torch.sum(w * w, dim=-1) + 1e-12)
-    rs = torch.einsum("...ij,...nj->...ni", R.float(), src.float())
-    r = rs + t.float()[..., None, :] - tgt.float()
+    rs = torch.einsum("...ij,...nj->...ni", R.double(), src.double())
+    r = rs + t.double()[..., None, :] - tgt.double()
     sigma2 = torch.sum(w * torch.sum(r * r, dim=-1), dim=-1) / 3.0
     zeros = torch.zeros_like(rs[..., 0])
     ax = torch.stack([
@@ -153,4 +167,4 @@ def pose_covariance(src: torch.Tensor, tgt: torch.Tensor, R: torch.Tensor,
     J = torch.cat([-ax, eye], dim=-1)                          # [..., N, 3, 6]
     M = torch.einsum("...n,...nij,...nik->...jk", w, J, J)
     M = M + eps * torch.eye(6, dtype=M.dtype, device=M.device)
-    return (sigma2 / n_eff)[..., None, None] * torch.linalg.inv(M)
+    return ((sigma2 / n_eff)[..., None, None] * torch.linalg.inv(M)).float()

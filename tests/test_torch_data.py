@@ -29,7 +29,8 @@ from se3_equi_graph_registration_tpu_torch.utils import trajectory as ttraj
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ("core/se3_np.py", "utils/trajectory.py", "data/sampling.py", "data/threedmatch.py",
-          "data/kitti.py", "data/redwood.py", "data/pipeline.py")
+          "data/kitti.py", "data/redwood.py", "data/pipeline.py", "data/preprocess/__init__.py",
+          "data/preprocess/split.py", "data/preprocess/threedmatch_cli.py")
 
 
 def _code(path):

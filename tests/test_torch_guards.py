@@ -39,6 +39,14 @@ PORT_MODULES = [
     "se3_equi_graph_registration_tpu_torch.native.max_clique",
     "se3_equi_graph_registration_tpu_torch.models.pointnet",
     "se3_equi_graph_registration_tpu_torch.utils.bf16_training",
+    "se3_equi_graph_registration_tpu_torch.data.preprocess.pairs",
+    "se3_equi_graph_registration_tpu_torch.data.preprocess.split",
+    "se3_equi_graph_registration_tpu_torch.data.preprocess.threedmatch_cli",
+    "se3_equi_graph_registration_tpu_torch.data.preprocess.kitti_cli",
+    "se3_equi_graph_registration_tpu_torch.tools",
+    "se3_equi_graph_registration_tpu_torch.tools.eval_files",
+    "se3_equi_graph_registration_tpu_torch.tools.multiway",
+    "se3_equi_graph_registration_tpu_torch.ops.pose_graph",
 ]
 
 
@@ -81,7 +89,7 @@ def test_card_scripts_import_no_jax(script):
     assert names and not bad, bad
 
 
-def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
+def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch, tmp_path):
     from se3_equi_graph_registration_tpu_torch import serving
     from se3_equi_graph_registration_tpu_torch.train import engine
 
@@ -117,6 +125,39 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
     R, t, info = reg.register(rng.uniform(-1, 1, (128, 3)), rng.standard_normal((128, 8)),
                               rng.uniform(-1, 1, (128, 3)), rng.standard_normal((128, 8)))
     assert np.all(np.isfinite(R)) and abs(np.linalg.det(R) - 1) < 1e-4
+
+    # the offline data path and the pose graph
+    from se3_equi_graph_registration_tpu_torch.data.preprocess import kitti_cli, pairs
+    from se3_equi_graph_registration_tpu_torch.ops import pose_graph
+    from se3_equi_graph_registration_tpu_torch.tools import multiway
+
+    eye = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    edges = np.array([(0, 1), (1, 2)], np.int32)
+    graph = (eye[:, :3, :3], eye[:, :3, 3], edges, eye[:2, :3, :3], eye[:2, :3, 3])
+    logs = [{"0_1": np.eye(4), "1_2": np.eye(4)}]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pose_graph.optimize_pose_graph(*graph)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pose_graph.optimize_trajectory(eye, edges, eye[:2])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multiway.optimize_logs(logs)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pairs.extract_fpfh(pts, voxel_size=0.1, backend="native")
+    (tmp_path / "velodyne").mkdir()
+    for i in range(2):
+        np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], 1).tofile(
+            tmp_path / "velodyne" / f"{i:06d}.bin")
+    np.savetxt(tmp_path / "poses.txt", np.tile(np.eye(4)[:3].reshape(1, -1), (2, 1)))
+    seq = (str(tmp_path / "velodyne"), str(tmp_path / "poses.txt"), str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kitti_cli.make_sequence_pairs(*seq, frame_step=1, voxel_size=0.2)
+    R, t = pose_graph.optimize_pose_graph(*graph, device="cpu")
+    assert R.device.type == "cpu" and torch.isfinite(R).all() and torch.isfinite(t).all()
+    assert pose_graph.optimize_trajectory(eye, edges, eye[:2], device="cpu").shape == (3, 4, 4)
+    assert set(multiway.optimize_logs(logs, device="cpu")) == {"0_0", "0_1", "0_2"}
+    assert pairs.extract_fpfh(pts, voxel_size=0.1, backend="native", device="cpu")[1].shape[1] \
+        == 33
+    assert kitti_cli.make_sequence_pairs(*seq, frame_step=1, voxel_size=0.2, device="cpu") == 1
 
 
 def test_knn_wrappers_reject_a_kernel_variant_as_they_reject_a_bad_geometry():

@@ -61,6 +61,53 @@ def test_kabsch_weighted_and_covariance(rng, solver):
     np.testing.assert_allclose(ct, cj, rtol=1e-3, atol=1e-4 * np.abs(cj).max())
 
 
+def _covariance_fp64(src, tgt, R, t, w, eps=1e-9):
+    """The covariance formula of `pose_covariance` in numpy float64."""
+    w = w.astype(np.float64) / (w.astype(np.float64).sum() + 1e-12)
+    n_eff = 1.0 / ((w * w).sum() + 1e-12)
+    rs = src.astype(np.float64) @ R.astype(np.float64).T
+    r = rs + t.astype(np.float64) - tgt
+    sigma2 = (w * (r * r).sum(-1)).sum() / 3.0
+    ax = np.zeros((len(rs), 3, 3))
+    ax[:, 0, 1], ax[:, 0, 2], ax[:, 1, 2] = -rs[:, 2], rs[:, 1], -rs[:, 0]
+    ax -= ax.transpose(0, 2, 1)
+    J = np.concatenate([-ax, np.broadcast_to(np.eye(3), ax.shape)], -1)
+    M = np.einsum("n,nij,nik->jk", w, J, J) + eps * np.eye(6)
+    return sigma2 / n_eff * np.linalg.inv(M)
+
+
+@pytest.mark.parametrize("points", [1, 2, 3, 200])
+def test_pose_covariance_where_few_points_carry_weight(rng, points):
+    """Weights on 1, 2, 3 and 200 of 200 points. With fewer than 3, M has
+    rank < 6 and its 1e-9 ridge is below float32's resolution: the JAX
+    reference's float32 inverse is NaN and inf at one point and arbitrary
+    at two (it need not equal the formula at all). The port evaluates in
+    float64, so it equals the float64 formula within 1e-6 relative there
+    and is finite. From 3 non-collinear points on, M is well conditioned
+    and the port equals JAX at the existing test's tolerance."""
+    n = 200
+    src = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    R = random_rotation(rng).astype(np.float32)
+    t = rng.standard_normal(3).astype(np.float32)
+    tgt = (src @ R.T + t + 0.01 * rng.standard_normal((n, 3))).astype(np.float32)
+    w = np.zeros(n, np.float32)
+    w[:points] = rng.uniform(0.5, 1.0, points)
+    cj = np.asarray(jk.pose_covariance(jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(R),
+                                       jnp.asarray(t), jnp.asarray(w)))
+    ct = tkb.pose_covariance(T(src), T(tgt), T(R), T(t), T(w)).numpy()
+    c64 = _covariance_fp64(src, tgt, R, t, w)
+    assert ct.dtype == np.float32 and np.all(np.isfinite(ct))
+    np.testing.assert_allclose(ct, c64, rtol=1e-6, atol=1e-6 * np.abs(c64).max())
+    if points == 1:
+        assert np.isnan(cj).any() or np.isinf(cj).any()     # the reference's fault
+    elif points == 2:
+        assert np.abs(cj - c64).max() > 0.1 * np.abs(c64).max()
+    else:
+        np.testing.assert_allclose(ct, cj, rtol=1e-3, atol=1e-4 * np.abs(cj).max())
+    # a pose-graph edge weight taken from it stays finite and positive
+    assert np.isfinite(1.0 / np.trace(ct)) and np.trace(ct) > 0
+
+
 @pytest.mark.parametrize("literal", [False, True])
 def test_fuse_scores(rng, literal):
     p = rng.uniform(0, 2, (2, 32)).astype(np.float32)
