@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh,robust,cli,serve_extra,variants,
-                                    multiway]
+                                    multiway,tools,dist]
 
 Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
@@ -114,7 +114,30 @@ everything runs):
   `tools/eval_files`; (e) times with CUDA events, best of 3 after a
   warm-up, of a pairwise `register_fpfh` at (a)'s and (b)'s knobs and of
   the pose graph at V=6 and V=60, on the card and on the CPU, and the
-  launches of one pose-graph call.
+  launches of one pose-graph call;
+- the tools that settle ROADMAP Queue C (`tools`): (a) the port's model
+  trained 300 fast steps at `fast_tpu_config`, B=16, from the seeded init,
+  once with the reference's 'dot' head and once with the 'cosine' head,
+  the head's effective correspondence count 1/Σŵ² printed every 50 steps
+  (live at >= 8); on each trained model the fast-against-accurate gradient
+  table of `tools/grad_budget` at N=2048, B=8, over the train loss with
+  packed and with exact keys on the fast side and over its
+  well-conditioned terms (corr + sim + equi), against the reference's chip
+  table (worst cosine 0.786, median relative L2 0.029); (b) `tools/scenario_table.run_scenario`
+  at 20 seeds, N=1024, ransac with 4 branches, on the 60% and both 40% rows,
+  at 'approx' (2 whole-cloud warp B1 a call) and fused with chunked keys at
+  W=768 (2 warp B4, 2 'redux' B5 a call), the counts against the
+  reference's; (c) the robust phase's ICP Registrar (60 point-ICP steps a
+  scale over (0.1, 0.0), B=4) card vs CPU beside the card against itself
+  with the source or the target one float32 ulp up or down (the spread of
+  its five answers), and the CPU against itself with the source one ulp
+  up;
+- data parallelism (`dist`): a process group of one rank over NCCL (a tcp
+  store on 127.0.0.1, the card) and a 'data' mesh over it:
+  `Registrar.register` at `fast_tpu_config`, B=64, and a BatchingServer
+  over the mesh Registrar; `register_fpfh_batch` at B=8, fused and chunked
+  at W=768; 2 `fit` steps at B=16 at `fast_tpu_config` in accurate mode;
+  each with and without the mesh; then the group is destroyed.
 Any failed check raises (non-zero exit, no result line). The last line is
 one JSON object with the device.
 
@@ -279,6 +302,30 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   again at 60 ICP steps at the same gate, where ICP's fixed point leaves
   only the descriptors' differences; pairs 0-5 at 60 steps are printed,
   not held.
+- tools: (a) the accurate side's gradients of corr + sim + equi on the
+  card against the same gradients on the CPU, same weights and batch:
+  every tensor at cosine >= 0.9999 (the train phase's gate; the relative
+  L2 is printed, not held: at a one-hot softmax an fp32 spacing of the
+  largest similarity scales the Kabsch path's gradients, as the cli phase
+  found). The train loss itself is printed, not held: its pose terms take
+  the arccos of cosines within ~1e-6 of 1 once the pose is good, clamped
+  at 1 − 1e-6 (`losses._safe_arccos`, the reference's), so an fp32
+  rounding moves a pair across the clamp and switches its gradient on or
+  off (the first card run: 0.898 on egnn.gcl_0.coord_mlp_0.bias with the
+  'cosine' head, all of it in the pose terms: corr + sim + equi at cosine
+  1.0000000 in the same runs). The pairs on the two sides of the clamp are printed.
+  The fast-against-accurate tables, and fast on the card against fast on
+  the CPU, are printed, not held; every loss finite; (b) every call
+  returns a finite pose, the counts printed; (c) card vs CPU and every
+  1-ulp call at the serve gate, the gaps printed. Every path's launches
+  exact.
+- dist: the mesh calls against the calls without it: R and t within 1e-6,
+  the covariance, similarity mean and weights within 1e-6 of their largest
+  entry (the same rows in one batch); fit: step 1's losses within 1e-6
+  relative, the parameters after step 2 within 1e-6 where the first
+  gradient exceeds 1e-3 of its tensor's max and 2 lr a step everywhere
+  (B3 sums by atomics, so even two runs without the mesh differ: that
+  control is printed). Launches exact.
 """
 from __future__ import annotations
 
@@ -644,18 +691,19 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
 
 
 PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh", "robust", "cli", "serve_extra",
-          "variants", "multiway")
+          "variants", "multiway", "tools", "dist")
 ROW_ORDER = ("knn_window", "egcl_layer", "egcl_layer_f32", "egcl_backward", "egcl_backward_f32",
              "knn_chunked", "spfh")
 # the phases whose paths launch each kernel row's kernel
 DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust", "cli", "serve_extra",
-                             "variants", "multiway"),
-                 egcl_layer=("serve", "train", "robust", "serve_extra", "variants"),
-                 egcl_layer_f32=("serve", "train", "cli", "variants"),
-                 egcl_backward=("train", "variants"),
-                 egcl_backward_f32=("train", "cli", "variants"),
-                 knn_chunked=("fpfh", "robust", "serve_extra", "multiway"),
-                 spfh=("fpfh", "robust", "serve_extra", "multiway"))
+                             "variants", "multiway", "tools", "dist"),
+                 egcl_layer=("serve", "train", "robust", "serve_extra", "variants", "tools",
+                             "dist"),
+                 egcl_layer_f32=("serve", "train", "cli", "variants", "tools", "dist"),
+                 egcl_backward=("train", "variants", "tools"),
+                 egcl_backward_f32=("train", "cli", "variants", "tools", "dist"),
+                 knn_chunked=("fpfh", "robust", "serve_extra", "multiway", "tools", "dist"),
+                 spfh=("fpfh", "robust", "serve_extra", "multiway", "tools", "dist"))
 # the phases whose paths launch the SIMT kernels (accurate mode at C=33, the
 # kitti preset), counted in the fp32 rows' `simt_launches`
 SIMT_DRIVEN_BY = dict(egcl_layer_f32=("cli", "serve_extra"), egcl_backward_f32=("cli",))
@@ -800,6 +848,10 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
         variants_phase(torch, dev, cfg, sd, rows)
     if "multiway" in phases:
         multiway_phase(torch, dev, rows)
+    if "tools" in phases:
+        tools_phase(torch, dev, cfg, sd, rows)
+    if "dist" in phases:
+        dist_phase(torch, dev, cfg, bsz, sd, rows)
     for name, row in rows.items():
         if any(ph in phases for ph in DRIVEN_BY[name]):
             check(row["launches"] > 0, f"{name}: no launch on the paths this run drove")
@@ -3499,6 +3551,468 @@ def multiway_phase(torch, dev, rows):
                      f"multiway (e) {name}, one call")
     log("multiway (e) ms: " + json.dumps({k: round(v, 3) for k, v in times.items()}))
     log(f"multiway: phase {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+
+
+# --- tools: the Queue C verdicts on the card (module docstring, `tools`) ---
+TOOLS_TRAIN_B, TOOLS_TRAIN_STEPS, TOOLS_PROBE_EVERY = 16, 300, 50
+TOOLS_NEFF = 8.0              # the softmax is live once 1/Σŵ² reaches this
+TOOLS_TABLE_B, TOOLS_TABLE_SEED = 8, 13
+TOOLS_SEEDS = 20
+# BASELINE.md:240-244, the reference on the TPU: ransac, 4 branches, N=1024,
+# 20 seeds; rows 60%, 40% + icp_trim=0.35, 40% + icp_trim='auto'
+TOOLS_REF_COUNTS = {"approx": (20, 16, 15), "fused W=768": (16, 16, 14)}
+TOOLS_REF_WORST_COS, TOOLS_REF_MEDIAN_REL = 0.786, 0.029    # BASELINE.md:523-531
+TOOLS_CLAMP = 1e-6            # losses._safe_arccos: 1 − cos below it has no gradient
+
+
+def kernel_counters():
+    """The five kernel wrappers by row-family name."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl, knn, spfh
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+
+    return dict(knn_window=knn.knn_window, knn_chunked=knn.knn_chunked,
+                egcl_layer=egcl.egcl_layer, egcl_backward=eb.egcl_backward, spfh=spfh.spfh)
+
+
+def zero_counters():
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl, knn, spfh
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+
+    reset_all_counters(knn, egcl, spfh)
+    reset_backward_counters(eb)
+
+
+def launches_since_zero():
+    """{wrapper: {variant: launches}} of every wrapper that launched since
+    `zero_counters`, variants with no launch left out."""
+    return {name: {v: n for v, n in fn.launches_by_variant.items() if n}
+            for name, fn in kernel_counters().items() if fn.launches}
+
+
+def counted(rows, path, call, want):
+    """Run `call` with the counters at 0 and hold its launches to `want`
+    ({wrapper: {variant: n}}); record them in the kernel rows."""
+    import torch
+
+    zero_counters()
+    out = call()
+    torch.cuda.synchronize()
+    got = launches_since_zero()
+    check(got == want, f"{path}: launches {got}, want {want}")
+    egcl_v = lambda w: {"tile": got.get(w, {}).get("tile", 0),
+                        "tile_f32": got.get(w, {}).get("tile_f32", 0)}
+    record_launches(rows, path, dict(knn_window=sum(got.get("knn_window", {}).values()),
+                                     knn_chunked=sum(got.get("knn_chunked", {}).values()),
+                                     spfh=sum(got.get("spfh", {}).values()),
+                                     **by_row("egcl_layer", egcl_v("egcl_layer")),
+                                     **by_row("egcl_backward", egcl_v("egcl_backward"))),
+                    {w: got[w] for w in ("knn_window", "knn_chunked", "spfh") if w in got})
+    return out
+
+
+def effective_count(torch, model, cfg, batch):
+    """The batch mean of 1/Σŵ² over the train head's Kabsch softmax weights:
+    1 when the softmax is one-hot, the labelled count when uniform."""
+    from se3_equi_graph_registration_tpu_torch.train import engine
+
+    w = engine._apply_with_graphs(model, cfg, batch).weights.double()
+    return float((1.0 / (w * w).sum(-1)).mean())
+
+
+def tools_conditioned():
+    """The train loss's terms whose gradient is well conditioned: corr, sim
+    and equi. The pose terms take the arccos of cosines within ~1e-6 of 1
+    once the pose is good, and `_safe_arccos` clamps at 1 − 1e-6: an fp32
+    rounding moves a pair across the clamp and switches its gradient."""
+    from se3_equi_graph_registration_tpu_torch.train import losses
+
+    return losses.LossWeights(corr=1.0, sim=1.0, rot=0.0, trans=0.0, equi=1.0)
+
+
+def tools_phase(torch, dev, cfg, sd, rows):
+    """The tools that settle ROADMAP Queue C on the card: (a) fast-mode
+    gradients on trained weights (Queue C item 3); (b) the scenario table's
+    60% and 40% rows at 20 seeds, 'approx' and fused W=768 (item 4); (c) the
+    ICP Registrar's covariance card vs CPU beside the CPU's own 1-ulp
+    sensitivity (item 1)."""
+    t_phase = time.perf_counter()
+    tools_gradients(torch, dev, cfg, rows)
+    tools_scenarios(torch, dev, rows)
+    tools_icp_covariance(torch, dev, cfg, sd, rows)
+    log(f"tools: phase {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+
+
+def arccos_margins(torch, params, cfg, batch):
+    """Per pair, 1 − cos of the rotation angle and of the translation
+    direction angle that `train/losses.pose_loss` takes the arccos of
+    (float64; its `_safe_arccos` clamps at 1 − 1e-6, where the gradient
+    is 0)."""
+    from se3_equi_graph_registration_tpu_torch.core.se3 import decompose_trans
+    from se3_equi_graph_registration_tpu_torch.train import engine
+
+    model = engine.build_model(cfg, device=batch["src_pts"].device)
+    model.load_state_dict(params)
+    out = engine._apply_with_graphs(model, cfg, batch)
+    gR, gt = decompose_trans(batch["gt_pose"])
+    rot = ((out.R.mT @ gR).diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0) / 2.0
+    trans = (out.t * gt).sum(-1) / torch.clamp(out.t.norm(dim=-1) * gt.norm(dim=-1), min=1e-8)
+    return (1.0 - rot.double().cpu().numpy()), (1.0 - trans.double().cpu().numpy())
+
+
+def tools_gradients(torch, dev, cfg, rows):
+    """(a) Train the port's model at `cfg` (B=16, seeded init and pairs)
+    with the reference's 'dot' head and with the 'cosine' head, printing
+    the head's effective correspondence count every TOOLS_PROBE_EVERY steps;
+    then on each trained model at N=2048, B=8 the fast-against-accurate
+    gradient table of `tools/grad_budget` over the train loss (packed keys,
+    and exact keys on the fast side: --same-graph) and over its
+    well-conditioned terms (corr + sim + equi). Gate: the accurate side on
+    the card against the accurate side on the CPU, same weights and batch,
+    over the well-conditioned terms, every tensor at cosine >= 0.9999. The
+    full loss card vs CPU is printed beside the pairs whose pose-loss arccos
+    argument lies on the two sides of its clamp on the two devices."""
+    import dataclasses
+
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
+    from se3_equi_graph_registration_tpu_torch.tools import grad_budget
+    from se3_equi_graph_registration_tpu_torch.train import engine
+
+    n, c, L = cfg.num_nodes, cfg.in_node_nf, cfg.n_layers
+    rng = np.random.default_rng(11)
+    pool = [engine.batch_to_device(tuple(make_pair_batch(rng, batch=TOOLS_TRAIN_B, n=n,
+                                                         feat_dim=c)), dev) for _ in range(8)]
+    table_batch = engine.batch_to_device(tuple(make_pair_batch(
+        np.random.default_rng(TOOLS_TABLE_SEED), batch=TOOLS_TABLE_B, n=n, feat_dim=c)), dev)
+    table_cpu = {key: v.cpu() for key, v in table_batch.items()}
+    conditioned = lambda q: dataclasses.replace(q, loss_weights=tools_conditioned())
+    fwd = lambda var: {"knn_window": {"warp": 2}, "egcl_layer": {var: 2 * L}}
+    fwd_bwd = lambda var: dict(fwd(var), egcl_backward={var: 2 * L})
+    verdicts = {}
+    for head in ("dot", "cosine"):
+        tcfg = dataclasses.replace(cfg, weight_mode=head)
+        state = engine.init_state(tcfg, torch.Generator().manual_seed(0), device=dev)
+        step = engine.make_train_step(state.model, state.optimizer, tcfg)
+        probes = [(0, effective_count(torch, state.model, tcfg, pool[0]))]
+
+        def train():
+            nonlocal state
+            for i in range(1, TOOLS_TRAIN_STEPS + 1):
+                state, m = step(state, pool[i % len(pool)])
+                if i % TOOLS_PROBE_EVERY == 0:
+                    probes.append((i, effective_count(torch, state.model, tcfg, pool[0])))
+            return m
+
+        t0 = time.perf_counter()
+        forwards = TOOLS_TRAIN_STEPS + TOOLS_TRAIN_STEPS // TOOLS_PROBE_EVERY
+        m = counted(rows, f"tools (a) train '{head}'", train, {
+            "knn_window": {"warp": 2 * forwards}, "egcl_layer": {"tile": 2 * L * forwards},
+            "egcl_backward": {"tile": 2 * L * TOOLS_TRAIN_STEPS}})
+        dt = time.perf_counter() - t0
+        check(np.isfinite(float(m["total"])), f"tools (a) '{head}': non-finite loss")
+        live = next((i for i, e in probes if e >= TOOLS_NEFF), None)
+        log(f"tools (a) '{head}' head: {TOOLS_TRAIN_STEPS} fast steps at B={TOOLS_TRAIN_B} in "
+            f"{dt:.1f} s ({1e3 * dt / TOOLS_TRAIN_STEPS:.2f} ms a step, host clock, probes "
+            f"included), last loss {float(m['total']):.4f}; effective correspondences "
+            f"1/Σŵ² by step: " + ", ".join(f"{i}: {e:.3f}" for i, e in probes)
+            + (f"; >= {TOOLS_NEFF} from step {live}" if live is not None else
+               f"; never >= {TOOLS_NEFF} (max {max(e for _, e in probes):.3f}): saturated"))
+
+        params = {key: v.detach().clone() for key, v in state.model.state_dict().items()}
+        acc_cfg = grad_budget.accurate_twin(tcfg)
+        sides = {"packed keys": tcfg, "exact keys (--same-graph)":
+                 dataclasses.replace(tcfg, knn_packed=False),
+                 "corr + sim + equi, packed keys": conditioned(tcfg)}
+        grads = {what: counted(rows, f"tools (a) '{head}' fast gradients, {what}",
+                               lambda: grad_budget.gradients(params, q, table_batch),
+                               fwd_bwd("tile")) for what, q in sides.items()}
+        acc = {what: counted(rows, f"tools (a) '{head}' accurate gradients, {what}",
+                             lambda: grad_budget.gradients(params, q, table_batch),
+                             fwd_bwd("tile_f32"))
+               for what, q in (("train loss", acc_cfg), ("corr + sim + equi",
+                                                          conditioned(acc_cfg)))}
+        t1 = time.perf_counter()
+        acc_cpu = {what: grad_budget.gradients(params, q, table_cpu)
+                   for what, q in (("train loss", acc_cfg),
+                                   ("corr + sim + equi", conditioned(acc_cfg)))}
+        fast_cpu = grad_budget.gradients(params, tcfg, table_cpu)
+        margins = counted(rows, f"tools (a) '{head}' accurate forward",
+                          lambda: arccos_margins(torch, params, acc_cfg, table_batch),
+                          fwd("tile_f32"))
+        margins_cpu = arccos_margins(torch, params, acc_cfg, table_cpu)
+        gate = grad_budget.compare(acc["corr + sim + equi"], acc_cpu["corr + sim + equi"])
+        full = grad_budget.compare(acc["train loss"], acc_cpu["train loss"])
+        check(gate[0][1] >= 0.9999, f"tools (a) '{head}': accurate gradients of corr + sim + "
+                                    f"equi card vs CPU, {gate[0][0]} cosine {gate[0][1]}")
+        straddle = {name: int(np.sum((a > TOOLS_CLAMP) != (b > TOOLS_CLAMP)))
+                    for name, a, b in zip(("rotation", "translation"), margins, margins_cpu)}
+        log(f"tools (a) '{head}' gate, accurate gradients of corr + sim + equi card vs CPU "
+            f"(B={TOOLS_TABLE_B}; CPU {time.perf_counter() - t1:.1f} s): worst cosine "
+            f"{gate[0][0]} {gate[0][1]:.7f}, worst rel L2 {max(r[2] for r in gate):.3g}. "
+            f"The train loss card vs CPU (printed, not held): worst cosine {full[0][0]} "
+            f"{full[0][1]:.7f}, worst rel L2 {max(r[2] for r in full):.3g}; pairs whose "
+            f"1 − cos lies on the two sides of the arccos clamp ({TOOLS_CLAMP}) on the two "
+            f"devices: {straddle}; 1 − cos of the translation angle, card: "
+            + ", ".join(f"{v:.3g}" for v in margins[1]) + "; CPU: "
+            + ", ".join(f"{v:.3g}" for v in margins_cpu[1]))
+        emul = grad_budget.compare(grads["packed keys"], fast_cpu)
+        wc, wr, mr = grad_budget.summary(emul)
+        log(f"tools (a) '{head}' fast on the card vs fast on the CPU (the plain versions round "
+            f"the same operands to bf16 and sum in another order; printed, not held): worst "
+            f"cosine {emul[0][0]} {wc:.7f}, worst rel L2 {wr:.3g}, median rel L2 {mr:.3g}")
+        for what, g in grads.items():
+            ref = acc["corr + sim + equi" if what.startswith("corr") else "train loss"]
+            table = grad_budget.compare(g, ref)
+            wc, wr, mr = grad_budget.summary(table)
+            log(f"tools (a) '{head}' fast vs accurate, {what}, N={n} B={TOOLS_TABLE_B}: worst "
+                f"cosine {wc:.7f}, worst rel L2 {wr:.3g}, median rel L2 {mr:.3g} "
+                f"({len(table)} tensors); the table, worst first:")
+            for name, cs, rel in table:
+                log(f"  | {name} | {cs:.7f} | {rel:.3g} |")
+            verdicts[(head, what)] = (wc, wr, mr)
+    for (head, what), (wc, wr, mr) in verdicts.items():
+        parity = wc >= TOOLS_REF_WORST_COS and mr <= TOOLS_REF_MEDIAN_REL
+        log(f"tools (a) verdict '{head}' {what}: worst cosine {wc:.4f} (reference chip "
+            f"{TOOLS_REF_WORST_COS}), median rel L2 {mr:.3g} (reference {TOOLS_REF_MEDIAN_REL}): "
+            + ("parity" if parity else "beyond the reference's budget"))
+
+
+def tools_scenarios(torch, dev, rows):
+    """(b) tools/scenario_table.run_scenario at TOOLS_SEEDS seeds, N=1024,
+    ransac with 4 branches, on the 60% and both 40% rows, in the default
+    'approx' column (B1 whole cloud) and knn_method='fused' with chunked
+    keys at W=768 (B4, B5). Every call must return a finite pose; the
+    counts are printed against the reference's."""
+    from se3_equi_graph_registration_tpu_torch.tools import scenario_table
+
+    surf = scenario_table.make_bumpy_surface()
+    cols = {"approx": ({}, {"knn_window": {"warp": 2 * TOOLS_SEEDS}}),
+            "fused W=768": (dict(knn_method="fused", knn_packed="chunked", window=FPFH_WINDOW),
+                            {"knn_chunked": {"warp": 2 * TOOLS_SEEDS},
+                             "spfh": {"redux": 2 * TOOLS_SEEDS}})}
+    counts = {col: [] for col in cols}
+    for label, x_range, _, knobs in scenario_table.SCENARIOS[1:]:
+        for col, (extra, want) in cols.items():
+            t0 = time.perf_counter()
+            rot, trans, ok = counted(
+                rows, f"tools (b) {label} {col}",
+                lambda: scenario_table.run_scenario(surf, "ransac", x_range, TOOLS_SEEDS, knobs,
+                                                    dict(extra, ransac_branches=4), device=dev),
+                want)
+            check(np.all(np.isfinite(rot)) and np.all(np.isfinite(trans)),
+                  f"tools (b) {label} {col}: a non-finite pose")
+            counts[col].append(int(ok))
+            log(f"tools (b) [{col}] " + scenario_table.cell_line(label, "ransac", rot, trans, ok)
+                + f"  ({time.perf_counter() - t0:.1f} s)")
+    for col, got in counts.items():
+        ref = TOOLS_REF_COUNTS[col]
+        below = [b - a for a, b in zip(got, ref) if b - a > 2]
+        above = [a - b for a, b in zip(got, ref) if a - b > 2]
+        log(f"tools (b) verdict {col}: {got} of {TOOLS_SEEDS} against the reference's {ref} "
+            f"(BASELINE.md, TPU): " + (
+                "parity (each within 2)" if not below and not above else
+                f"no cell more than 2 below, {len(above)} above by more than 2"
+                if not below else "more than 2 below in a cell: a fault, failing seeds above"))
+
+
+def tools_icp_covariance(torch, dev, cfg, sd, rows):
+    """(c) The ICP Registrar of the robust phase (60 point-ICP steps a scale
+    over (ROBUST_VOXEL, 0.0), B=4 bumpy-surface pairs): card vs CPU at the
+    serve gate, and the CPU against itself with every source coordinate one
+    float32 ulp up, which measures the method's own sensitivity to a
+    rounding."""
+    import dataclasses
+
+    from se3_equi_graph_registration_tpu_torch import serving
+    from se3_equi_graph_registration_tpu_torch.train import engine
+
+    width = dict(k=cfg.k, in_node_nf=cfg.in_node_nf, hidden_nf=cfg.hidden_nf,
+                 n_layers=cfg.n_layers, num_heads=cfg.num_heads, top_k=cfg.top_k)
+    rcfg = dataclasses.replace(engine.robust_eval_config(num_nodes=cfg.num_nodes, **width),
+                               icp_iters=ROBUST_ICP_ITERS, icp_voxels=(ROBUST_VOXEL, 0.0))
+    card, cpu = serving.Registrar(sd, rcfg, device=dev), serving.Registrar(sd, rcfg, device="cpu")
+    src, sf, tgt, tf, _, _ = surface_requests(ROBUST_ICP_PAIRS, 31, cfg.num_nodes, cfg.in_node_nf)
+    got = counted(rows, "tools (c) ICP Registrar", lambda: card.register(src, sf, tgt, tf),
+                  {"knn_window": {"warp": 2}, "egcl_layer": {"tile": 2 * cfg.n_layers}})
+    ulp = lambda a, d: np.nextafter(a, np.float32(d * np.inf))
+    moved = {"source +1 ulp": (ulp(src, 1), sf, tgt, tf),
+             "source -1 ulp": (ulp(src, -1), sf, tgt, tf),
+             "target +1 ulp": (src, sf, ulp(tgt, 1), tf),
+             "target -1 ulp": (src, sf, ulp(tgt, -1), tf)}
+    outs = {name: counted(rows, f"tools (c) ICP Registrar, {name}",
+                          lambda: card.register(*args),
+                          {"knn_window": {"warp": 2}, "egcl_layer": {"tile": 2 * cfg.n_layers}})
+            for name, args in moved.items()}
+    card_ulp = {name: serve_gap(out, got, f"tools (c) card, {name}, vs card")[2]
+                for name, out in outs.items()}
+    covs = [np.asarray(o[2]["pose_covariance"]) for o in [got, *outs.values()]]
+    spread = max(np.abs(a - b).max() / np.abs(b).max() for a in covs for b in covs)
+    t0 = time.perf_counter()
+    ref = cpu.register(src, sf, tgt, tf)
+    up = cpu.register(*moved["source +1 ulp"])
+    cpu_s = time.perf_counter() - t0
+    card_gap = serve_gap(got, ref, "tools (c) card vs CPU")
+    ulp_gap = serve_gap(up, ref, "tools (c) CPU, source +1 ulp, vs CPU")
+    log(f"tools (c) ICP Registrar ({ROBUST_ICP_ITERS} steps over ({ROBUST_VOXEL}, 0.0), "
+        f"B={ROBUST_ICP_PAIRS}): card vs CPU ‖ΔR‖/√2 {card_gap[0]:.3g}, |Δt| {card_gap[1]:.3g} m, "
+        f"Δcov {card_gap[2]:.3g}; the CPU against itself with the source +1 ulp: "
+        f"‖ΔR‖/√2 {ulp_gap[0]:.3g}, |Δt| {ulp_gap[1]:.3g} m, Δcov {ulp_gap[2]:.3g} (relative "
+        f"to the largest entry; 2 CPU calls {cpu_s:.1f} s); the card against itself, Δcov "
+        + ", ".join(f"{name} {v:.3g}" for name, v in card_ulp.items())
+        + f", the largest between any two of the card's five answers {spread:.3g}. Float64 is "
+        f"not run: ops/icp.py, ops/kabsch.py and ops/voxel.py compute in float32 by design "
+        f"(the reference's precision) and the k-NN wrappers take float32 only")
+    log("tools (c) verdict: " + (
+        f"the method's: the card's own answers under 1-ulp input changes lie up to "
+        f"{spread:.3g} apart, the card from the CPU {card_gap[2]:.3g}"
+        if spread >= card_gap[2] else
+        f"the card's gap to the CPU {card_gap[2]:.3g} exceeds the spread of its own answers "
+        f"under 1-ulp input changes {spread:.3g}"))
+
+
+# --- dist: data parallelism over pairs, a world of one card over NCCL ---
+DIST_FIT_B = 16
+DIST_FPFH_B = 8
+
+
+def dist_phase(torch, dev, cfg, bsz, sd, rows):
+    """A process group of one rank over NCCL (a tcp store on 127.0.0.1, the
+    card): `Registrar.register` at `cfg`, B=`bsz`, and a BatchingServer over
+    the mesh Registrar; `register_fpfh_batch` at B=8, fused and chunked at
+    W=768; 2 `fit` steps at B=16 at `cfg` in accurate mode: each with and
+    without the mesh, gated equal. The group is destroyed at the end."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as tdist
+
+    from se3_equi_graph_registration_tpu_torch import registration, serving
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
+    from se3_equi_graph_registration_tpu_torch.parallel import global_mesh, init_distributed
+    from se3_equi_graph_registration_tpu_torch.tools import grad_budget
+    from se3_equi_graph_registration_tpu_torch.train import engine
+
+    t_phase = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multi = init_distributed(f"127.0.0.1:{port}", 1, 0, device=dev, timeout_s=120.0)
+    try:
+        check(not multi and tdist.is_initialized() and tdist.get_backend() == "nccl",
+              "dist: not a one-rank NCCL group")
+        mesh = global_mesh({"data": 1})
+        check(mesh.backend == "nccl" and mesh.device == dev, f"dist: mesh {mesh}")
+        try:
+            serving.Registrar(sd, cfg, device="cpu", mesh=mesh)
+            check(False, "dist: an NCCL mesh on a CPU Registrar did not raise")
+        except ValueError:
+            pass
+        L, gaps = cfg.n_layers, {}
+
+        def gap(a, b, relative=False):
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            return float(np.abs(a - b).max() / (np.abs(b).max() if relative else 1.0))
+
+        # (a) the Registrar and a BatchingServer over it
+        reqs = make_pair_batch(np.random.default_rng(41), batch=bsz, n=cfg.num_nodes,
+                               feat_dim=cfg.in_node_nf)
+        args = (reqs.src_pts, reqs.src_feat, reqs.tgt_pts, reqs.tgt_feat)
+        served = {"knn_window": {"warp": 2}, "egcl_layer": {"tile": 2 * L}}
+        reg = serving.Registrar(sd, cfg, device=dev)
+        mreg = serving.Registrar(sd, cfg, device=dev, mesh=mesh)
+        a = counted(rows, "dist register", lambda: reg.register(*args), served)
+        b = counted(rows, "dist register, mesh", lambda: mreg.register(*args), served)
+        gaps["register R, t, cov, sim"] = max(
+            gap(a[0], b[0]), gap(a[1], b[1]),
+            gap(a[2]["pose_covariance"], b[2]["pose_covariance"], True),
+            gap(a[2]["similarity_mean"], b[2]["similarity_mean"], True))
+        server = serving.BatchingServer(mreg, max_batch=4, max_wait_ms=20)
+        try:
+            futs = [server.submit(*(x[i] for x in args)) for i in range(3)]
+            answers = [f.result(timeout=300) for f in futs]
+        finally:
+            server.close()
+        check(not server._thread.is_alive(), "dist: BatchingServer thread still running")
+        gaps["BatchingServer R, t"] = max(max(gap(R, a[0][i]), gap(t, a[1][i]))
+                                          for i, (R, t, _) in enumerate(answers))
+
+        # (b) register_fpfh_batch, fused and chunked
+        pairs = surface_pairs(DIST_FPFH_B, 43)
+        src = np.stack([p[0] for p in pairs])
+        tgt = np.stack([p[1] for p in pairs])
+        kw = dict(knn_method="fused", knn_packed="chunked", window=FPFH_WINDOW, seed=5, device=dev)
+        want = {"knn_chunked": {"warp": 2}, "spfh": {"redux": 2}}
+        fa = counted(rows, "dist register_fpfh_batch",
+                     lambda: registration.register_fpfh_batch(src, tgt, **kw), want)
+        fb = counted(rows, "dist register_fpfh_batch, mesh",
+                     lambda: registration.register_fpfh_batch(src, tgt, mesh=mesh, **kw), want)
+        gaps["register_fpfh_batch R, t, cov, weights"] = max(
+            gap(fa[0], fb[0]), gap(fa[1], fb[1]),
+            gap(fa[2]["pose_covariance"], fb[2]["pose_covariance"], True),
+            gap(fa[2]["weights"], fb[2]["weights"], True))
+        for name, v in gaps.items():
+            check(v <= 1e-6, f"dist {name}: mesh vs no mesh max|Δ| {v}")
+
+        # (c) 2 fit steps (2 epochs of one batch) from one seeded init, in
+        # accurate mode: fast mode's bf16 operands turn any fp32 difference
+        # of step 1 (B3's atomic sums, the loss shares' order) into a
+        # rounding flip in step 2
+        fcfg = dataclasses.replace(cfg, egnn_accurate=True)
+        batch = engine.batch_to_device(tuple(make_pair_batch(
+            np.random.default_rng(47), batch=DIST_FIT_B, n=cfg.num_nodes,
+            feat_dim=cfg.in_node_nf)), dev)
+        init = engine.init_state(fcfg, torch.Generator().manual_seed(0), device=dev)
+        g0 = counted(rows, "dist first-step gradients", lambda: grad_budget.gradients(
+            init.model.state_dict(), fcfg, batch), {"knn_window": {"warp": 2},
+                                                    "egcl_layer": {"tile_f32": 2 * L},
+                                                    "egcl_backward": {"tile_f32": 2 * L}})
+
+        def run_fit(m):
+            state = engine.init_state(fcfg, torch.Generator().manual_seed(0), device=dev)
+            logged = []
+            engine.fit(state.model, state.optimizer, fcfg, state, lambda: [batch], 2,
+                       logger=lambda e, met: logged.append(met), mesh=m)
+            return ({key: v.detach().double().cpu() for key, v in state.model.state_dict().items()},
+                    logged)
+
+        want = {"knn_window": {"warp": 4}, "egcl_layer": {"tile_f32": 4 * L},
+                "egcl_backward": {"tile_f32": 4 * L}}
+        p_a, m_a = counted(rows, "dist fit", lambda: run_fit(None), want)
+        p_m, m_m = counted(rows, "dist fit, mesh", lambda: run_fit(mesh), want)
+        p_c, m_c = counted(rows, "dist fit, again", lambda: run_fit(None), want)
+
+        def param_gaps(p, q):
+            """(max|Δ| where the first gradient is above 1e-3 of its
+            tensor's largest, max|Δ| everywhere)."""
+            big, every = 0.0, 0.0
+            for key, g in g0.items():
+                d = (p[key] - q[key]).abs().numpy()
+                sel = np.abs(g) > 1e-3 * np.abs(g).max()
+                every = max(every, float(d.max()))
+                if sel.any():
+                    big = max(big, float(d[sel].max()))
+            return big, every
+
+        def loss_gaps(p, q):
+            """Each step's largest loss-term gap, relative."""
+            return [max(abs(a[key] - b[key]) / max(abs(a[key]), 1e-30)
+                        for key in a if key != "epoch_seconds") for a, b in zip(p, q)]
+
+        mesh_gap, ctrl_gap = param_gaps(p_a, p_m), param_gaps(p_a, p_c)
+        mesh_loss, ctrl_loss = loss_gaps(m_a, m_m), loss_gaps(m_a, m_c)
+        check(mesh_loss[0] <= 1e-6, f"dist fit: step 1 losses mesh vs no mesh, {mesh_loss}")
+        check(mesh_gap[0] <= 1e-6 and mesh_gap[1] <= 2 * 2 * cfg.lr,
+              f"dist fit: parameters mesh vs no mesh {mesh_gap}")
+        log(f"dist: mesh against no mesh, max|Δ| (covariance, similarity and weights "
+            f"relative to their largest) " + ", ".join(
+                f"{name} {v:.3g}" for name, v in gaps.items()) + f"; fit, 2 steps "
+            f"B={DIST_FIT_B}: losses relative by step {[f'{v:.3g}' for v in mesh_loss]}, "
+            f"parameters {mesh_gap[0]:.3g} where the first gradient is above 1e-3 of its "
+            f"tensor's max and {mesh_gap[1]:.3g} everywhere (lr {cfg.lr}); two runs without "
+            f"the mesh: losses {[f'{v:.3g}' for v in ctrl_loss]}, parameters "
+            f"{ctrl_gap[0]:.3g} and {ctrl_gap[1]:.3g} (B3's atomic sums)")
+    finally:
+        tdist.destroy_process_group()
+    log(f"dist: phase {time.perf_counter() - t_phase:.1f} s; {card_line()}")
 
 
 if __name__ == "__main__":

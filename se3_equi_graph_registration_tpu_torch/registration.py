@@ -28,11 +28,12 @@ pipeline's matrix products run in full float32 whatever the caller set for
 TF32 (`ops/numerics.fp32_matmuls`).
 
 Entry points run on the card unless device='cpu'. `register_fpfh_batch`
-sends its B pairs through each kernel as one launch per cloud side.
+sends its B pairs through each kernel as one launch per cloud side; with a
+data-parallel `mesh` (parallel/mesh.py) each rank runs its rows and every
+rank gets the whole batch's results.
 `export_compiled` writes the whole pipeline at fixed shapes as a
 `torch.export` artifact (the kernels as the custom ops `se3gspr_torch::*`);
-`load_exported` loads it. Not ported yet: the `mesh` of register_fpfh_batch
-(ROADMAP Queue A item 9).
+`load_exported` loads it.
 """
 from __future__ import annotations
 
@@ -57,6 +58,7 @@ from .ops.knn import cross_dots, gather_rows, pairwise_sq_dists, sq_norms
 from .ops.numerics import fp32_matmuls
 from .ops.ransac import gumbel_noise, ransac_pose, ransac_pose_branches
 from .ops.spectral import spectral_match_weights
+from .parallel.mesh import check_mesh, gather_pairs, pad_pairs, shard_pair_batch
 
 __all__ = ["register_fpfh", "register_fpfh_batch", "match_features", "export_compiled",
            "load_exported"]
@@ -285,21 +287,32 @@ def register_fpfh_batch(src_pts, tgt_pts, *, seed: int = 0, mesh=None,
     pairs run as one batch through every stage (one launch of each kernel
     per cloud side); the triplet noise of all pairs comes from one
     generator seeded by `seed`. Returns (R [B, 3, 3], t [B, 3], info with
-    'weights' [B, N] and 'pose_covariance' [B, 6, 6])."""
-    if mesh is not None:
-        raise NotImplementedError("register_fpfh_batch(mesh=) (data-parallel pairs over "
-                                  "several cards) is not ported yet (ROADMAP Queue A item 9)")
+    'weights' [B, N] and 'pose_covariance' [B, 6, 6]).
+
+    `mesh`: a data-parallel `parallel.mesh.Mesh`. Every rank calls with the
+    whole batch; the pair axis is padded to a multiple of the mesh's size
+    (the last pair repeats), each rank runs its rows with its rows of the
+    global noise draw (so the poses equal the call without a mesh), and the
+    results are gathered to every rank."""
     kw = _knobs(knobs, "register_fpfh_batch")
     dev = resolve_device(device)
-    src = torch.as_tensor(np.asarray(src_pts, np.float32)).to(dev)
-    tgt = torch.as_tensor(np.asarray(tgt_pts, np.float32)).to(dev)
+    if mesh is not None:
+        check_mesh(mesh, dev)
+    src = torch.as_tensor(np.asarray(src_pts, np.float32))
+    tgt = torch.as_tensor(np.asarray(tgt_pts, np.float32))
     b, n, _ = src.shape
     kw["top_m"] = min(kw["top_m"], n)
     _check_knobs(n, kw)
     noise = _noise(kw, kw["top_m"], seed, b)
-    R, t, w, cov = _register_core(src.contiguous(), tgt.contiguous(),
-                                  None if noise is None else noise.to(dev), **kw)
-    out = torch.cat([R.reshape(b, 9), t, cov.reshape(b, 36), w], dim=-1).cpu().numpy()
+    args = [src, tgt] + ([] if noise is None else [noise])
+    if mesh is not None:
+        args = shard_pair_batch(pad_pairs(args, mesh.size), mesh)
+    args = [a.to(dev).contiguous() for a in args] + [None] * (noise is None)
+    R, t, w, cov = _register_core(*args, **kw)
+    out = torch.cat([R.reshape(len(R), 9), t, cov.reshape(len(R), 36), w], dim=-1)
+    if mesh is not None:
+        out = gather_pairs(out, mesh)[:b]
+    out = out.cpu().numpy()
     return (out[:, :9].reshape(b, 3, 3), out[:, 9:12],
             {"weights": out[:, 48:], "pose_covariance": out[:, 12:48].reshape(b, 6, 6)})
 

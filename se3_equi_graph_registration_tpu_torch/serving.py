@@ -26,11 +26,12 @@ and a micro-batching front end.
   plain EGNN over the k-NN kernel's graph), the PointNet encoder, and the
   weights of a `bf16_params` run (held in fp32, where bf16 values are
   exact, so the Registrar computes what the bf16 model computes);
-- `BatchingServer` coalesces concurrent register() calls into one dispatch.
+- `BatchingServer` coalesces concurrent register() calls into one dispatch;
+- `mesh` (parallel/mesh.py) spreads the pairs of a call over the ranks of a
+  data-parallel group: every rank calls with the same requests, runs its
+  rows, and gets the whole batch's results.
 
-Runs on the CUDA card unless `device="cpu"` is passed. Not ported yet: the
-JAX Registrar's `mesh` (pairs sharded over several cards; ROADMAP Queue A
-item 9).
+Runs on the CUDA card unless `device="cpu"` is passed.
 """
 from __future__ import annotations
 
@@ -51,6 +52,8 @@ from .ops.kernels import load_program
 from .ops.kernels.egcl import kernel_params
 from .ops.kernels.knn import knn_window
 from .ops.numerics import fp32_matmuls
+from .parallel.mesh import (all_reduce_min, broadcast_, check_mesh, gather_pairs, pad_pairs,
+                            shard_pair_batch)
 from .registration import _export_device, _save_export, match_features
 from .train import engine
 from .train.checkpoints import TrainCheckpointer, convert_reference_checkpoint
@@ -61,11 +64,14 @@ class Registrar:
                  head_mode: str = "eval_fusion",
                  device: Union[str, torch.device, None] = None,
                  refine_iters: Optional[int] = None, refine_kernel: Optional[str] = None,
-                 spectral_topm: Optional[int] = None, icp_iters: Optional[int] = None):
+                 spectral_topm: Optional[int] = None, icp_iters: Optional[int] = None,
+                 mesh=None):
         """`params`: the model's state_dict (e.g. `params_from_jax(...)` or
         `convert_reference_checkpoint(...)`). The four robust knobs default
         to the config's fields; a value given here overrides the config's
-        (`self.stages` is the config with the overrides applied)."""
+        (`self.stages` is the config with the overrides applied). `mesh`: a
+        data-parallel `parallel.mesh.Mesh`; the weights are rank 0's on
+        every rank (broadcast here)."""
         given = dict(refine_iters=refine_iters, refine_kernel=refine_kernel,
                      spectral_topm=spectral_topm, icp_iters=icp_iters)
         self.stages = dataclasses.replace(
@@ -78,6 +84,10 @@ class Registrar:
         self.model = engine.build_model(cfg, head_mode=head_mode, device=device)
         self.model.load_state_dict(params)
         self.device = next(self.model.parameters()).device
+        self.mesh = mesh
+        if mesh is not None:
+            check_mesh(mesh, self.device)
+            broadcast_(list(self.model.state_dict().values()), mesh)
         self._kp = None                              # the plain EGNN needs none
         if engine._fused_egnn(cfg):
             with torch.no_grad():                    # the weights never change
@@ -269,7 +279,9 @@ class Registrar:
         info: similarity_mean (over the batch), pose_covariance [B,6,6] and,
         with `clique_prefilter`, clique_inliers (a list of ints: each pair's
         clique size after fitting to the model's point count). The clique
-        labels, computed on the raw input, replace `labels`."""
+        labels, computed on the raw input, replace `labels`. With a mesh,
+        every rank calls with the same requests and gets every pair's
+        results."""
         squeeze = (not isinstance(src_pts, (list, tuple))
                    and np.asarray(src_pts).ndim == 2)
         if squeeze:
@@ -300,9 +312,15 @@ class Registrar:
                                     else fit_to_count(tf_i, n, rng)[0])
             cols["labels"].append(np.asarray(labels[i], np.float32)[idx]
                                   if labels is not None else np.ones(n, np.float32))
-        batch = {k: torch.from_numpy(np.stack(v)).to(self.device)
-                 for k, v in cols.items()}
-        res = self._apply(batch).cpu().numpy()
+        batch = {k: torch.from_numpy(np.stack(v)) for k, v in cols.items()}
+        if self.mesh is not None:
+            # pad the pair axis to a multiple of the mesh (the last pair
+            # repeats; the padded rows are sliced off), run this rank's rows
+            batch = shard_pair_batch(pad_pairs(batch, self.mesh.size), self.mesh)
+        res = self._apply({k: v.to(self.device) for k, v in batch.items()})
+        if self.mesh is not None:
+            res = gather_pairs(res, self.mesh)[:b]
+        res = res.cpu().numpy()
         R, t = res[:, :9].reshape(b, 3, 3), res[:, 9:12]
         info = {"similarity_mean": float(np.mean(res[:, 12])),
                 "pose_covariance": res[:, 13:].reshape(b, 6, 6)}
@@ -347,7 +365,9 @@ class BatchingServer:
     `max_wait_ms` passes since the first, then run as ONE register() call.
     Only kwarg-free requests coalesce; a request with options (a seed,
     labels, the clique prefilter) runs alone, and its future gets its own
-    clique_inliers."""
+    clique_inliers. Over a Registrar with a mesh, every rank runs a server
+    and submits the same requests in the same order; the ranks agree on
+    each batch before they run it."""
 
     def __init__(self, registrar: Registrar, max_batch: int = 16,
                  max_wait_ms: float = 5.0):
@@ -368,29 +388,38 @@ class BatchingServer:
         self._stop.set()
         self._thread.join(timeout=5)
 
+    def _next(self, backlog: list, timeout: float):
+        """The oldest request put back into `backlog`, else the queue's next."""
+        return backlog.pop(0) if backlog else self._q.get(timeout=timeout)
+
     def _serve(self):
-        carry = None  # a dequeued request that did not match the batch's kwargs
+        backlog = []  # dequeued requests that did not join the last batch, oldest first
+        mesh = getattr(self.reg, "mesh", None)
         while not self._stop.is_set():
-            if carry is not None:
-                first, carry = carry, None
-            else:
-                try:
-                    first = self._q.get(timeout=0.05)
-                except queue.Empty:
-                    continue
+            try:
+                first = self._next(backlog, 0.05)
+            except queue.Empty:
+                continue
             pending = [first]
             t0 = time.monotonic()
             while (len(pending) < self.max_batch and not first[2]
                    and time.monotonic() - t0 < self.max_wait):
                 try:
-                    nxt = self._q.get(timeout=self.max_wait / 4)
+                    nxt = self._next(backlog, self.max_wait / 4)
                 except queue.Empty:
                     continue
                 if not nxt[2]:
                     pending.append(nxt)
                 else:
-                    carry = nxt
+                    backlog.insert(0, nxt)
                     break
+            if mesh is not None and mesh.distributed:
+                # every rank receives the same requests in the same order, but
+                # not at the same times: the ranks agree on the batch (the
+                # fewest pending anywhere) and put the rest back
+                n = all_reduce_min(len(pending), mesh)
+                backlog[:0] = pending[n:]
+                pending = pending[:n]
             futs = [p[0] for p in pending]
             try:
                 stack = lambda i: [np.asarray(p[1][i]) for p in pending]

@@ -8,8 +8,14 @@ package's `train/cli.py`: the same commands, arguments and results).
       --checkpoint ./checkpoints_tpu --out model.pth
 
 Every command runs on the current CUDA card and raises when there is none;
-`--device cpu` runs the kernels' plain versions on the CPU instead. `.pth`
-checkpoints convert on the fly (`train/checkpoints.py`); a directory is read
+`--device cpu` runs the kernels' plain versions on the CPU instead. Under
+torchrun `train` runs data-parallel over the processes (one a card, NCCL;
+gloo with `--device cpu`), each loading its slice of every global batch:
+
+  torchrun --nproc_per_node=<cards> -m se3_equi_graph_registration_tpu_torch.train.cli \
+      train --preset 3dmatch
+
+`.pth` checkpoints convert on the fly (`train/checkpoints.py`); a directory is read
 as the port's `TrainCheckpointer` (`step_<n>.pt` files). An orbax directory
 written by the JAX package is refused: export it to `.pth` with the JAX
 CLI first. The 'synthetic' preset needs no data on disk.
@@ -27,6 +33,8 @@ import torch
 from ..data.pipeline import PairLoader
 from ..data.synthetic import make_pair_batch
 from ..device import resolve_device
+from ..parallel.distributed import global_mesh, init_distributed, process_shard_info
+from ..parallel.mesh import barrier, shard_pair_batch
 from . import engine
 from .checkpoints import (TrainCheckpointer, convert_reference_checkpoint,
                           export_reference_checkpoint)
@@ -52,27 +60,33 @@ def _build_dataset(cfg: ExperimentConfig, split: str):
     raise ValueError(f"unknown dataset {d.dataset!r}")
 
 
-def _synthetic_batches(cfg: ExperimentConfig, n_batches: int = 4) -> Iterable:
+def _synthetic_batches(cfg: ExperimentConfig, n_batches: int = 4, mesh=None) -> Iterable:
+    """The synthetic global batches; with a mesh, this rank's rows of each."""
     rng = np.random.default_rng(cfg.data.seed)
     feat_dim = cfg.engine.in_node_nf
     for _ in range(n_batches):
         pb = make_pair_batch(rng, batch=cfg.data.batch_size,
                              n=cfg.engine.num_nodes, feat_dim=feat_dim)
-        yield (pb.corr, pb.labels, pb.src_pts, pb.tgt_pts, pb.src_feat,
-               pb.tgt_feat, pb.gt_pose)
+        batch = (pb.corr, pb.labels, pb.src_pts, pb.tgt_pts, pb.src_feat,
+                 pb.tgt_feat, pb.gt_pose)
+        yield batch if mesh is None else shard_pair_batch(batch, mesh)
 
 
-def _loader(cfg: ExperimentConfig, split: str, shuffle: bool, dataset=None):
+def _loader(cfg: ExperimentConfig, split: str, shuffle: bool, dataset=None, mesh=None):
     """A callable giving one epoch of numpy batches. `dataset`: a pre-built
     dataset, to avoid building it twice (None builds it here; the synthetic
-    preset has none). One process loads the whole batch; the loader's
-    threads touch no CUDA state, `engine.fit`/`evaluate` move each batch to
-    the device in the calling thread."""
+    preset has none). With a data-parallel mesh each process loads its
+    slice of every global batch (`PairLoader(process_shard=...)`, the
+    synthetic preset its rows); one process loads the whole batch. The
+    loader's threads touch no CUDA state, `engine.fit`/`evaluate` move each
+    batch to the device in the calling thread."""
     ds = dataset if dataset is not None else _build_dataset(cfg, split)
     if ds is None:
-        return lambda: _synthetic_batches(cfg)
-    return lambda: PairLoader(ds, cfg.data.batch_size, shuffle=shuffle,
-                              seed=cfg.data.seed, num_workers=cfg.data.num_workers)
+        return lambda: _synthetic_batches(cfg, mesh=mesh)
+    rank, world = process_shard_info() if mesh is not None else (0, 1)
+    return lambda: PairLoader(ds, cfg.data.batch_size // world, shuffle=shuffle,
+                              seed=cfg.data.seed, num_workers=cfg.data.num_workers,
+                              process_shard=(rank, world) if world > 1 else None)
 
 
 def _jsonl_logger(path: str):
@@ -118,12 +132,30 @@ def _load_params(path: str, cfg: ExperimentConfig) -> dict[str, torch.Tensor]:
     return restored[0].model.state_dict()
 
 
+def _data_mesh(cfg: ExperimentConfig, device: torch.device):
+    """The 'data' mesh over every process of a multi-process run, None on
+    one process. Several processes that do not split the batch would each
+    train alone and write one checkpoint directory, so that raises."""
+    _, world = process_shard_info()
+    if world == 1:
+        return None
+    if not cfg.run.data_parallel:
+        raise ValueError(f"{world} processes train one model only data-parallel; set "
+                         f"run.data_parallel=true or run one process")
+    if cfg.data.batch_size % world:
+        raise ValueError(f"data.batch_size={cfg.data.batch_size} does not split over "
+                         f"{world} processes")
+    return global_mesh({"data": world}, device)
+
+
 def cmd_train(cfg: ExperimentConfig, args, device: torch.device) -> engine.TrainState:
     ecfg = cfg.engine
     if cfg.run.point_parallel > 1:
         raise NotImplementedError(
-            f"run.point_parallel={cfg.run.point_parallel} is not ported yet "
-            f"(ROADMAP Queue A item 9, distribution)")
+            f"run.point_parallel={cfg.run.point_parallel}: point-axis sharding is not "
+            f"ported yet (ROADMAP Queue A item 9b)")
+    mesh = _data_mesh(cfg, device)
+    lead = mesh is None or mesh.rank == 0
     # micro-batches per epoch for epoch-unit LR boundaries (engine.lr_schedule);
     # 4 = _synthetic_batches' per-epoch count. Dataset built ONCE, reused below.
     train_ds = _build_dataset(cfg, "train")
@@ -131,8 +163,8 @@ def cmd_train(cfg: ExperimentConfig, args, device: torch.device) -> engine.Train
                        else max(1, len(train_ds) // cfg.data.batch_size))
     state = engine.init_state(ecfg, torch.Generator().manual_seed(cfg.data.seed),
                               device=device, steps_per_epoch=steps_per_epoch)
-    train_batches = _loader(cfg, "train", shuffle=True, dataset=train_ds)
-    val_batches = _loader(cfg, "val", shuffle=False) \
+    train_batches = _loader(cfg, "train", shuffle=True, dataset=train_ds, mesh=mesh)
+    val_batches = _loader(cfg, "val", shuffle=False, mesh=mesh) \
         if cfg.data.dataset != "synthetic" else None
 
     ckpt = TrainCheckpointer(cfg.run.checkpoint_dir)
@@ -142,14 +174,20 @@ def cmd_train(cfg: ExperimentConfig, args, device: torch.device) -> engine.Train
             state, step = restored
             print(f"resumed from step {step}")
 
-    print(json.dumps(to_flat_dict(cfg), indent=2, default=str))
+    if mesh is not None and lead:
+        print(f"data-parallel over {mesh.size} processes ({mesh.backend}), "
+              f"{cfg.data.batch_size // mesh.size} pairs each a step")
+    if lead:
+        print(json.dumps(to_flat_dict(cfg), indent=2, default=str))
     state = engine.fit(
         state.model, state.optimizer, ecfg, state, train_batches=train_batches,
         epochs=cfg.run.epochs, val_batches=val_batches, checkpointer=ckpt,
         checkpoint_every=cfg.run.checkpoint_every,
-        logger=_jsonl_logger(cfg.run.log_path))
-    ckpt.save(state.step, state)
-    print(f"done; final checkpoint at step {state.step}")
+        logger=_jsonl_logger(cfg.run.log_path) if lead else None, mesh=mesh)
+    if lead:
+        ckpt.save(state.step, state)
+        print(f"done; final checkpoint at step {state.step}")
+    barrier(mesh)
     return state
 
 
@@ -193,6 +231,11 @@ def main(argv=None):
     if cfg.run.compile_cache:
         print(f"run.compile_cache={cfg.run.compile_cache!r} maps to nothing here: the "
               f"kernels build once into ops/kernels/build.py's _build/ cache")
+    # a multi-process run (torchrun) joins its group first: under NCCL that
+    # also picks this process's card; one process is a no-op
+    init_distributed(device=args.device)
+    if command != "train" and process_shard_info()[1] > 1:
+        raise ValueError(f"`{command}` runs on one process; only `train` runs data-parallel")
     device = resolve_device(args.device)
     commands = {"train": cmd_train, "eval": cmd_eval, "export": cmd_export}
     return commands[command](cfg, args, device)

@@ -40,8 +40,10 @@ class RunConfig:
     log_path: str = "./runs/train_log.jsonl"
     eval_output: str = "./output/evaluation_results.txt"
     resume: bool = False
+    data_parallel: bool = True        # several processes (torchrun): split
+                                      # the pair batch over them
     point_parallel: int = 0           # >1: shard the point axis; not ported
-                                      # yet (ROADMAP Queue A item 9)
+                                      # yet (ROADMAP Queue A item 9b)
     compile_cache: str = ""           # the JAX package's persistent XLA cache
                                       # directory: kept so configs carry
                                       # across, maps to nothing (the kernels'
@@ -100,10 +102,10 @@ _STRING_SENTINEL_FIELDS = frozenset({"icp_trim"})
 # A config that sets one loads: the value is checked as the JAX package
 # takes it, then dropped. The k-NN and the head's top-k are always exact
 # (knn_recall, topk_method), one-hot permutes are a TPU workaround
-# (onehot_h_permute), one card holds the whole batch (data_parallel), and
-# halo exchange needs point_parallel (ROADMAP "Dropped on purpose")
+# (onehot_h_permute), and halo exchange needs point_parallel (ROADMAP Queue
+# A item 9b)
 _JAX_ONLY_FIELDS = {"engine.knn_recall": 0.85, "engine.onehot_h_permute": False,
-                    "engine.topk_method": "exact", "run.data_parallel": True, "run.halo": 0}
+                    "engine.topk_method": "exact", "run.halo": 0}
 _TOPK_METHODS = ("exact", "approx")
 
 

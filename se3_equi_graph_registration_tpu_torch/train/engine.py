@@ -23,7 +23,11 @@ Training: `init_state` builds the model and Adam with the staircase
 schedule, `make_train_step` returns the step (forward, losses, backward,
 update, with gradient accumulation as optax.MultiSteps does), `fit` runs
 epochs with best-val checkpointing (and with `profile_dir` a
-`torch.profiler` trace of the first epoch). Metrics stay on the device and
+`torch.profiler` trace of the first epoch). With a data-parallel `mesh`
+(parallel/mesh.py) each rank trains on its rows of the global batch: the
+losses are each rank's share of the global batch's, the gradients are
+summed over the ranks before every Adam step, so every rank takes the full
+batch's step. Metrics stay on the device and
 are fetched once per epoch. `remat` recomputes the EGNN pass in the
 backward instead of keeping its activations. With `bf16_params` the live
 parameters are bf16 and Adam runs on fp32 masters, with stochastic
@@ -53,6 +57,8 @@ from ..ops.kernels.knn import knn_window
 from ..ops.knn import gather_rows
 from ..ops.numerics import fp32_matmuls
 from ..ops.spectral import spectral_match_weights
+from ..parallel.mesh import (Mesh, all_reduce_sum, all_reduce_sum_, barrier, broadcast_,
+                             check_mesh)
 from ..utils.bf16_training import Bf16SROptimizer, fp32_parameters
 from . import losses as losses_lib
 from . import metrics as metrics_lib
@@ -296,15 +302,15 @@ def _apply_with_graphs(model: RegistrationModel, cfg: EngineConfig, batch: dict,
     return _forward_with_graphs(model, cfg, batch, kp)
 
 
-def train_loss(model: RegistrationModel, cfg: EngineConfig,
-               batch: dict) -> losses_lib.LossBreakdown:
+def train_loss(model: RegistrationModel, cfg: EngineConfig, batch: dict,
+               mesh: Optional[Mesh] = None) -> losses_lib.LossBreakdown:
     """The training forward and its losses, with autograd on the live
     parameters: the k-NN graphs, the encoder, the EGNN (on the fused path
     through `EGCLFunction`, forward and backward kernels), the train head,
-    `total_loss`."""
+    `total_loss` (with a mesh, this rank's share of the global batch's)."""
     out = _forward_with_graphs(model, cfg, batch)
     return losses_lib.total_loss(out, batch["gt_pose"], batch["labels"],
-                                 cfg.loss_weights)
+                                 cfg.loss_weights, mesh)
 
 
 def lr_schedule(cfg: EngineConfig, steps_per_epoch: Optional[int] = None
@@ -372,8 +378,8 @@ def init_state(cfg: EngineConfig, generator: torch.Generator,
     return TrainState(model, build_optimizer(model, cfg, steps_per_epoch))
 
 
-def make_train_step(model: RegistrationModel, optimizer: Optimizer,
-                    cfg: EngineConfig) -> Callable[[TrainState, dict], tuple]:
+def make_train_step(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
+                    mesh: Optional[Mesh] = None) -> Callable[[TrainState, dict], tuple]:
     """(state, batch) → (state, {loss name: 0-d tensor on the device}).
 
     Each call is one micro-batch: the forward and backward through the
@@ -382,7 +388,9 @@ def make_train_step(model: RegistrationModel, optimizer: Optimizer,
     (as optax.MultiSteps does), steps Adam and the schedule, and clears
     them; with bf16 parameters it then writes the stochastically rounded
     masters into the live parameters, and a micro-step between leaves both
-    untouched. Nothing is fetched to the host."""
+    untouched. Nothing is fetched to the host. With a mesh, `batch` is this
+    rank's rows, the losses are its shares, and the gradients are summed
+    over the ranks (one all-reduce) before each Adam step."""
     k = cfg.grad_accum_steps
     if k < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {k}")
@@ -393,11 +401,13 @@ def make_train_step(model: RegistrationModel, optimizer: Optimizer,
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         # the backward inside too: a remat pass recomputes from the fp32 views
         with fp32_parameters(model):
-            lb = train_loss(model, cfg, batch)
+            lb = train_loss(model, cfg, batch, mesh)
             lb.total.backward()
         if sr is not None:
             sr.accumulate()
         if (state.step + 1) % k == 0:
+            if mesh is not None:
+                all_reduce_sum_([p.grad for p in stepped if p.grad is not None], mesh)
             if k > 1:
                 for p in stepped:
                     if p.grad is not None:      # Adam skips them too
@@ -411,13 +421,14 @@ def make_train_step(model: RegistrationModel, optimizer: Optimizer,
     return step
 
 
-def make_eval_step(model: RegistrationModel, cfg: EngineConfig,
-                   with_loss: bool = False) -> Callable[[dict], dict]:
+def make_eval_step(model: RegistrationModel, cfg: EngineConfig, with_loss: bool = False,
+                   mesh: Optional[Mesh] = None) -> Callable[[dict], dict]:
     """(batch) → per-pair RRE / RTE / recall / precision tensors, and with
-    `with_loss` the batch's total training loss (broadcast per pair), which
-    `fit` uses to pick the best-val checkpoint as the reference does. The
-    pose goes through the config's robust stages (`robust_pose`, no prior
-    weights into ICP) before the metrics."""
+    `with_loss` the batch's total training loss (broadcast per pair; with a
+    mesh, the global batch's), which `fit` uses to pick the best-val
+    checkpoint as the reference does. The pose goes through the config's
+    robust stages (`robust_pose`, no prior weights into ICP) before the
+    metrics."""
 
     def step(batch: dict) -> dict:
         out = _apply_with_graphs(model, cfg, batch)
@@ -434,8 +445,9 @@ def make_eval_step(model: RegistrationModel, cfg: EngineConfig,
              "recall": recall, "precision": precision}
         if with_loss:
             lb = losses_lib.total_loss(out, batch["gt_pose"], batch["labels"],
-                                       cfg.loss_weights)
-            m["loss"] = lb.total.expand_as(rot_err)
+                                       cfg.loss_weights, mesh)
+            total = lb.total if mesh is None else all_reduce_sum(lb.total, mesh)
+            m["loss"] = total.expand_as(rot_err)
         return m
 
     return step
@@ -467,7 +479,7 @@ def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
         val_batches: Optional[Callable[[], Iterable]] = None,
         checkpointer=None, checkpoint_every: int = 20,
         logger: Optional[Callable[[int, dict], None]] = None,
-        profile_dir: Optional[str] = None) -> TrainState:
+        profile_dir: Optional[str] = None, mesh: Optional[Mesh] = None) -> TrainState:
     """Epoch loop: per-epoch loss means (fetched once per epoch), a
     validation pass, and checkpoints through any `checkpointer` with
     `.save(step, state, metrics=...)`: the best validation score
@@ -475,15 +487,34 @@ def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
     epochs. Batches are the reference 7-tuples or engine dicts.
     `profile_dir` runs the first epoch's training steps under
     `torch.profiler` (CPU and, with a card, CUDA activities) and writes the
-    trace there as `trace.json` (chrome trace format)."""
+    trace there as `trace.json` (chrome trace format).
+
+    With a data-parallel `mesh`, every rank calls fit with its own rows of
+    each global batch (its `PairLoader(process_shard=...)` slice; equal
+    sizes on every rank). The weights (and bf16 masters) start as rank 0's,
+    every step is the full batch's (`make_train_step`), the epoch's metrics
+    are the global batch's, and only rank 0 saves checkpoints and logs while
+    the others wait at a barrier."""
     if cfg.best_val_metric not in ("loss", "rot_err_deg", "trans_err_cm"):
         raise ValueError(f"unknown best_val_metric {cfg.best_val_metric!r}; expected "
                          "'loss', 'rot_err_deg' or 'trans_err_cm'")
-    train_step = make_train_step(model, optimizer, cfg)
-    eval_step = make_eval_step(model, cfg, with_loss=cfg.best_val_metric == "loss")
+    lead = True
+    if mesh is not None:
+        check_mesh(mesh, next(model.parameters()).device)
+        lead = mesh.rank == 0
+        broadcast_(list(model.state_dict().values())
+                   + (optimizer.sr.master if optimizer.sr is not None else []), mesh)
+    train_step = make_train_step(model, optimizer, cfg, mesh)
+    eval_step = make_eval_step(model, cfg, with_loss=cfg.best_val_metric == "loss", mesh=mesh)
     best_val = np.inf
+
+    def save(*args, **kw):
+        if lead:
+            checkpointer.save(*args, **kw)
+        barrier(mesh)
+
     for epoch in range(epochs):
-        profiling = bool(profile_dir) and epoch == 0
+        profiling = bool(profile_dir) and epoch == 0 and lead
         prof = contextlib.nullcontext()
         if profiling:
             acts = [torch.profiler.ProfilerActivity.CPU]
@@ -500,8 +531,10 @@ def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
         train_metrics = {}
-        if ms:   # one stack and one fetch per epoch
+        if ms:   # one stack and one fetch per epoch; with a mesh the shares' sum
             means = torch.stack([torch.stack([m[k] for m in ms]).mean() for k in ms[0]])
+            if mesh is not None:
+                means = all_reduce_sum(means, mesh)
             train_metrics = dict(zip(ms[0], means.tolist()))
         train_metrics["epoch_seconds"] = time.time() - t0
         if val_batches is not None:
@@ -510,16 +543,17 @@ def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
             if vals:   # mean of the batch means, one fetch
                 means = torch.stack([torch.stack([v[k].mean() for v in vals]).mean()
                                      for k in vals[0]])
+                if mesh is not None:      # each rank's mean over its equal rows
+                    means = all_reduce_sum(means, mesh) / mesh.size
                 val_metrics = dict(zip(vals[0], means.tolist()))
             train_metrics.update({f"val_{k}": v for k, v in val_metrics.items()})
             val_score = val_metrics.get(cfg.best_val_metric, np.inf)
             if checkpointer is not None and val_score < best_val:
                 best_val = val_score
-                checkpointer.save(state.step, state,
-                                  metrics={f"val_{cfg.best_val_metric}": val_score})
+                save(state.step, state, metrics={f"val_{cfg.best_val_metric}": val_score})
         if checkpointer is not None and (epoch + 1) % checkpoint_every == 0:
-            checkpointer.save(state.step, state)
-        if logger is not None:
+            save(state.step, state)
+        if logger is not None and lead:
             logger(epoch, train_metrics)
     return state
 

@@ -10,18 +10,33 @@ over `RegistrationOutputs` and the batch.
 - `masked_point_and_feature_loss`: point and feature errors as masked means;
 - `pose_loss`: geodesic rotation angle and translation-direction angle.
 The 3DMatch total is corr + sim + rot + trans; KITTI weighs corr + equi.
+
+With a data-parallel `mesh` (parallel/mesh.py) each rank holds its rows of
+the global batch, and `total_loss` returns this rank's share of the global
+batch's losses: the shares sum over the ranks to the full batch's loss
+(every mean over the global batch, the similarity standardized by the
+global mean and std through a differentiable all-reduce), so the gradients
+summed over the ranks are the full batch's gradients.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..core.se3 import decompose_trans
 from ..ops.numerics import safe_norm
+from ..parallel.mesh import Mesh, all_reduce_sum
 
 
-def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def _mean(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The mean of x; with a mesh, this rank's share of the mean over
+    every rank's x (the same shape on every rank): the shares sum to it."""
+    return torch.mean(x) if mesh is None else x.sum() / (x.numel() * mesh.size)
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                    mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Numerically stable elementwise BCE with logits, meaned.
 
     At a logit of exactly 0 (the score MLP's output when all its ReLUs are
@@ -32,33 +47,40 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
     relu = 0.5 * (logits + torch.abs(logits))                 # d/ds = ½ at 0
     magnitude = torch.where(logits >= 0, logits, -logits)    # d/ds = +1 at 0
     loss = relu - logits * targets + torch.log1p(torch.exp(-magnitude))
-    return torch.mean(loss)
+    return _mean(loss, mesh)
 
 
-def correspondence_loss(scores: torch.Tensor, top_labels: torch.Tensor) -> torch.Tensor:
-    return bce_with_logits(scores, top_labels)
+def correspondence_loss(scores: torch.Tensor, top_labels: torch.Tensor,
+                        mesh: Optional[Mesh] = None) -> torch.Tensor:
+    return bce_with_logits(scores, top_labels, mesh)
 
 
-def similarity_consistency_loss(similarity: torch.Tensor,
-                                raw_similarity: torch.Tensor) -> torch.Tensor:
+def similarity_consistency_loss(similarity: torch.Tensor, raw_similarity: torch.Tensor,
+                                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """MSE between the globally standardized post- and pre-EGNN
-    similarities; the std is unbiased (ddof=1), as the reference's."""
+    similarities; the std is unbiased (ddof=1), as the reference's. With a
+    mesh the mean and std are the global batch's."""
     def standardize(s):
-        return (s - s.mean()) / (s.std(correction=1) + 1e-6)
+        if mesh is None:
+            return (s - s.mean()) / (s.std(correction=1) + 1e-6)
+        n = s.numel() * mesh.size
+        mean = all_reduce_sum(s.sum(), mesh) / n
+        var = all_reduce_sum(((s - mean) ** 2).sum(), mesh) / (n - 1)
+        return (s - mean) / (torch.sqrt(var) + 1e-6)
     d = standardize(similarity) - standardize(raw_similarity)
-    return torch.mean(d * d)
+    return _mean(d * d, mesh)
 
 
 def egnn_equi_loss(h_src: torch.Tensor, x_src: torch.Tensor, h_tgt: torch.Tensor,
                    x_tgt: torch.Tensor, gt_pose: torch.Tensor,
-                   labels: torch.Tensor) -> torch.Tensor:
+                   labels: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Masked chamfer under the GT pose + cosine-similarity MSE."""
     R_gt, t_gt = decompose_trans(gt_pose)
     x_src_tf = torch.einsum("bij,bnj->bni", R_gt, x_src) + t_gt[:, None, :]
     sq = torch.sum((x_src_tf - x_tgt) ** 2, dim=-1)              # [B, N]
-    rotation_loss = torch.mean(sq * labels)
+    rotation_loss = _mean(sq * labels, mesh)
     cos = torch.sum(h_src * h_tgt, dim=-1) / (safe_norm(h_src) * safe_norm(h_tgt) + 1e-8)
-    feature_loss = torch.mean((cos - labels) ** 2)
+    feature_loss = _mean((cos - labels) ** 2, mesh)
     return rotation_loss + feature_loss
 
 
@@ -114,14 +136,16 @@ class LossBreakdown(NamedTuple):
 
 
 def total_loss(outputs, gt_pose: torch.Tensor, labels: torch.Tensor,
-               weights: LossWeights = LossWeights()) -> LossBreakdown:
-    """The loss families combined as the reference's training scripts do."""
-    corr = correspondence_loss(outputs.scores, outputs.top_labels)
-    sim = similarity_consistency_loss(outputs.similarity, outputs.raw_similarity)
+               weights: LossWeights = LossWeights(),
+               mesh: Optional[Mesh] = None) -> LossBreakdown:
+    """The loss families combined as the reference's training scripts do;
+    with a mesh, this rank's share of each (the module docstring)."""
+    corr = correspondence_loss(outputs.scores, outputs.top_labels, mesh)
+    sim = similarity_consistency_loss(outputs.similarity, outputs.raw_similarity, mesh)
     rot, trans = pose_loss(outputs.R, outputs.t, gt_pose)
-    rot, trans = torch.mean(rot), torch.mean(trans)
+    rot, trans = _mean(rot, mesh), _mean(trans, mesh)
     equi = egnn_equi_loss(outputs.h_src, outputs.x_src, outputs.h_tgt,
-                          outputs.x_tgt, gt_pose, labels)
+                          outputs.x_tgt, gt_pose, labels, mesh)
     total = (weights.corr * corr + weights.sim * sim + weights.rot * rot
              + weights.trans * trans + weights.equi * equi)
     return LossBreakdown(total=total, corr=corr, sim=sim, rot=rot, trans=trans, equi=equi)

@@ -85,8 +85,11 @@ def test_jax_only_fields_load_and_are_checked():
     value the JAX package could not take raises."""
     base = tconfig.preset("3dmatch")
     ok = {"engine.knn_recall": "0.95", "engine.onehot_h_permute": True,
-          "engine.topk_method": "approx", "run.data_parallel": False, "run.halo": 768}
+          "engine.topk_method": "approx", "run.halo": 768}
     assert tconfig.apply_overrides(base, ok) == base
+    # run.data_parallel is a field of the port's since data parallelism came
+    assert "run.data_parallel" not in tconfig._JAX_ONLY_FIELDS
+    assert tconfig.apply_overrides(base, {"run.data_parallel": False}).run.data_parallel is False
     for key, bad in (("engine.knn_recall", "high"), ("engine.topk_method", "sorted"),
                      ("run.halo", "wide")):
         with pytest.raises(ValueError, match=key):
@@ -278,7 +281,7 @@ def test_cli_refuses_what_it_cannot_run(tmp_path, monkeypatch):
                    "--out", str(tmp_path / "x.pth")])
     with pytest.raises(FileNotFoundError):
         tcli.main(["eval", "--device", "cpu", *SYNTH, "--checkpoint", str(tmp_path / "none")])
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    with pytest.raises(NotImplementedError, match="Queue A item 9b"):
         tcli.main(["train", "--device", "cpu", *SYNTH, "run.point_parallel=2"])
     # a model variant runs on the whole-cloud graph; the curve window refuses it
     for extra in ("engine.direction=cluster", "engine.use_pointnet=true"):

@@ -47,6 +47,12 @@ PORT_MODULES = [
     "se3_equi_graph_registration_tpu_torch.tools.eval_files",
     "se3_equi_graph_registration_tpu_torch.tools.multiway",
     "se3_equi_graph_registration_tpu_torch.ops.pose_graph",
+    "se3_equi_graph_registration_tpu_torch.tools.stats",
+    "se3_equi_graph_registration_tpu_torch.tools.grad_budget",
+    "se3_equi_graph_registration_tpu_torch.tools.scenario_table",
+    "se3_equi_graph_registration_tpu_torch.parallel",
+    "se3_equi_graph_registration_tpu_torch.parallel.mesh",
+    "se3_equi_graph_registration_tpu_torch.parallel.distributed",
 ]
 
 
@@ -362,13 +368,18 @@ def test_register_fpfh_goes_through_the_kernel_wrappers(monkeypatch, knobs, want
 
 def test_register_fpfh_rejects_unported_options():
     from se3_equi_graph_registration_tpu_torch import registration
+    from se3_equi_graph_registration_tpu_torch.parallel.mesh import make_mesh
 
     pts = np.zeros((256, 3), np.float32)
     with pytest.raises(ValueError, match="must end at 0.0"):
         registration.register_fpfh(pts, pts, n_points=256, icp_voxels=(0.05, 0.02),
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    # a mesh is a parallel.mesh.Mesh; one with a point axis is not ported yet
+    with pytest.raises(TypeError, match="mesh must be"):
         registration.register_fpfh_batch(pts[None], pts[None], mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 9b"):
+        registration.register_fpfh_batch(pts[None], pts[None], device="cpu",
+                                         mesh=make_mesh({"data": 1, "point": 1}))
     assert callable(registration.export_compiled) and callable(registration.load_exported)
 
 

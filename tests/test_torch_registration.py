@@ -26,6 +26,7 @@ import torch
 from se3_equi_graph_registration_tpu import registration as jreg
 from se3_equi_graph_registration_tpu.data.synthetic import random_rotation
 from se3_equi_graph_registration_tpu_torch import registration as treg
+from se3_equi_graph_registration_tpu_torch.parallel.mesh import make_mesh
 
 N_POINTS, WINDOW = 512, 256
 
@@ -146,8 +147,11 @@ def test_register_fpfh_rejects_what_is_not_ported(bumpy):
     src, tgt, _, _ = _pair(bumpy, 3)
     with pytest.raises(ValueError, match="must end at 0.0"):
         treg.register_fpfh(src, tgt, n_points=N_POINTS, icp_voxels=(0.1, 0.05), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    with pytest.raises(TypeError, match="mesh must be"):
         treg.register_fpfh_batch(src[None], tgt[None], mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 9b"):
+        treg.register_fpfh_batch(src[None], tgt[None], device="cpu",
+                                 mesh=make_mesh({"point": 1}))
     with pytest.raises(ValueError, match="knn_packed"):
         treg.register_fpfh(src, tgt, n_points=N_POINTS, knn_packed="yes", device="cpu")
     with pytest.raises(ValueError, match="multiples of"):
