@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh,robust,cli,serve_extra,variants,
-                                    multiway,tools,dist]
+                                    multiway,tools,dist,point]
 
 Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
@@ -137,7 +137,15 @@ everything runs):
   `Registrar.register` at `fast_tpu_config`, B=64, and a BatchingServer
   over the mesh Registrar; `register_fpfh_batch` at B=8, fused and chunked
   at W=768; 2 `fit` steps at B=16 at `fast_tpu_config` in accurate mode;
-  each with and without the mesh; then the group is destroyed.
+  each with and without the mesh; then the group is destroyed;
+- point-axis sharding (`point`): the 2-axis train step of
+  `parallel/point_sharding` in a one-rank NCCL group over a {data: 1,
+  point: 1} mesh at BASELINE.json config 5's dense size (N=8192, B=2,
+  k=16, C=32, 3 layers, 4 heads, top_k=128, accurate, the 'cosine' head):
+  the all-gather regime against the same step on the CPU and against the
+  unsharded `make_train_step` on the kernels, the halo regime (W=64, the
+  ring's wrap-around a local copy at one rank) against its twin, and both
+  steps timed.
 Any failed check raises (non-zero exit, no result line). The last line is
 one JSON object with the device.
 
@@ -326,6 +334,19 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   gradient exceeds 1e-3 of its tensor's max and 2 lr a step everywhere
   (B3 sums by atomics, so even two runs without the mesh differ: that
   control is printed). Launches exact.
+- point: KITTI's loss (corr + sim + equi; at the seeded init rot sits at
+  the arccos clamp, √(2e-6) = 1.4e-3 rad, so the 3DMatch pose terms give
+  the coordinate path no gradient and a 1e-7 change of the trace moves the
+  loss 7e-5) within 1e-4, the gradients Adam applies within 1e-4 of each
+  tensor's largest (POINT_GRAD_TOL) and the parameters after one Adam step
+  within 5e-4 (the JAX dry run's: above 2·lr, since Adam's first step
+  moves a weight by ~lr·sign(g), which hides a wrong scale that the
+  gradients show), for the card against the CPU, against the unsharded
+  step and the halo step against its twin. A row whose
+  neighbour set differs between two k-NN graphs passes only as a tie
+  (every swapped neighbour's float64 d² within 8 float32 spacings of the
+  expansion's scale of the row's k-th). The point steps launch no kernel,
+  the unsharded step 2 B1, 6 B2 and 6 B3 (fp32 tile).
 """
 from __future__ import annotations
 
@@ -691,17 +712,17 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
 
 
 PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh", "robust", "cli", "serve_extra",
-          "variants", "multiway", "tools", "dist")
+          "variants", "multiway", "tools", "dist", "point")
 ROW_ORDER = ("knn_window", "egcl_layer", "egcl_layer_f32", "egcl_backward", "egcl_backward_f32",
              "knn_chunked", "spfh")
 # the phases whose paths launch each kernel row's kernel
 DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust", "cli", "serve_extra",
-                             "variants", "multiway", "tools", "dist"),
+                             "variants", "multiway", "tools", "dist", "point"),
                  egcl_layer=("serve", "train", "robust", "serve_extra", "variants", "tools",
                              "dist"),
-                 egcl_layer_f32=("serve", "train", "cli", "variants", "tools", "dist"),
+                 egcl_layer_f32=("serve", "train", "cli", "variants", "tools", "dist", "point"),
                  egcl_backward=("train", "variants", "tools"),
-                 egcl_backward_f32=("train", "cli", "variants", "tools", "dist"),
+                 egcl_backward_f32=("train", "cli", "variants", "tools", "dist", "point"),
                  knn_chunked=("fpfh", "robust", "serve_extra", "multiway", "tools", "dist"),
                  spfh=("fpfh", "robust", "serve_extra", "multiway", "tools", "dist"))
 # the phases whose paths launch the SIMT kernels (accurate mode at C=33, the
@@ -852,6 +873,8 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
         tools_phase(torch, dev, cfg, sd, rows)
     if "dist" in phases:
         dist_phase(torch, dev, cfg, bsz, sd, rows)
+    if "point" in phases:
+        point_phase(torch, dev, rows)
     for name, row in rows.items():
         if any(ph in phases for ph in DRIVEN_BY[name]):
             check(row["launches"] > 0, f"{name}: no launch on the paths this run drove")
@@ -4013,6 +4036,197 @@ def dist_phase(torch, dev, cfg, bsz, sd, rows):
     finally:
         tdist.destroy_process_group()
     log(f"dist: phase {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+
+
+# --- point: point-axis sharding, mesh {data: 1, point: 1} over one card ---
+# BASELINE.json config 5 ("Dense scaling: 8K-16K pts/frame") in accurate
+# mode. 'cosine': at a seeded init the 'dot' head's softmax is one-hot, so
+# its Kabsch solve sees one point and rounding sets the pose terms. The
+# loss is KITTI's (`tools_conditioned`): at this init the 3DMatch pose
+# terms sit at the arccos clamp, so they give the coordinate path no
+# gradient and switch it on a rounding; the equi term reaches it smoothly.
+POINT_CFG = dict(num_nodes=8192, k=16, in_node_nf=32, hidden_nf=32, n_layers=3, num_heads=4,
+                 top_k=128, weight_mode="cosine")
+POINT_B, POINT_HALO = 2, 64
+POINT_TIE_ULPS = 8            # a tie: within 8 float32 spacings of the d² expansion's scale
+# The gradients Adam applies, within 1e-4 of each tensor's largest: the
+# attention kernels' gradient sums 2·8192·16 edge terms in float32, and the
+# card's plain matrix product lands 5.0e-5 of its largest from both the CPU
+# and the kernel step (`parallel.dryrun` holds 1e-5 at N=64). A lost share or
+# a wrong scale of a collective's transpose is of the order of 1.
+POINT_GRAD_TOL = 1e-4
+
+
+def knn_ties(torch, x, a, b, what):
+    """The rows whose neighbour sets differ between the graphs a and b
+    [B, N, K] of clouds x [B, N, 3]; fails unless every neighbour in one set
+    and not the other lies, in float64, within POINT_TIE_ULPS float32
+    spacings of (|x_i| + max|x|)² of the row's k-th d²: a tie that rounding
+    decides."""
+    rows = (a.sort(-1).values != b.sort(-1).values).any(-1).nonzero().tolist()
+    xd = x.double()
+    top = xd.norm(dim=-1).amax(-1)
+    for bi, r in rows:
+        d2 = ((xd[bi] - xd[bi, r]) ** 2).sum(-1)
+        kth = d2[a[bi, r].long()].max()
+        swapped = torch.tensor(sorted(set(a[bi, r].tolist()) ^ set(b[bi, r].tolist())),
+                               device=x.device)
+        tol = POINT_TIE_ULPS * 2.0 ** -24 * float((xd[bi, r].norm() + top[bi]) ** 2)
+        check(bool(((d2[swapped] - kth).abs() <= tol).all()),
+              f"point {what}: row ({bi}, {r}) differs beyond a tie: "
+              f"{(d2[swapped] - kth).tolist()} against {tol}")
+    return len(rows)
+
+
+def point_phase(torch, dev, rows):
+    """The 2-axis train step of `parallel/point_sharding` in a one-rank NCCL
+    group, mesh {data: 1, point: 1}, at N=8192, B=2 (POINT_CFG): (a) the
+    all-gather regime's step on the card against the same step on the CPU
+    (a mesh with no group); (b) the same step against the unsharded
+    `make_train_step` on the card (2 whole-cloud B1, 6 fp32 tile B2 and 6
+    B3), after counting the rows whose neighbour sets differ between the
+    sharded k-NN (matrix-product expansion, `fp32_matmuls`) and B1 (the
+    fixed-order formula), each a tie; gated on the step itself when no row
+    differs, else on the step run over B1's graph; (c) the halo regime
+    (W=64) against its twin (`parallel.dryrun.halo_twin`). Loss within
+    1e-4, the gradients Adam applies within POINT_GRAD_TOL of each tensor's
+    largest (they see a lost share or a wrong scale of the reduce-scatter,
+    which one Adam step hides), parameters after the step within 5e-4 (the
+    JAX dry run's).
+    The sharded steps launch no kernel (the JAX package's slab EGNN is
+    XLA, its slab k-NN lax.top_k); both steps timed with CUDA events, best
+    of 3 after a warm-up."""
+    import socket
+
+    import torch.distributed as tdist
+
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn
+    from se3_equi_graph_registration_tpu_torch.parallel import (global_mesh, init_distributed,
+                                                                make_mesh)
+    from se3_equi_graph_registration_tpu_torch.parallel import point_sharding as ps
+    from se3_equi_graph_registration_tpu_torch.parallel.dryrun import (grad_gap, halo_twin,
+                                                                       update_grads)
+    from se3_equi_graph_registration_tpu_torch.train import engine
+
+    t_phase = time.perf_counter()
+    cfg = engine.EngineConfig(**POINT_CFG, loss_weights=tools_conditioned())
+    L, sides = cfg.n_layers, ("src_pts", "tgt_pts")
+    host = engine.batch_to_device(tuple(make_pair_batch(
+        np.random.default_rng(53), batch=POINT_B, n=cfg.num_nodes, feat_dim=cfg.in_node_nf)),
+        "cpu")
+    batch = {key: v.to(dev) for key, v in host.items()}
+
+    def fresh(device):
+        return engine.init_state(cfg, torch.Generator().manual_seed(0), device=device)
+
+    def run_step(mesh, b, device, halo=None):
+        """One point-sharded step from the seeded init → (its losses, the
+        gradients Adam applied, the state, the step)."""
+        state = fresh(device)
+        grads = update_grads(state)
+        step = ps.make_point_sharded_train_step(state.model, state.optimizer, cfg, mesh,
+                                                halo=halo)
+        _, m = step(state, ps.shard_points_batch(b, mesh))
+        return {key: float(v) for key, v in m.items()}, grads, state, step
+
+    def params(model):
+        return {key: v.detach().double().cpu() for key, v in model.state_dict().items()}
+
+    def gaps(m_a, g_a, model_a, m_b, g_b, model_b, what):
+        """(|Δ| of the loss, the gradient gap, max|Δ| of the parameters)."""
+        pa, pb = params(model_a), params(model_b)
+        out = (abs(m_a["total"] - m_b["total"]), grad_gap(g_a, g_b),
+               max(float((pa[key] - pb[key]).abs().max()) for key in pa))
+        check(out[0] <= 1e-4 and out[1] <= POINT_GRAD_TOL and out[2] <= 5e-4,
+              f"point {what}: loss, gradient, parameter gaps {out}")
+        return out
+
+    # the CPU side of (a), before the group: a mesh with no group
+    t0 = time.perf_counter()
+    cpu_mesh = make_mesh({"data": 1, "point": 1}, device="cpu")
+    m_cpu, g_cpu, st_cpu, _ = run_step(cpu_mesh, host, "cpu")
+    with torch.no_grad():
+        cpu_graphs = [ps.sharded_knn_batched(host[key], cfg.k, cpu_mesh) for key in sides]
+    t_cpu = time.perf_counter() - t0
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multi = init_distributed(f"127.0.0.1:{port}", 1, 0, device=dev, timeout_s=120.0)
+    try:
+        check(not multi and tdist.is_initialized() and tdist.get_backend() == "nccl",
+              "point: not a one-rank NCCL group")
+        mesh = global_mesh({"data": 1, "point": 1})
+        check(mesh.backend == "nccl" and mesh.group("point") is not None
+              and mesh.group("data") is not None, f"point: mesh {mesh}")
+        blk = ps.shard_points_batch(batch, mesh)
+        # (a) the all-gather regime, card against CPU
+        m_a, g_a, st_a, step_a = counted(rows, "point step", lambda: run_step(mesh, batch, dev),
+                                         {})
+        with torch.no_grad():
+            graphs = [ps.sharded_knn_batched(batch[key], cfg.k, mesh) for key in sides]
+        cpu_ties = sum(knn_ties(torch, batch[key], g, c.to(dev), "card vs CPU sharded k-NN")
+                       for key, g, c in zip(sides, graphs, cpu_graphs))
+        gap_a = gaps(m_a, g_a, st_a.model, m_cpu, g_cpu, st_cpu.model, "(a) card vs CPU")
+
+        # (b) against the unsharded step on the kernels
+        with torch.no_grad():
+            b1 = [knn.knn_window(batch[key].contiguous(), cfg.k, tile=128, window=None,
+                                 packed=False) for key in sides]
+        b1_ties = sum(knn_ties(torch, batch[key], g, b, "sharded k-NN vs B1")
+                      for key, g, b in zip(sides, graphs, b1))
+        st_u = fresh(dev)
+        g_u = update_grads(st_u)
+        step_u = engine.make_train_step(st_u.model, st_u.optimizer, cfg)
+        _, m_u = counted(rows, "point unsharded step", lambda: step_u(st_u, batch),
+                         {"knn_window": {"warp": 2}, "egcl_layer": {"tile_f32": 2 * L},
+                          "egcl_backward": {"tile_f32": 2 * L}})
+        m_b, g_b, st_b, gated_on = m_a, g_a, st_a, "the point step"
+        if b1_ties:       # the same step, its k-NN answered with B1's graph
+            calls = []
+
+            def on_b1(x, k, m):
+                for key, g in zip(sides, b1):
+                    if torch.equal(x, batch[key]):
+                        calls.append(key)
+                        return g
+                raise RuntimeError("point (b): the step's k-NN got a cloud of no side")
+
+            sharded_knn = ps.sharded_knn_batched
+            ps.sharded_knn_batched = on_b1
+            try:
+                m_b, g_b, st_b, _ = run_step(mesh, batch, dev)
+            finally:
+                ps.sharded_knn_batched = sharded_knn
+            check(sorted(calls) == sorted(sides),
+                  f"point (b): B1's graph answered the step's k-NN for {calls}, not {sides}")
+            gated_on = "the point step over B1's graph"
+        m_u = {key: float(v) for key, v in m_u.items()}
+        gap_b = gaps(m_b, g_b, st_b.model, m_u, g_u, st_u.model, "(b) vs unsharded")
+
+        # (c) the halo regime against its twin
+        m_c, g_c, st_c, _ = counted(rows, "point halo step",
+                                    lambda: run_step(mesh, batch, dev, POINT_HALO), {})
+        st_t = fresh(dev)
+        g_t = update_grads(st_t)
+        twin = halo_twin(st_t, cfg, batch, mesh, POINT_HALO)
+        gap_c = gaps(m_c, g_c, st_c.model, twin, g_t, st_t.model, "(c) halo vs twin")
+
+        point_ms = best_event_ms(torch, lambda: step_a(st_a, blk))
+        plain_ms = best_event_ms(torch, lambda: step_u(st_u, batch))
+        show = lambda g: (f"loss |Δ| {g[0]:.3g}, gradients max|Δ|/max {g[1]:.3g}, "
+                          f"parameters max|Δ| {g[2]:.3g}")
+        log(f"point: N={cfg.num_nodes} B={POINT_B} k={cfg.k} C={cfg.hidden_nf} {L} layers, "
+            f"accurate, mesh {mesh.shape} over NCCL: (a) card vs CPU {show(gap_a)}, sharded "
+            f"k-NN rows differing card vs CPU {cpu_ties} (ties); (b) sharded k-NN vs B1 rows "
+            f"differing {b1_ties} (ties), {gated_on} vs the unsharded step {show(gap_b)}; (c) "
+            f"halo W={POINT_HALO} vs its twin {show(gap_c)}; losses {m_a}; step ms (CUDA "
+            f"events, best of 3): point-sharded {point_ms:.2f}, unsharded {plain_ms:.2f}; "
+            f"CPU side {t_cpu:.1f} s")
+    finally:
+        tdist.destroy_process_group()
+    log(f"point: phase {time.perf_counter() - t_phase:.1f} s; {card_line()}")
 
 
 if __name__ == "__main__":

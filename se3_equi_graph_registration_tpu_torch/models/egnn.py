@@ -19,6 +19,16 @@ Parameter names follow the JAX package's flax tree
 kernel path (`ops/kernels/egcl.py`, 'center'/'frame' only) reads the same
 parameters; the engine runs this module for 'cluster' and 'invariant', as
 the JAX package runs its XLA EGNN there.
+
+Slab mode (the JAX package's `axis_name=`/`halo=`) runs the same module,
+with the same parameters, on one rank's slab of point-sharded clouds
+(parallel/point_sharding.py): `forward(..., sharding=Sharding(mesh,
+'point'))` takes h, x [B, L, ·] and nbr_idx [B, L, K] holding global row
+ids. Each layer all-gathers the node tables over the point axis
+(`all_gather_rows`), or with `halo=W` extends the slab with its neighbours'
+±W boundary rows (`halo_extend`; the graph's ids must stay within ±W of
+the slab), gathers the neighbours locally and aggregates onto the local
+centers, so only 'center' runs sharded.
 """
 from __future__ import annotations
 
@@ -28,8 +38,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.edge_geometry import edge_geometry, gather_neighbors
+from ..ops.edge_geometry import edge_geometry, edge_geometry_from_pairs, gather_neighbors
+from ..ops.knn import gather_rows
 from ..ops.segment import kregular_mean, kregular_sum, segment_sum
+from ..parallel.mesh import Sharding, all_gather_rows, halo_extend
 
 GEO_DIM = 12   # radial, dist, dot, so3(9)
 
@@ -100,9 +112,26 @@ class EGCL(nn.Module):
         self.node_mlp_1 = nn.Linear(hidden_nf, hidden_nf)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor, nbr_idx: torch.Tensor,
-                edge_attr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        geom = edge_geometry(x, nbr_idx, self.direction, self.so3_mode)
-        h_nbr = gather_neighbors(h, nbr_idx)
+                edge_attr: torch.Tensor, sharding: Optional[Sharding] = None,
+                halo: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+        if sharding is None:
+            geom = edge_geometry(x, nbr_idx, self.direction, self.so3_mode)
+            h_nbr = gather_neighbors(h, nbr_idx)
+        else:
+            # slab mode: global neighbour ids into the gathered tables, or
+            # into the ±halo extension (local row 0 there is global row
+            # i·L − W)
+            mesh, axis = sharding
+            if halo is None:
+                h_full = all_gather_rows(h, mesh, axis)
+                x_full = all_gather_rows(x, mesh, axis)
+            else:
+                h_full, x_full = halo_extend(h, mesh, axis, halo), halo_extend(x, mesh, axis, halo)
+                nbr_idx = nbr_idx - (mesh.axis_index(axis) * h.shape[-2] - halo)
+            x_nbr = gather_rows(x_full, nbr_idx)
+            geom = edge_geometry_from_pairs(x[..., :, None, :].expand_as(x_nbr), x_nbr,
+                                            self.so3_mode)
+            h_nbr = gather_rows(h_full, nbr_idx)
         h_center = h[..., :, None, :].expand_as(h_nbr)
         h_row, h_col = ((h_center, h_nbr) if self.direction == "center"
                         else (h_nbr, h_center))
@@ -122,7 +151,10 @@ class EGNN(nn.Module):
     """Embedding → n_layers × EGCL → output embedding.
 
     h [B, N, in_node_nf], x [B, N, 3], nbr_idx [B, N, K] →
-    (h [B, N, out_node_nf], x [B, N, 3]); edge_attr is all ones.
+    (h [B, N, out_node_nf], x [B, N, 3]); edge_attr is all ones. With
+    `sharding` (a `parallel.mesh.Sharding` over the point axis) the arrays
+    are this rank's slab [B, L, ·] and the output is its slab (module
+    docstring), all-gathered tables or with `halo` the ±halo exchange.
     """
 
     def __init__(self, in_node_nf: int = 32, hidden_nf: int = 32,
@@ -146,11 +178,17 @@ class EGNN(nn.Module):
     def layers(self) -> list[EGCL]:
         return [getattr(self, f"gcl_{i}") for i in range(self.n_layers)]
 
-    def forward(self, h: torch.Tensor, x: torch.Tensor, nbr_idx: torch.Tensor
+    def forward(self, h: torch.Tensor, x: torch.Tensor, nbr_idx: torch.Tensor,
+                sharding: Optional[Sharding] = None, halo: Optional[int] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        if sharding is not None and self.direction != "center":
+            raise ValueError(f"slab mode aggregates onto the local centers: direction "
+                             f"'center' only (got {self.direction!r})")
+        if sharding is None and halo is not None:
+            raise ValueError("halo exchange needs a point sharding")
         edge_attr = torch.ones(nbr_idx.shape + (self.edge_attr_dim,),
                                dtype=h.dtype, device=h.device)
         h = self.embedding_in(h)
         for layer in self.layers():
-            h, x = layer(h, x, nbr_idx, edge_attr)
+            h, x = layer(h, x, nbr_idx, edge_attr, sharding, halo)
         return self.embedding_out(h), x

@@ -124,11 +124,18 @@ def window_candidates(x: torch.Tensor, tile: int, window: int
     return queries, cand, starts
 
 
+def morton_perm(x: torch.Tensor, curve: str = "hilbert") -> torch.Tensor:
+    """The permutation [..., N] sorting points along the space-filling curve
+    (default Hilbert; the name is the ROADMAP's 'Morton window'): a stable
+    sort of the codes."""
+    return torch.sort(curve_codes(x, curve=curve), dim=-1, stable=True).indices
+
+
 def sort_by_curve(h: torch.Tensor, x: torch.Tensor, curve: str = "hilbert"
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sort (h [..., N, C], x [..., N, 3]) along the curve → (hs, xs, perm):
-    a stable sort on the codes, then a gather by the permutation."""
-    perm = torch.sort(curve_codes(x, curve=curve), dim=-1, stable=True).indices
+    `morton_perm`, then a gather by the permutation."""
+    perm = morton_perm(x, curve)
     hs = torch.take_along_dim(h, perm[..., None], dim=-2)
     xs = torch.take_along_dim(x, perm[..., None], dim=-2)
     return hs, xs, perm

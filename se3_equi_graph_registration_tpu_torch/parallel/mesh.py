@@ -8,11 +8,21 @@ default process group:
 
   'data'  — pair-batch data parallelism: each rank runs its rows of the pair
             batch; results are gathered (`gather_pairs`), gradients summed;
-  'point' — point-axis sharding, not ported yet (ROADMAP Queue A item 9b).
+  'point' — point-axis sharding of dense clouds: each rank holds a slab of
+            every cloud's rows (parallel/point_sharding.py); the slabs meet
+            through `all_gather_rows` or the ±halo ring of `halo_extend`.
+
+Ranks lie on the axes row-major, in the order the axes are given, as the
+JAX package reshapes its device list: on {"data": Dd, "point": Dp} rank
+d·Dp + p holds data index d and point index p. Each axis's collectives run
+on the group of the ranks that differ only along it (`Mesh.group`); the
+ranks of one data row hold the same pairs, so the data-axis collectives
+count `axis_size("data")` ranks, not the world.
 
 Without an initialized process group a mesh has one rank and every
-collective is the identity; with one, every collective goes through the
-group, a world of one included.
+collective is the identity; with one, every collective along an axis that
+spans the whole world goes through the group, a world of one included. An
+axis the mesh lacks has size 1 (its leaves are replicated).
 """
 from __future__ import annotations
 
@@ -24,18 +34,20 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-AXES = ("data",)
+AXES = ("data", "point")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """Named axis sizes over the ranks of the default process group, this
-    rank, the group's backend (None without a group) and the device this
-    rank computes on (None: any)."""
+    rank, the group's backend (None without a group), the device this rank
+    computes on (None: any) and, for each axis whose collectives go through
+    a process group, the group of this rank's line along it."""
     axes: Mapping[str, int]
     rank: int
     backend: Optional[str]
     device: Optional[torch.device]
+    groups: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -45,6 +57,31 @@ class Mesh:
     def size(self) -> int:
         """Ranks on the mesh."""
         return math.prod(self.axes.values())
+
+    def axis_size(self, axis: str) -> int:
+        """Ranks along `axis` (1 for an axis the mesh lacks)."""
+        return self.axes.get(axis, 1)
+
+    def _coords(self) -> list[int]:
+        """This rank's index along each axis (row-major over the ranks)."""
+        return [int(c) for c in np.unravel_index(self.rank, tuple(self.axes.values()))]
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's index along `axis` (0 for an axis the mesh lacks)."""
+        return self._coords()[list(self.axes).index(axis)] if axis in self.axes else 0
+
+    def shifted_rank(self, axis: str, shift: int) -> int:
+        """The global rank `shift` steps along `axis` from this one, around
+        the ring."""
+        coords, i = self._coords(), list(self.axes).index(axis)
+        coords[i] = (coords[i] + shift) % self.axes[axis]
+        return int(np.ravel_multi_index(coords, tuple(self.axes.values())))
+
+    def group(self, axis: str):
+        """The process group of this rank's line along `axis`, or None when
+        collectives along it are the identity: no process group, an axis the
+        mesh lacks, or one of size 1 in a larger world."""
+        return self.groups.get(axis) if self.distributed else None
 
     @property
     def distributed(self) -> bool:
@@ -75,10 +112,6 @@ def make_mesh(axes: Optional[Mapping[str, int]] = None,
     if dist.is_available() and dist.is_initialized():
         world, rank, backend = dist.get_world_size(), dist.get_rank(), dist.get_backend()
     axes = {"data": world} if axes is None else dict(axes)
-    if "point" in axes:
-        raise NotImplementedError(
-            f"mesh axes {axes}: point-axis sharding (the JAX package's "
-            f"parallel/point_sharding.py) is not ported yet (ROADMAP Queue A item 9b)")
     unknown = [a for a in axes if a not in AXES]
     if unknown:
         raise ValueError(f"mesh axes {axes}: the port's meshes take the axes {AXES}")
@@ -91,10 +124,31 @@ def make_mesh(axes: Optional[Mapping[str, int]] = None,
         device = torch.device("cuda", torch.cuda.current_device())
     elif backend is not None:
         device = torch.device("cpu")
-    mesh = Mesh(axes, rank, backend, device)
+    mesh = Mesh(axes, rank, backend, device, _axis_groups(axes, world, rank, backend))
     if device is not None:
         mesh.check_device(device)
     return mesh
+
+
+def _axis_groups(axes: Mapping[str, int], world: int, rank: int, backend: Optional[str]):
+    """{axis: this rank's group along it} for the axes whose collectives
+    need one: the default group for an axis spanning the world, a new group
+    for each line of an axis of size > 1 that does not. Every rank creates
+    every group, in the same order (`new_group` is collective), so every
+    rank must build its meshes in the same order too."""
+    if backend is None:
+        return {}
+    ranks = np.arange(world).reshape(tuple(axes.values()))
+    groups = {}
+    for i, (name, size) in enumerate(axes.items()):
+        if size == world:
+            groups[name] = dist.group.WORLD
+        elif size > 1:
+            for line in np.moveaxis(ranks, i, -1).reshape(-1, size):
+                group = dist.new_group(line.tolist())
+                if rank in line:
+                    groups[name] = group
+    return groups
 
 
 def check_mesh(mesh: Any, device: torch.device) -> Mesh:
@@ -117,12 +171,12 @@ class Sharding(NamedTuple):
         """This rank's rows of a batch of b."""
         if self.axis is None:
             return slice(0, b)
-        n = self.mesh.axes[self.axis]
+        n = self.mesh.axis_size(self.axis)
         if b % n:
             raise ValueError(f"a batch of {b} pairs does not split over the mesh's "
                              f"{self.axis!r} axis of {n}")
-        per = b // n
-        return slice(self.mesh.rank * per, (self.mesh.rank + 1) * per)
+        per, i = b // n, self.mesh.axis_index(self.axis)
+        return slice(i * per, (i + 1) * per)
 
 
 def data_sharding(mesh: Mesh, axis: str = "data") -> Sharding:
@@ -165,40 +219,158 @@ def pad_pairs(batch, multiple: int):
     return _map_leaves(rep, batch)
 
 
+def shard_points_batch(batch: Mapping, mesh: Mesh, data_axis: Optional[str] = "data") -> dict:
+    """This rank's block of a pair-batch dict: [B, N, ...] leaves (labels
+    [B, N] among them) split into row blocks over `data_axis` and into
+    contiguous point slabs over the 'point' axis, gt_pose [B, 4, 4] and
+    other per-pair leaves over `data_axis` only. `data_axis=None`: the rows
+    are already this rank's (a loader's slice), only the points split."""
+    rows = data_sharding(mesh, data_axis) if data_axis else replicated(mesh)
+    d, i = mesh.axis_size("point"), mesh.axis_index("point")
+
+    def block(name, a):
+        a = a[rows.rows(len(a))]
+        if a.ndim < 2 or name == "gt_pose":
+            return a
+        n = a.shape[1]
+        if n % d:
+            raise ValueError(f"{n} points do not split over the mesh's 'point' axis of {d}")
+        return a[:, i * (n // d):(i + 1) * (n // d)]
+
+    return {k: block(k, v) for k, v in batch.items()}
+
+
 def gather_pairs(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Every rank's rows of x [b, ...] (equal b on every rank), concatenated
-    in rank order on every rank: the whole batch's results, as a JAX global
-    array hands them to every process."""
-    if not mesh.distributed:
+    """Every data rank's rows of x [b, ...] (equal b on every rank),
+    concatenated in the order of the 'data' axis on every rank: the whole
+    batch's results, as a JAX global array hands them to every process."""
+    group = mesh.group("data")
+    if group is None:
         return x
-    parts = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(parts, x.contiguous())
+    parts = [torch.empty_like(x) for _ in range(mesh.axis_size("data"))]
+    dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts)
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """All-reduce (sum) whose backward all-reduces the gradient: with y the
-    same sum on every rank and each rank's loss a function of y, every
-    rank's x receives the sum of all ranks' dL/dy."""
+    """All-reduce (sum) over a group whose backward all-reduces the
+    gradient: with y the same sum on every rank and each rank's loss a
+    function of y, every rank's x receives the sum of all ranks' dL/dy."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        return _SumOverRanks.apply(g)
+        return _SumOverRanks.apply(g, ctx.group), None
 
 
-def all_reduce_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """The sum of x over the mesh's ranks, on every rank (a new tensor).
-    Differentiable: its backward sums the gradients over the ranks, so each
-    rank's share of a loss that depends on it reaches every rank's inputs."""
-    if mesh is None or not mesh.distributed:
+def all_reduce_sum(x: torch.Tensor, mesh: Optional[Mesh], axis: str = "data") -> torch.Tensor:
+    """The sum of x over the ranks along `axis`, on each of them (a new
+    tensor). Differentiable: its backward sums the gradients over the same
+    ranks, so each rank's share of a loss that depends on it reaches every
+    rank's inputs."""
+    group = None if mesh is None else mesh.group(axis)
+    if group is None:
         return x
-    return _SumOverRanks.apply(x)
+    return _SumOverRanks.apply(x, group)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """All-gather of row slabs [..., L, C] along dim -2 into [..., D·L, C];
+    its backward is the transpose, a reduce-scatter (sum) of the gradient
+    rows: `reduce_scatter_tensor` under NCCL, an all-reduce and this rank's
+    slice under gloo, which has no reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis, ctx.rows = mesh, axis, x.shape[-2]
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(mesh.axis_size(axis))]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group(axis))
+        return torch.cat(parts, dim=-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, group, L = ctx.mesh, ctx.mesh.group(ctx.axis), ctx.rows
+        if mesh.backend == "nccl":
+            full = g.movedim(-2, 0).contiguous()
+            out = full.new_empty((L,) + tuple(full.shape[1:]))
+            dist.reduce_scatter_tensor(out, full, group=group)
+            return out.movedim(0, -2), None, None
+        total = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(total, group=group)
+        i = mesh.axis_index(ctx.axis)
+        return total[..., i * L:(i + 1) * L, :], None, None
+
+
+def all_gather_rows(x: torch.Tensor, mesh: Mesh, axis: str = "point") -> torch.Tensor:
+    """Every rank's slab x [..., L, C] along `axis`, concatenated along the
+    rows in axis order: [..., D·L, C] on each rank. Differentiable (its
+    backward reduce-scatters the gradient)."""
+    if mesh.group(axis) is None:
+        return x
+    return _AllGatherRows.apply(x, mesh, axis)
+
+
+def _ring_exchange(to_right: torch.Tensor, to_left: torch.Tensor, mesh: Mesh, axis: str
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Send `to_right` one step up the ring along `axis` and `to_left` one
+    step down; returns (what the left neighbour sent right, what the right
+    neighbour sent left). On a ring of one the rank is its own neighbour:
+    a local copy (torch refuses a send to one's own rank; JAX's ppermute to
+    self is the identity)."""
+    group = mesh.group(axis)
+    if group is None or mesh.axis_size(axis) == 1:
+        return to_right, to_left
+    right, left = mesh.shifted_rank(axis, 1), mesh.shifted_rank(axis, -1)
+    from_left, from_right = torch.empty_like(to_right), torch.empty_like(to_left)
+    # tags keep the two directions apart where left and right are one rank
+    ops = [dist.P2POp(dist.isend, to_right.contiguous(), right, group, tag=0),
+           dist.P2POp(dist.isend, to_left.contiguous(), left, group, tag=1),
+           dist.P2POp(dist.irecv, from_left, left, group, tag=0),
+           dist.P2POp(dist.irecv, from_right, right, group, tag=1)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return from_left, from_right
+
+
+class _HaloExtend(torch.autograd.Function):
+    """[..., L, C] → [..., W + L + W, C]: the left neighbour's last W rows,
+    the slab, the right neighbour's first W rows. The backward is the
+    reverse exchange: each received block's gradient goes back to the rank
+    that sent it and is added to the rows it came from."""
+
+    @staticmethod
+    def forward(ctx, a, mesh, axis, halo):
+        ctx.mesh, ctx.axis, ctx.halo = mesh, axis, halo
+        from_left, from_right = _ring_exchange(a[..., -halo:, :], a[..., :halo, :], mesh, axis)
+        return torch.cat([from_left, a, from_right], dim=-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        W = ctx.halo
+        to_left, to_right = g[..., :W, :], g[..., -W:, :]
+        from_left, from_right = _ring_exchange(to_right, to_left, ctx.mesh, ctx.axis)
+        grad = g[..., W:-W, :].clone()
+        grad[..., :W, :] += from_left
+        grad[..., -W:, :] += from_right
+        return grad, None, None, None
+
+
+def halo_extend(a: torch.Tensor, mesh: Mesh, axis: str, halo: int) -> torch.Tensor:
+    """Extend a point slab [..., L, C] with its ring neighbours' ±halo
+    boundary rows along `axis`: [..., L + 2·halo, C] (the one definition of
+    the halo exchange, for the halo EGCL and the halo k-NN). End slabs of
+    the curve receive wrap-around rows from the far end, which callers mask
+    or never index. Differentiable. 1 <= halo <= L."""
+    if not 1 <= halo <= a.shape[-2]:
+        raise ValueError(f"halo={halo} must lie in [1, {a.shape[-2]}] (the slab's rows)")
+    return _HaloExtend.apply(a, mesh, axis, halo)
 
 
 def all_reduce_min(value: int, mesh: Mesh) -> int:

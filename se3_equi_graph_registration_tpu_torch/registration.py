@@ -289,11 +289,12 @@ def register_fpfh_batch(src_pts, tgt_pts, *, seed: int = 0, mesh=None,
     generator seeded by `seed`. Returns (R [B, 3, 3], t [B, 3], info with
     'weights' [B, N] and 'pose_covariance' [B, 6, 6]).
 
-    `mesh`: a data-parallel `parallel.mesh.Mesh`. Every rank calls with the
-    whole batch; the pair axis is padded to a multiple of the mesh's size
-    (the last pair repeats), each rank runs its rows with its rows of the
-    global noise draw (so the poses equal the call without a mesh), and the
-    results are gathered to every rank."""
+    `mesh`: a `parallel.mesh.Mesh`. Every rank calls with the whole batch;
+    the pair axis is padded to a multiple of the mesh's 'data' axis (the
+    last pair repeats), each rank runs its data rows with its rows of the
+    global noise draw (so the poses equal the call without a mesh; the
+    ranks of a 'point' axis run their row's pairs alike), and the results
+    are gathered to every rank."""
     kw = _knobs(knobs, "register_fpfh_batch")
     dev = resolve_device(device)
     if mesh is not None:
@@ -306,7 +307,7 @@ def register_fpfh_batch(src_pts, tgt_pts, *, seed: int = 0, mesh=None,
     noise = _noise(kw, kw["top_m"], seed, b)
     args = [src, tgt] + ([] if noise is None else [noise])
     if mesh is not None:
-        args = shard_pair_batch(pad_pairs(args, mesh.size), mesh)
+        args = shard_pair_batch(pad_pairs(args, mesh.axis_size("data")), mesh)
     args = [a.to(dev).contiguous() for a in args] + [None] * (noise is None)
     R, t, w, cov = _register_core(*args, **kw)
     out = torch.cat([R.reshape(len(R), 9), t, cov.reshape(len(R), 36), w], dim=-1)

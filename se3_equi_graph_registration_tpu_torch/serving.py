@@ -27,9 +27,11 @@ and a micro-batching front end.
   weights of a `bf16_params` run (held in fp32, where bf16 values are
   exact, so the Registrar computes what the bf16 model computes);
 - `BatchingServer` coalesces concurrent register() calls into one dispatch;
-- `mesh` (parallel/mesh.py) spreads the pairs of a call over the ranks of a
-  data-parallel group: every rank calls with the same requests, runs its
-  rows, and gets the whole batch's results.
+- `mesh` (parallel/mesh.py) spreads the pairs of a call over the mesh's
+  'data' axis: every rank calls with the same requests, runs its data
+  rows, and gets the whole batch's results; the ranks of a 'point' axis
+  run their row's pairs alike (the JAX package's P('data') on a 2-axis
+  mesh).
 
 Runs on the CUDA card unless `device="cpu"` is passed.
 """
@@ -314,9 +316,9 @@ class Registrar:
                                   if labels is not None else np.ones(n, np.float32))
         batch = {k: torch.from_numpy(np.stack(v)) for k, v in cols.items()}
         if self.mesh is not None:
-            # pad the pair axis to a multiple of the mesh (the last pair
-            # repeats; the padded rows are sliced off), run this rank's rows
-            batch = shard_pair_batch(pad_pairs(batch, self.mesh.size), self.mesh)
+            # pad the pair axis to a multiple of the data axis (the last
+            # pair repeats; the padded rows are sliced off), run this rank's rows
+            batch = shard_pair_batch(pad_pairs(batch, self.mesh.axis_size("data")), self.mesh)
         res = self._apply({k: v.to(self.device) for k, v in batch.items()})
         if self.mesh is not None:
             res = gather_pairs(res, self.mesh)[:b]

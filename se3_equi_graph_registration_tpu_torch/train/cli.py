@@ -10,10 +10,14 @@ package's `train/cli.py`: the same commands, arguments and results).
 Every command runs on the current CUDA card and raises when there is none;
 `--device cpu` runs the kernels' plain versions on the CPU instead. Under
 torchrun `train` runs data-parallel over the processes (one a card, NCCL;
-gloo with `--device cpu`), each loading its slice of every global batch:
+gloo with `--device cpu`), each loading its slice of every global batch;
+with `run.point_parallel=Dp` over a 2-axis mesh {data: world/Dp, point: Dp},
+each cloud's points split over Dp processes (`run.halo=W` for the
+halo-exchange regime) and the Dp processes of one data row load the same
+slice:
 
   torchrun --nproc_per_node=<cards> -m se3_equi_graph_registration_tpu_torch.train.cli \
-      train --preset 3dmatch
+      train --preset 3dmatch [--set run.point_parallel=2 run.halo=64]
 
 `.pth` checkpoints convert on the fly (`train/checkpoints.py`); a directory is read
 as the port's `TrainCheckpointer` (`step_<n>.pt` files). An orbax directory
@@ -35,6 +39,7 @@ from ..data.synthetic import make_pair_batch
 from ..device import resolve_device
 from ..parallel.distributed import global_mesh, init_distributed, process_shard_info
 from ..parallel.mesh import barrier, shard_pair_batch
+from ..parallel.point_sharding import make_point_sharded_train_step
 from . import engine
 from .checkpoints import (TrainCheckpointer, convert_reference_checkpoint,
                           export_reference_checkpoint)
@@ -75,15 +80,17 @@ def _synthetic_batches(cfg: ExperimentConfig, n_batches: int = 4, mesh=None) -> 
 def _loader(cfg: ExperimentConfig, split: str, shuffle: bool, dataset=None, mesh=None):
     """A callable giving one epoch of numpy batches. `dataset`: a pre-built
     dataset, to avoid building it twice (None builds it here; the synthetic
-    preset has none). With a data-parallel mesh each process loads its
-    slice of every global batch (`PairLoader(process_shard=...)`, the
-    synthetic preset its rows); one process loads the whole batch. The
+    preset has none). With a mesh each process loads its data row's slice
+    of every global batch (`PairLoader(process_shard=...)` by the data index
+    and the data axis's size, the synthetic preset its rows); one process
+    loads the whole batch. The
     loader's threads touch no CUDA state, `engine.fit`/`evaluate` move each
     batch to the device in the calling thread."""
     ds = dataset if dataset is not None else _build_dataset(cfg, split)
     if ds is None:
         return lambda: _synthetic_batches(cfg, mesh=mesh)
-    rank, world = process_shard_info() if mesh is not None else (0, 1)
+    rank, world = ((mesh.axis_index("data"), mesh.axis_size("data")) if mesh is not None
+                   else (0, 1))
     return lambda: PairLoader(ds, cfg.data.batch_size // world, shuffle=shuffle,
                               seed=cfg.data.seed, num_workers=cfg.data.num_workers,
                               process_shard=(rank, world) if world > 1 else None)
@@ -132,29 +139,35 @@ def _load_params(path: str, cfg: ExperimentConfig) -> dict[str, torch.Tensor]:
     return restored[0].model.state_dict()
 
 
-def _data_mesh(cfg: ExperimentConfig, device: torch.device):
-    """The 'data' mesh over every process of a multi-process run, None on
-    one process. Several processes that do not split the batch would each
-    train alone and write one checkpoint directory, so that raises."""
+def _train_mesh(cfg: ExperimentConfig, device: torch.device):
+    """The mesh over every process of the run: with run.point_parallel = Dp
+    > 1 the 2-axis {data: world / Dp, point: Dp}, else one 'data' axis over
+    a multi-process run and None on one process. Several processes that do
+    not split the batch would each train alone and write one checkpoint
+    directory, so that raises."""
     _, world = process_shard_info()
-    if world == 1:
+    dp = cfg.run.point_parallel
+    if dp > 1:
+        if world % dp:
+            raise ValueError(f"run.point_parallel={dp} needs a multiple of {dp} processes "
+                             f"(one a point slab), have {world}")
+        axes = {"data": world // dp, "point": dp}
+    elif world == 1:
         return None
-    if not cfg.run.data_parallel:
+    elif not cfg.run.data_parallel:
         raise ValueError(f"{world} processes train one model only data-parallel; set "
                          f"run.data_parallel=true or run one process")
-    if cfg.data.batch_size % world:
+    else:
+        axes = {"data": world}
+    if cfg.data.batch_size % axes["data"]:
         raise ValueError(f"data.batch_size={cfg.data.batch_size} does not split over "
-                         f"{world} processes")
-    return global_mesh({"data": world}, device)
+                         f"{axes['data']} processes")
+    return global_mesh(axes, device)
 
 
 def cmd_train(cfg: ExperimentConfig, args, device: torch.device) -> engine.TrainState:
     ecfg = cfg.engine
-    if cfg.run.point_parallel > 1:
-        raise NotImplementedError(
-            f"run.point_parallel={cfg.run.point_parallel}: point-axis sharding is not "
-            f"ported yet (ROADMAP Queue A item 9b)")
-    mesh = _data_mesh(cfg, device)
+    mesh = _train_mesh(cfg, device)
     lead = mesh is None or mesh.rank == 0
     # micro-batches per epoch for epoch-unit LR boundaries (engine.lr_schedule);
     # 4 = _synthetic_batches' per-epoch count. Dataset built ONCE, reused below.
@@ -174,7 +187,15 @@ def cmd_train(cfg: ExperimentConfig, args, device: torch.device) -> engine.Train
             state, step = restored
             print(f"resumed from step {step}")
 
-    if mesh is not None and lead:
+    train_step = None
+    if mesh is not None and "point" in mesh.axes:
+        train_step = make_point_sharded_train_step(state.model, state.optimizer, ecfg, mesh,
+                                                   halo=cfg.run.halo or None)
+        if lead:
+            print(f"2-axis mesh: data={mesh.axis_size('data')} x point="
+                  f"{mesh.axis_size('point')}" + (f", halo={cfg.run.halo}" if cfg.run.halo
+                                                  else ""))
+    elif mesh is not None and lead:
         print(f"data-parallel over {mesh.size} processes ({mesh.backend}), "
               f"{cfg.data.batch_size // mesh.size} pairs each a step")
     if lead:
@@ -183,7 +204,8 @@ def cmd_train(cfg: ExperimentConfig, args, device: torch.device) -> engine.Train
         state.model, state.optimizer, ecfg, state, train_batches=train_batches,
         epochs=cfg.run.epochs, val_batches=val_batches, checkpointer=ckpt,
         checkpoint_every=cfg.run.checkpoint_every,
-        logger=_jsonl_logger(cfg.run.log_path) if lead else None, mesh=mesh)
+        logger=_jsonl_logger(cfg.run.log_path) if lead else None, mesh=mesh,
+        train_step=train_step)
     if lead:
         ckpt.save(state.step, state)
         print(f"done; final checkpoint at step {state.step}")

@@ -42,8 +42,11 @@ class RunConfig:
     resume: bool = False
     data_parallel: bool = True        # several processes (torchrun): split
                                       # the pair batch over them
-    point_parallel: int = 0           # >1: shard the point axis; not ported
-                                      # yet (ROADMAP Queue A item 9b)
+    point_parallel: int = 0           # >1: shard the point axis over this
+                                      # many processes too (2-axis data x
+                                      # point mesh, parallel/point_sharding.py)
+    halo: int = 0                     # >0 with point_parallel: halo-exchange
+                                      # regime (±halo boundary rows a layer)
     compile_cache: str = ""           # the JAX package's persistent XLA cache
                                       # directory: kept so configs carry
                                       # across, maps to nothing (the kernels'
@@ -102,10 +105,9 @@ _STRING_SENTINEL_FIELDS = frozenset({"icp_trim"})
 # A config that sets one loads: the value is checked as the JAX package
 # takes it, then dropped. The k-NN and the head's top-k are always exact
 # (knn_recall, topk_method), one-hot permutes are a TPU workaround
-# (onehot_h_permute), and halo exchange needs point_parallel (ROADMAP Queue
-# A item 9b)
+# (onehot_h_permute)
 _JAX_ONLY_FIELDS = {"engine.knn_recall": 0.85, "engine.onehot_h_permute": False,
-                    "engine.topk_method": "exact", "run.halo": 0}
+                    "engine.topk_method": "exact"}
 _TOPK_METHODS = ("exact", "approx")
 
 

@@ -27,7 +27,9 @@ epochs with best-val checkpointing (and with `profile_dir` a
 (parallel/mesh.py) each rank trains on its rows of the global batch: the
 losses are each rank's share of the global batch's, the gradients are
 summed over the ranks before every Adam step, so every rank takes the full
-batch's step. Metrics stay on the device and
+batch's step. A mesh with a 'point' axis takes the step of
+`parallel/point_sharding.make_point_sharded_train_step`, built on the same
+update (`train_step_from_loss`). Metrics stay on the device and
 are fetched once per epoch. `remat` recomputes the EGNN pass in the
 backward instead of keeping its activations. With `bf16_params` the live
 parameters are bf16 and Adam runs on fp32 masters, with stochastic
@@ -58,7 +60,7 @@ from ..ops.knn import gather_rows
 from ..ops.numerics import fp32_matmuls
 from ..ops.spectral import spectral_match_weights
 from ..parallel.mesh import (Mesh, all_reduce_sum, all_reduce_sum_, barrier, broadcast_,
-                             check_mesh)
+                             check_mesh, shard_points_batch)
 from ..utils.bf16_training import Bf16SROptimizer, fp32_parameters
 from . import losses as losses_lib
 from . import metrics as metrics_lib
@@ -390,7 +392,28 @@ def make_train_step(model: RegistrationModel, optimizer: Optimizer, cfg: EngineC
     masters into the live parameters, and a micro-step between leaves both
     untouched. Nothing is fetched to the host. With a mesh, `batch` is this
     rank's rows, the losses are its shares, and the gradients are summed
-    over the ranks (one all-reduce) before each Adam step."""
+    over the ranks (one all-reduce) before each Adam step. A mesh that
+    shards points raises ValueError: its step is
+    `parallel.point_sharding.make_point_sharded_train_step`."""
+    if mesh is not None and mesh.axis_size("point") > 1:
+        raise ValueError(f"a mesh of axes {mesh.shape} shards points: train with "
+                         f"parallel.point_sharding.make_point_sharded_train_step")
+
+    def loss(batch):
+        lb = train_loss(model, cfg, batch, mesh)
+        return lb.total, lb
+
+    return train_step_from_loss(model, optimizer, cfg, loss, mesh)
+
+
+def train_step_from_loss(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
+                         loss: Callable[[dict], tuple], mesh: Optional[Mesh] = None
+                         ) -> Callable[[TrainState, dict], tuple]:
+    """The step of `make_train_step` around `loss(batch)` → (the scalar
+    this rank differentiates, the LossBreakdown it reports), which runs
+    with the parameters presented in fp32 (`fp32_parameters`). With a mesh
+    the gradients are summed over all of its ranks before each Adam
+    step."""
     k = cfg.grad_accum_steps
     if k < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {k}")
@@ -401,8 +424,8 @@ def make_train_step(model: RegistrationModel, optimizer: Optimizer, cfg: EngineC
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         # the backward inside too: a remat pass recomputes from the fp32 views
         with fp32_parameters(model):
-            lb = train_loss(model, cfg, batch, mesh)
-            lb.total.backward()
+            objective, lb = loss(batch)
+            objective.backward()
         if sr is not None:
             sr.accumulate()
         if (state.step + 1) % k == 0:
@@ -479,7 +502,8 @@ def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
         val_batches: Optional[Callable[[], Iterable]] = None,
         checkpointer=None, checkpoint_every: int = 20,
         logger: Optional[Callable[[int, dict], None]] = None,
-        profile_dir: Optional[str] = None, mesh: Optional[Mesh] = None) -> TrainState:
+        profile_dir: Optional[str] = None, mesh: Optional[Mesh] = None,
+        train_step: Optional[Callable[[TrainState, dict], tuple]] = None) -> TrainState:
     """Epoch loop: per-epoch loss means (fetched once per epoch), a
     validation pass, and checkpoints through any `checkpointer` with
     `.save(step, state, metrics=...)`: the best validation score
@@ -494,7 +518,18 @@ def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
     sizes on every rank). The weights (and bf16 masters) start as rank 0's,
     every step is the full batch's (`make_train_step`), the epoch's metrics
     are the global batch's, and only rank 0 saves checkpoints and logs while
-    the others wait at a barrier."""
+    the others wait at a barrier.
+
+    A mesh with a 'point' axis (the 2-axis data x point mesh) needs
+    `train_step=parallel.point_sharding.make_point_sharded_train_step(...)`:
+    every rank calls fit with its data rows' whole clouds, and fit cuts its
+    slab of the points (`shard_points_batch`). Validation runs the unsharded
+    eval step on the rank's data rows. `train_step` replaces
+    `make_train_step`'s step in any case."""
+    point = mesh is not None and "point" in mesh.axes
+    if point and train_step is None:
+        raise ValueError("a mesh with a 'point' axis needs "
+                         "train_step=make_point_sharded_train_step(...)")
     if cfg.best_val_metric not in ("loss", "rot_err_deg", "trans_err_cm"):
         raise ValueError(f"unknown best_val_metric {cfg.best_val_metric!r}; expected "
                          "'loss', 'rot_err_deg' or 'trans_err_cm'")
@@ -504,7 +539,8 @@ def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
         lead = mesh.rank == 0
         broadcast_(list(model.state_dict().values())
                    + (optimizer.sr.master if optimizer.sr is not None else []), mesh)
-    train_step = make_train_step(model, optimizer, cfg, mesh)
+    if train_step is None:
+        train_step = make_train_step(model, optimizer, cfg, mesh)
     eval_step = make_eval_step(model, cfg, with_loss=cfg.best_val_metric == "loss", mesh=mesh)
     best_val = np.inf
 
@@ -525,7 +561,10 @@ def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
         ms = []
         with prof:
             for batch in train_batches():
-                state, m = train_step(state, _as_batch(batch, model))
+                batch = _as_batch(batch, model)
+                if point:
+                    batch = shard_points_batch(batch, mesh, data_axis=None)
+                state, m = train_step(state, batch)
                 ms.append(m)
         if profiling:
             os.makedirs(profile_dir, exist_ok=True)
@@ -543,8 +582,8 @@ def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
             if vals:   # mean of the batch means, one fetch
                 means = torch.stack([torch.stack([v[k].mean() for v in vals]).mean()
                                      for k in vals[0]])
-                if mesh is not None:      # each rank's mean over its equal rows
-                    means = all_reduce_sum(means, mesh) / mesh.size
+                if mesh is not None:      # each data rank's mean over its equal rows
+                    means = all_reduce_sum(means, mesh) / mesh.axis_size("data")
                 val_metrics = dict(zip(vals[0], means.tolist()))
             train_metrics.update({f"val_{k}": v for k, v in val_metrics.items()})
             val_score = val_metrics.get(cfg.best_val_metric, np.inf)

@@ -11,12 +11,14 @@ over `RegistrationOutputs` and the batch.
 - `pose_loss`: geodesic rotation angle and translation-direction angle.
 The 3DMatch total is corr + sim + rot + trans; KITTI weighs corr + equi.
 
-With a data-parallel `mesh` (parallel/mesh.py) each rank holds its rows of
-the global batch, and `total_loss` returns this rank's share of the global
-batch's losses: the shares sum over the ranks to the full batch's loss
+With a `mesh` (parallel/mesh.py) each rank holds its rows of the global
+batch, and `total_loss` returns this rank's share of the global batch's
+losses: the shares sum over the mesh's 'data' axis to the full batch's loss
 (every mean over the global batch, the similarity standardized by the
-global mean and std through a differentiable all-reduce), so the gradients
-summed over the ranks are the full batch's gradients.
+global mean and std through a differentiable all-reduce over that axis),
+so the gradients summed over the data ranks are the full batch's
+gradients. The ranks of one data row (its 'point' ranks) hold the same
+pairs and the same shares.
 """
 from __future__ import annotations
 
@@ -31,8 +33,9 @@ from ..parallel.mesh import Mesh, all_reduce_sum
 
 def _mean(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """The mean of x; with a mesh, this rank's share of the mean over
-    every rank's x (the same shape on every rank): the shares sum to it."""
-    return torch.mean(x) if mesh is None else x.sum() / (x.numel() * mesh.size)
+    every data rank's x (the same shape on every rank): the shares sum to
+    it."""
+    return torch.mean(x) if mesh is None else x.sum() / (x.numel() * mesh.axis_size("data"))
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
@@ -63,7 +66,7 @@ def similarity_consistency_loss(similarity: torch.Tensor, raw_similarity: torch.
     def standardize(s):
         if mesh is None:
             return (s - s.mean()) / (s.std(correction=1) + 1e-6)
-        n = s.numel() * mesh.size
+        n = s.numel() * mesh.axis_size("data")
         mean = all_reduce_sum(s.sum(), mesh) / n
         var = all_reduce_sum(((s - mean) ** 2).sum(), mesh) / (n - 1)
         return (s - mean) / (torch.sqrt(var) + 1e-6)

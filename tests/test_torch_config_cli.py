@@ -85,14 +85,17 @@ def test_jax_only_fields_load_and_are_checked():
     value the JAX package could not take raises."""
     base = tconfig.preset("3dmatch")
     ok = {"engine.knn_recall": "0.95", "engine.onehot_h_permute": True,
-          "engine.topk_method": "approx", "run.halo": 768}
+          "engine.topk_method": "approx"}
     assert tconfig.apply_overrides(base, ok) == base
-    # run.data_parallel is a field of the port's since data parallelism came
-    assert "run.data_parallel" not in tconfig._JAX_ONLY_FIELDS
-    assert tconfig.apply_overrides(base, {"run.data_parallel": False}).run.data_parallel is False
-    for key, bad in (("engine.knn_recall", "high"), ("engine.topk_method", "sorted"),
-                     ("run.halo", "wide")):
-        with pytest.raises(ValueError, match=key):
+    # run.data_parallel and run.halo are fields of the port's since data
+    # parallelism and point sharding came
+    for key, value in (("run.data_parallel", False), ("run.halo", 768)):
+        assert key not in tconfig._JAX_ONLY_FIELDS
+        assert getattr(tconfig.apply_overrides(base, {key: value}).run, key[4:]) == value
+    for key, bad, named in (("engine.knn_recall", "high", "engine.knn_recall"),
+                            ("engine.topk_method", "sorted", "engine.topk_method"),
+                            ("run.halo", "wide", "halo='wide' is not a valid int")):
+        with pytest.raises(ValueError, match=named):
             tconfig.apply_overrides(base, {key: bad})
 
 
@@ -281,7 +284,9 @@ def test_cli_refuses_what_it_cannot_run(tmp_path, monkeypatch):
                    "--out", str(tmp_path / "x.pth")])
     with pytest.raises(FileNotFoundError):
         tcli.main(["eval", "--device", "cpu", *SYNTH, "--checkpoint", str(tmp_path / "none")])
-    with pytest.raises(NotImplementedError, match="Queue A item 9b"):
+    # run.point_parallel splits each cloud over that many processes: one
+    # process cannot (tests/test_torch_point_sharding.py runs it on 4)
+    with pytest.raises(ValueError, match="needs a multiple of 2 processes"):
         tcli.main(["train", "--device", "cpu", *SYNTH, "run.point_parallel=2"])
     # a model variant runs on the whole-cloud graph; the curve window refuses it
     for extra in ("engine.direction=cluster", "engine.use_pointnet=true"):

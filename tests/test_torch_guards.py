@@ -53,6 +53,10 @@ PORT_MODULES = [
     "se3_equi_graph_registration_tpu_torch.parallel",
     "se3_equi_graph_registration_tpu_torch.parallel.mesh",
     "se3_equi_graph_registration_tpu_torch.parallel.distributed",
+    "se3_equi_graph_registration_tpu_torch.parallel.point_sharding",
+    "se3_equi_graph_registration_tpu_torch.parallel.dryrun",
+    "se3_equi_graph_registration_tpu_torch.models.egnn",
+    "se3_equi_graph_registration_tpu_torch.ops.morton",
 ]
 
 
@@ -366,20 +370,35 @@ def test_register_fpfh_goes_through_the_kernel_wrappers(monkeypatch, knobs, want
     assert np.all(np.isfinite(R))
 
 
-def test_register_fpfh_rejects_unported_options():
+def test_register_fpfh_rejects_unported_options(monkeypatch):
     from se3_equi_graph_registration_tpu_torch import registration
-    from se3_equi_graph_registration_tpu_torch.parallel.mesh import make_mesh
+    from se3_equi_graph_registration_tpu_torch.parallel.mesh import Mesh, make_mesh
 
     pts = np.zeros((256, 3), np.float32)
     with pytest.raises(ValueError, match="must end at 0.0"):
         registration.register_fpfh(pts, pts, n_points=256, icp_voxels=(0.05, 0.02),
                                    device="cpu")
-    # a mesh is a parallel.mesh.Mesh; one with a point axis is not ported yet
+    # a mesh is a parallel.mesh.Mesh; one with a point axis splits the pairs
+    # over its 'data' axis only (the JAX P('data')): each point rank of a
+    # data row runs the row's pairs whole
     with pytest.raises(TypeError, match="mesh must be"):
         registration.register_fpfh_batch(pts[None], pts[None], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-        registration.register_fpfh_batch(pts[None], pts[None], device="cpu",
-                                         mesh=make_mesh({"data": 1, "point": 1}))
+    seen = []
+
+    def core(src, tgt, noise, **kw):
+        seen.append(src)
+        b, n = src.shape[:2]
+        return (torch.eye(3).expand(b, 3, 3), src[:, 0], torch.zeros(b, n),
+                torch.zeros(b, 6, 6))
+
+    monkeypatch.setattr(registration, "_register_core", core)
+    src = np.arange(3, dtype=np.float32)[:, None, None] * np.ones((3, 256, 3), np.float32)
+    mesh = Mesh({"data": 1, "point": 2}, 1, None, None)
+    assert mesh.axis_index("point") == 1
+    for m in (make_mesh({"data": 1, "point": 1}), mesh):
+        _, t, _ = registration.register_fpfh_batch(src, src, device="cpu", mesh=m)
+        assert torch.equal(seen.pop(), torch.from_numpy(src))
+        np.testing.assert_array_equal(t[:, 0], [0, 1, 2])
     assert callable(registration.export_compiled) and callable(registration.load_exported)
 
 

@@ -4,8 +4,8 @@
 
 Single-process semantics first: `init_distributed` is a no-op, the mesh
 helpers are the identity, a mesh's sizes must multiply to the world size,
-a 'point' axis is not ported (item 9b), a store that cannot be reached
-raises.
+a 'point' axis builds (its collectives are tests/test_torch_point_sharding.py's),
+a store that cannot be reached raises.
 
 Then one world of 2 ranks over gloo, spawned with torch.multiprocessing
 once for the module (`_world`): each rank runs `cli train` at the synthetic
@@ -94,8 +94,9 @@ def test_one_process_is_a_no_op(no_dist_env):
 def test_mesh_axes_are_checked(no_dist_env):
     with pytest.raises(ValueError, match="need 3 devices, have 1"):
         make_mesh({"data": 3})
-    with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-        make_mesh({"data": 1, "point": 1})
+    two = make_mesh({"data": 1, "point": 1})      # the 2-axis mesh of point sharding
+    assert two.shape == {"data": 1, "point": 1} and two.axis_size("data") == 1
+    assert data_sharding(two).rows(3) == slice(0, 3)
     with pytest.raises(ValueError, match="axes"):
         make_mesh({"model": 1})
     with pytest.raises(TypeError, match="mesh must be"):

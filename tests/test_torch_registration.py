@@ -149,9 +149,11 @@ def test_register_fpfh_rejects_what_is_not_ported(bumpy):
         treg.register_fpfh(src, tgt, n_points=N_POINTS, icp_voxels=(0.1, 0.05), device="cpu")
     with pytest.raises(TypeError, match="mesh must be"):
         treg.register_fpfh_batch(src[None], tgt[None], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-        treg.register_fpfh_batch(src[None], tgt[None], device="cpu",
-                                 mesh=make_mesh({"point": 1}))
+    # a mesh with a 'point' axis splits the pairs over its 'data' axis (here
+    # none: one rank) and runs them whole on every point rank
+    _agree(treg.register_fpfh_batch(src[None], tgt[None], device="cpu",
+                                    mesh=make_mesh({"point": 1})),
+           treg.register_fpfh_batch(src[None], tgt[None], device="cpu"))
     with pytest.raises(ValueError, match="knn_packed"):
         treg.register_fpfh(src, tgt, n_points=N_POINTS, knn_packed="yes", device="cpu")
     with pytest.raises(ValueError, match="multiples of"):
