@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh,robust,cli,serve_extra,variants,
-                                    multiway,tools,dist,point]
+                                    multiway,tools,dist,point,extras]
 
 Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
@@ -60,9 +60,10 @@ everything runs):
   it, at the 3dmatch and the kitti preset at full width (N=2048, k=16, 3
   layers, B=8; C=32 with 4 heads and top_k=128, C=33 with 1 head and
   top_k=2048), each on a dataset root in the reference's format written
-  here from a seed (16 train, 8 val, 8 test pairs of 5000 correspondences
-  drawn by `make_pair_batch`; 3DMatch train pickles of torch tensors, FPFH
-  33 for KITTI): `cli train` for one epoch (2 steps, a validation batch;
+  here from a seed by the port's `data/synthetic` archive writers (16
+  train, 8 val, 8 test pairs of 5000 putative correspondences drawn by
+  `make_raw_pair`; 3DMatch train pickles of torch tensors, KITTI at LiDAR
+  scale with FPFH 33): `cli train` for one epoch (2 steps, a validation batch;
   the whole-cloud exact warp k-NN, B2 and B3 on the fp32 tile kernels at
   C=32 and on the SIMT kernels at C=33), `cli export` (no launch) read
   back by `convert_reference_checkpoint`, `cli eval` on the card and with
@@ -145,7 +146,26 @@ everything runs):
   the all-gather regime against the same step on the CPU and against the
   unsharded `make_train_step` on the kernels, the halo regime (W=64, the
   ring's wrap-around a local copy at one rank) against its twin, and both
-  steps timed.
+  steps timed;
+- the rest of the JAX package (`extras`), at fast_tpu_config's sizes (B=16,
+  N=2048, K=16, C=32, 3 layers): (a) the model zoo of `models/variants`
+  (CleanEGNN, GCL, GCLrf, ClofGCL, EGCLVel, the SO(3) tensor-product
+  layer) over B1's whole-cloud exact graph (1 warp launch), card vs CPU
+  under fp32 matmuls and rotation equivariance on the card, then the
+  legacy GCN (the dense [16, 2048, 2048] Gaussian adjacency, one
+  GraphConvolution, pooling) card vs CPU at a gate that a TF32 einsum
+  fails; (b) `utils/reversible.reversible_sequence` of 4 and 12 blocks of
+  width-256 MLPs over [32768, 256] streams against the plain composition:
+  gradients, the inverse, peak memory and time; (c) the SO(3) basis in
+  float64 (SH l ≤ 3 and `get_basis` at max_degree 2 over 2048·16 edge
+  directions) card vs CPU and its identities on the card; (d) the example
+  twins as users call them: `register_pair` at N=2048, fast and --robust
+  (2 warp B1, 6 bf16 tile B2 each), `global_registration` at its default,
+  at --overlap 0.4 (2 whole-cloud warp B1 each) and with the fused knobs
+  (2 warp B4, 2 'redux' B5), `denoise` for 50 steps at n=2048, k=16 (the
+  plain EGNN and k-NN: no kernel), and the `multihost_train` worker in a
+  one-rank NCCL group (N=2048, 16 pairs, 2 epochs: 4 warp B1, 12 fp32 tile
+  B2 and 12 B3).
 Any failed check raises (non-zero exit, no result line). The last line is
 one JSON object with the device.
 
@@ -347,6 +367,19 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   (every swapped neighbour's float64 d² within 8 float32 spacings of the
   expansion's scale of the row's k-th). The point steps launch no kernel,
   the unsharded step 2 B1, 6 B2 and 6 B3 (fp32 tile).
+- extras: (a) every variant's outputs (coordinates through their updates
+  u = x′ − x, beyond the read-back floor of one fp32 spacing of max|x| a
+  layer, as for egcl) card vs CPU within 1e-4 of each output's scale (fp32
+  both sides, under fp32 matmuls) and rotation equivariance on the card within 2e-4 of the
+  scale (the JAX tests' 2e-4); the legacy GCN card vs CPU within 1e-5 of
+  the scale (fp32 sits ~5e-7 from fp64 there, a TF32 einsum ~4e-4), its
+  adjacency symmetric within 1e-5; the card's whole-cloud graph equal to
+  the plain version's. (b) reversible against plain: outputs, every
+  gradient and the inverse within 1e-4 of the scale, and a smaller peak.
+  (c) SH and the basis card vs CPU within 1e-10, Y(Rx) = D(R)Y(x) within
+  1e-10 and the basis's equivariance within 1e-8 (the JAX tests'). (d)
+  `global_registration` under 1 deg at full overlap (the JAX test's
+  gate); the examples' launches exact.
 """
 from __future__ import annotations
 
@@ -712,19 +745,22 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
 
 
 PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh", "robust", "cli", "serve_extra",
-          "variants", "multiway", "tools", "dist", "point")
+          "variants", "multiway", "tools", "dist", "point", "extras")
 ROW_ORDER = ("knn_window", "egcl_layer", "egcl_layer_f32", "egcl_backward", "egcl_backward_f32",
              "knn_chunked", "spfh")
 # the phases whose paths launch each kernel row's kernel
 DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust", "cli", "serve_extra",
-                             "variants", "multiway", "tools", "dist", "point"),
+                             "variants", "multiway", "tools", "dist", "point", "extras"),
                  egcl_layer=("serve", "train", "robust", "serve_extra", "variants", "tools",
-                             "dist"),
-                 egcl_layer_f32=("serve", "train", "cli", "variants", "tools", "dist", "point"),
+                             "dist", "extras"),
+                 egcl_layer_f32=("serve", "train", "cli", "variants", "tools", "dist", "point",
+                                 "extras"),
                  egcl_backward=("train", "variants", "tools"),
-                 egcl_backward_f32=("train", "cli", "variants", "tools", "dist", "point"),
-                 knn_chunked=("fpfh", "robust", "serve_extra", "multiway", "tools", "dist"),
-                 spfh=("fpfh", "robust", "serve_extra", "multiway", "tools", "dist"))
+                 egcl_backward_f32=("train", "cli", "variants", "tools", "dist", "point",
+                                    "extras"),
+                 knn_chunked=("fpfh", "robust", "serve_extra", "multiway", "tools", "dist",
+                              "extras"),
+                 spfh=("fpfh", "robust", "serve_extra", "multiway", "tools", "dist", "extras"))
 # the phases whose paths launch the SIMT kernels (accurate mode at C=33, the
 # kitti preset), counted in the fp32 rows' `simt_launches`
 SIMT_DRIVEN_BY = dict(egcl_layer_f32=("cli", "serve_extra"), egcl_backward_f32=("cli",))
@@ -875,6 +911,8 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
         dist_phase(torch, dev, cfg, bsz, sd, rows)
     if "point" in phases:
         point_phase(torch, dev, rows)
+    if "extras" in phases:
+        extras_phase(torch, dev, cfg, rows)
     for name, row in rows.items():
         if any(ph in phases for ph in DRIVEN_BY[name]):
             check(row["launches"] > 0, f"{name}: no launch on the paths this run drove")
@@ -2205,37 +2243,24 @@ CLI_CORR = 5000               # putative correspondences a pair
 
 
 def write_cli_root(torch, root, dataset, c, seed):
-    """A dataset root in the reference's on-disk format: CLI_PAIRS pairs of
-    CLI_CORR correspondences drawn by `make_pair_batch` (a known pose, 70%
-    inliers), `{train,val,test}_files.txt`; 3DMatch train and val pickles
-    hold torch tensors with a leading batch axis written by torch.save, the
-    others numpy dicts (KITTI's features are the 33 FPFH channels)."""
-    import os
-    import pickle
+    """A dataset root in the reference's on-disk format, written by the
+    port's `data/synthetic` archive writers: CLI_PAIRS train, val and test
+    pairs of CLI_CORR putative correspondences each (`make_raw_pair`: a
+    known pose, geometric inlier labels), `{train,val,test}_files.txt`;
+    3DMatch train and val pickles hold torch tensors with a leading batch
+    axis, the others numpy dicts (KITTI's at LiDAR scale with the 33 FPFH
+    channels)."""
+    from se3_equi_graph_registration_tpu_torch.data import synthetic
 
-    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
-
-    rng = np.random.default_rng(seed)
-    names = dict(xyz_0="src_keypts", xyz_1="tgt_keypts", feat_0="src_features",
-                 feat_1="tgt_features", corr="corr", labels="gt_labels", gt_pose="gt_pose")
-    for split, count in zip(("train", "val", "test"), CLI_PAIRS):
-        sub = f"{'test' if split == 'test' else 'train'}_{dataset}"
-        os.makedirs(os.path.join(root, sub), exist_ok=True)
-        pb = make_pair_batch(rng, batch=count, n=CLI_CORR, feat_dim=c)
-        files = []
-        for i in range(count):
-            d = dict(xyz_0=pb.src_pts[i], xyz_1=pb.tgt_pts[i], feat_0=pb.src_feat[i],
-                     feat_1=pb.tgt_feat[i], corr=pb.corr[i].astype(np.int64),
-                     labels=pb.labels[i], gt_pose=pb.gt_pose[i])
-            files.append(f"{split}_{i:03d}.pkl")
-            path = os.path.join(root, sub, files[-1])
-            if dataset == "3dmatch" and split != "test":
-                torch.save({names[k]: torch.from_numpy(v[None]) for k, v in d.items()}, path)
-            else:
-                with open(path, "wb") as f:
-                    pickle.dump(d, f)
-        with open(os.path.join(root, f"{split}_files.txt"), "w") as f:
-            f.write("\n".join(files) + "\n")
+    n_train, n_val, n_test = CLI_PAIRS
+    if dataset == "kitti":
+        synthetic.write_reference_kitti_archive(root, n_train, n_val, n_test, n_points=CLI_CORR,
+                                                feat_dim=c, seed=seed)
+    else:
+        synthetic.write_reference_train_archive(root, n_train, n_val, n_points=CLI_CORR,
+                                                feat_dim=c, seed=seed)
+        synthetic.write_reference_test_archive(root, n_test, n_points=CLI_CORR, feat_dim=c,
+                                               seed=seed + 1)
 
 
 def quiet_cli(cli, argv):
@@ -4227,6 +4252,360 @@ def point_phase(torch, dev, rows):
     finally:
         tdist.destroy_process_group()
     log(f"point: phase {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+
+
+# --- extras: the model zoo, reversible blocks, the SO(3) basis and the
+# example twins, at fast_tpu_config's sizes (B=16, N=2048, K=16, C=32, 3
+# layers) ---
+EXTRAS_B = 16
+EXTRAS_TOL = 1e-4          # the variants card vs CPU, of each output's max-abs scale (fp32)
+EXTRAS_EQUI_TOL = 2e-4     # rotation equivariance on the card, of the scale (the JAX tests')
+# the dense [B, N, N] GCN card vs CPU, of the scale: fp32 sits ~5e-7 from
+# fp64 there, an einsum on TF32 operands ~4e-4 and on bf16 ones ~2.6e-3
+# (tests/test_torch_zoo.py plants both on the CPU and sees this gate fail)
+EXTRAS_GCN_TOL = 1e-5
+EXTRAS_GCN_SIGMA = 0.5
+REV_WIDTH, REV_ROWS, REV_BLOCKS = 256, 32768, (4, 12)
+REV_TOL = 1e-4             # reversible against plain gradients, of each tensor's scale
+SH_TOL, SH_IDENTITY_TOL = 1e-10, 1e-8
+EXTRAS_DENOISE_STEPS = 50
+
+
+def rel_gap(torch, got, ref):
+    """max|got − ref| / max|ref|, in float64 on the host."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def gcn_forward(torch, layer, h, x):
+    """The legacy GCN path at `x` [B, N, 3]: (the Gaussian adjacency
+    [B, N, N], one GraphConvolution of h, its max and mean pooling)."""
+    from se3_equi_graph_registration_tpu_torch.models import variants
+
+    adj = variants.build_gaussian_adjacency(x, EXTRAS_GCN_SIGMA)
+    out = layer(h, adj)
+    return adj, out, variants.GlobalPooling()(out)
+
+
+def seeded(module, seed):
+    """`module` with the engine's seeded init (LeCun-normal kernels, zero
+    biases, a 1e-3-gain coord output)."""
+    import torch
+
+    from se3_equi_graph_registration_tpu_torch.train.checkpoints import init_weights
+
+    init_weights(module, torch.Generator().manual_seed(seed))
+    return module
+
+
+def extras_phase(torch, dev, cfg, rows):
+    """The modules of the JAX package that are not on the registration
+    paths, and the example twins as users call them: (a) the model zoo over
+    B1's whole-cloud exact graph, card vs CPU and rotation equivariance on
+    the card, and the legacy GCN at N=2048; (b) reversible blocks against
+    their plain composition, with peak memory; (c) the SO(3) basis in
+    float64, card vs CPU and its identities; (d) register_pair,
+    global_registration, denoise and the multihost_train worker, each with
+    its launches counted."""
+    t_phase = time.perf_counter()
+    extras_variants(torch, dev, cfg, rows)
+    extras_reversible(torch, dev)
+    extras_so3_basis(torch, dev)
+    extras_examples(torch, dev, cfg, rows)
+    log(f"extras: phase {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+
+
+def zoo_outputs(torch, mods, h, x, v, nbr):
+    """Every variant's outputs on the device of its inputs (coordinates as
+    their updates x' − x), under fp32 matmuls, {name: tensor}."""
+    from se3_equi_graph_registration_tpu_torch.ops.edge_geometry import edge_geometry
+    from se3_equi_graph_registration_tpu_torch.ops.numerics import fp32_matmuls
+
+    with torch.no_grad(), fp32_matmuls():
+        out = {}
+        out["clean h"], xc = mods["clean"](h, x, nbr)
+        out["clean Δx"] = xc - x
+        out["gcl h"] = mods["gcl"](h, nbr)
+        out["rf Δx"] = mods["rf"](x, nbr) - x
+        out["clof h"], xf = mods["clof"](h, x, nbr)
+        out["clof Δx"] = xf - x
+        out["vel h"], xv, out["vel v"] = mods["vel"](h, x, v, nbr)
+        out["vel Δx"] = xv - x
+        out["so3_tp"] = mods["so3_tp"](edge_geometry(x, nbr).so3)
+    return out
+
+
+def extras_variants(torch, dev, cfg, rows):
+    """(a) of the extras phase."""
+    import copy
+
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import (make_pair_batch,
+                                                                       random_rotation)
+    from se3_equi_graph_registration_tpu_torch.models import variants
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn
+    from se3_equi_graph_registration_tpu_torch.ops.numerics import fp32_matmuls
+
+    t0 = time.perf_counter()
+    n, k, c, L = cfg.num_nodes, cfg.k, cfg.hidden_nf, cfg.n_layers
+    pb = make_pair_batch(np.random.default_rng(61), batch=EXTRAS_B, n=n, feat_dim=c)
+    h, x = torch.from_numpy(pb.src_feat), torch.from_numpy(pb.src_pts)
+    v = torch.from_numpy((np.random.default_rng(62).standard_normal(x.shape) * 0.1)
+                         .astype(np.float32))
+    hd, xd, vd = h.to(dev), x.to(dev), v.to(dev)
+    nbr_d = counted(rows, "extras zoo graph", lambda: knn.knn_window(xd, k, tile=cfg.egnn_tile),
+                    {"knn_window": {"warp": 1}})
+    nbr = nbr_d.cpu()
+    check(torch.equal(nbr, knn.knn_window(x, k, tile=cfg.egnn_tile)),
+          "extras: the card's whole-cloud graph differs from the plain version's")
+    mods = dict(clean=seeded(variants.CleanEGNN(c, c, c, L), 1),
+                gcl=seeded(variants.GCL(c, c), 2), rf=seeded(variants.GCLrf(c), 3),
+                clof=seeded(variants.ClofGCL(c, c), 4), vel=seeded(variants.EGCLVel(c, c), 5),
+                so3_tp=seeded(variants.SO3TensorProductLayer(3, c), 6))
+    card = {name: copy.deepcopy(m).to(dev) for name, m in mods.items()}
+    got = zoo_outputs(torch, card, hd, xd, vd, nbr_d)
+    zoo_ms = best_event_ms(torch, lambda: zoo_outputs(torch, card, hd, xd, vd, nbr_d))
+    t1 = time.perf_counter()
+    ref = zoo_outputs(torch, mods, h, x, v, nbr)
+    cpu_s = time.perf_counter() - t1
+    gaps = {key: rel_gap(torch, got[key], ref[key]) for key in ref}
+    # a coordinate update u = x' − x is read back at x's fp32 spacing, one
+    # rounding a layer: at CleanEGNN's 1e-3-gain coord output that floor
+    # (3 · 2⁻²³ · max|x|) is ~4e-4 of u's scale, so the gate takes the gap
+    # above it
+    spacing = float(np.finfo(np.float32).eps) * float(x.abs().max())
+    floor = {key: (L if key.startswith("clean") else 1) * spacing if "Δx" in key else 0.0
+             for key in ref}
+    above = {key: max(0.0, float((got[key].double().cpu() - ref[key].double()).abs().max())
+                      - floor[key]) / float(ref[key].abs().max()) for key in ref}
+    # ClofGCL's degeneracy cut, ‖x_i × x_j‖ < 1e-3 ‖x_i‖‖x_j‖, in float64
+    xj = torch.take_along_dim(x.double()[:, :, None, :], nbr.long()[..., None], dim=1)
+    xi = x.double()[:, :, None, :].expand_as(xj)
+    ratio = torch.linalg.cross(xi, xj, dim=-1).norm(dim=-1) / (xi.norm(dim=-1) * xj.norm(dim=-1))
+    degen, near = int((ratio < 1e-3).sum()), int(((ratio - 1e-3).abs() < 1e-6).sum())
+    # rotation equivariance on the card: h and the tensor-product layer's
+    # output invariant, coordinate updates and velocities rotated
+    R = torch.from_numpy(random_rotation(np.random.default_rng(63)).astype(np.float32)).to(dev)
+    rot = zoo_outputs(torch, card, hd, xd @ R.T, vd @ R.T, nbr_d)
+    vector = ("rf Δx", "clof Δx", "vel Δx", "vel v")
+    equi = {key: rel_gap(torch, rot[key], got[key] @ R.T if key in vector else got[key])
+            for key in ("gcl h", "so3_tp", "clof h", "vel h") + vector}
+    log(f"extras (a) zoo B={EXTRAS_B} N={n} K={k} C={c}: card vs CPU max|Δ| of the scale "
+        + ", ".join(f"{key} {g:.3g}" for key, g in gaps.items())
+        + "; above the coordinates' read-back floor " + ", ".join(
+            f"{key} {above[key]:.3g} (floor {floor[key] / float(ref[key].abs().max()):.3g})"
+            for key in ref if floor[key])
+        + f"; equivariance on the card " + ", ".join(f"{key} {g:.3g}" for key, g in equi.items())
+        + f"; ClofGCL degenerate edges {degen} of {ratio.numel()}, within 1e-6 of the cut "
+        f"{near}; all variants {zoo_ms:.2f} ms (CUDA events, best of 3), CPU side {cpu_s:.1f} s")
+    check(all(g <= EXTRAS_TOL for g in above.values()), f"extras zoo: card vs CPU {above}")
+    check(all(g <= EXTRAS_EQUI_TOL for g in equi.values()), f"extras zoo: equivariance {equi}")
+
+    # the legacy GCN path: the dense adjacency and its [N, N] einsum
+    layer = seeded(variants.GraphConvolution(c, c), 7)
+    card_gcn = copy.deepcopy(layer).to(dev)
+    with torch.no_grad(), fp32_matmuls():
+        on_card = gcn_forward(torch, card_gcn, hd, xd)
+        gcn_ms = best_event_ms(torch, lambda: gcn_forward(torch, card_gcn, hd, xd))
+        on_cpu = gcn_forward(torch, layer, h, x)
+    adj = on_card[0]
+    sym = float((adj - adj.transpose(1, 2)).abs().max() / adj.abs().max())
+    gcn = {name: rel_gap(torch, a, b) for name, a, b in zip(("adjacency", "features", "pooled"),
+                                                             on_card, on_cpu)}
+    shapes = [tuple(t.shape) for t in on_card]
+    log(f"extras (a) legacy GCN B={EXTRAS_B} N={n} sigma {EXTRAS_GCN_SIGMA}: card vs CPU "
+        + ", ".join(f"{name} {g:.3g}" for name, g in gcn.items())
+        + f" of the scale (gate {EXTRAS_GCN_TOL}); adjacency symmetry {sym:.3g}; shapes {shapes};"
+        f" {gcn_ms:.2f} ms (CUDA events, best of 3); (a) {time.perf_counter() - t0:.1f} s")
+    check(shapes == [(EXTRAS_B, n, n), (EXTRAS_B, n, c), (EXTRAS_B, 2 * c)],
+          f"extras GCN shapes {shapes}")
+    check(sym <= 1e-5 and all(g <= EXTRAS_GCN_TOL for g in gcn.values()),
+          f"extras GCN: card vs CPU {gcn}, symmetry {sym}")
+
+
+def rev_mlps(torch, n_blocks, seed):
+    """(fs, gs): 2·n_blocks width-REV_WIDTH MLPs (Linear, SiLU, Linear),
+    torch's default init from `seed`."""
+    from torch import nn
+
+    torch.manual_seed(seed)
+    mlp = lambda: nn.Sequential(nn.Linear(REV_WIDTH, REV_WIDTH), nn.SiLU(),
+                                nn.Linear(REV_WIDTH, REV_WIDTH))
+    return (nn.ModuleList(mlp() for _ in range(n_blocks)),
+            nn.ModuleList(mlp() for _ in range(n_blocks)))
+
+
+def plain_sequence(fs, gs, a1, a2):
+    """The reversible blocks' composition with autograd's own backward."""
+    for f, g in zip(fs, gs):
+        a1 = a1 + f(a2)
+        a2 = a2 + g(a1)
+    return a1, a2
+
+
+def extras_reversible(torch, dev):
+    """(b) of the extras phase: `reversible_sequence` of REV_BLOCKS blocks
+    over [REV_ROWS, REV_WIDTH] streams against the plain composition: the
+    gradients of the inputs and of every parameter, the inverse, the peak
+    memory of the forward and backward above what was allocated before,
+    and their time."""
+    from se3_equi_graph_registration_tpu_torch.ops.numerics import fp32_matmuls
+    from se3_equi_graph_registration_tpu_torch.utils import reversible
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(71)
+    x1, x2, c1, c2 = (torch.randn(REV_ROWS, REV_WIDTH, generator=gen).to(dev) for _ in range(4))
+
+    def backward(run, fs, gs):
+        params = list(fs.parameters()) + list(gs.parameters())
+        for p in params:
+            p.grad = None
+        a1, a2 = x1.clone().requires_grad_(True), x2.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        y1, y2 = run(fs, gs, a1, a2)
+        torch.autograd.backward([y1, y2], [c1, c2])
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+        check(all(p.grad is not None for p in params), "extras reversible: a parameter got "
+              "no gradient")
+        grads = {"x1": a1.grad, "x2": a2.grad}
+        grads.update({f"p{i}": p.grad.clone() for i, p in enumerate(params)})
+        return peak, grads, (y1.detach(), y2.detach())
+
+    report = []
+    with fp32_matmuls():
+        for blocks in REV_BLOCKS:
+            fs, gs = (m.to(dev) for m in rev_mlps(torch, blocks, 72))
+            peak_r, g_r, y_r = backward(reversible.reversible_sequence, fs, gs)
+            peak_p, g_p, y_p = backward(plain_sequence, fs, gs)
+            out = max(rel_gap(torch, a, b) for a, b in zip(y_r, y_p))
+            grad = max(rel_gap(torch, g_r[key], g_p[key]) for key in g_p)
+            with torch.no_grad():
+                back = reversible.invert_sequence(fs, gs, *y_r)
+            inv = max(rel_gap(torch, a, b) for a, b in zip(back, (x1, x2)))
+            ms_r = best_event_ms(torch, lambda: backward(reversible.reversible_sequence, fs, gs))
+            ms_p = best_event_ms(torch, lambda: backward(plain_sequence, fs, gs))
+            report.append(f"{blocks} blocks: outputs {out:.3g}, gradients {grad:.3g} (worst of "
+                          f"{len(g_p)} tensors), inverse {inv:.3g} of the scale; peak above the "
+                          f"start {peak_r:.1f} MiB reversible against {peak_p:.1f} MiB plain; "
+                          f"forward+backward {ms_r:.2f} ms against {ms_p:.2f} ms (CUDA events, "
+                          f"best of 3)")
+            check(out <= REV_TOL and grad <= REV_TOL and inv <= REV_TOL,
+                  f"extras reversible, {blocks} blocks: outputs {out}, gradients {grad}, "
+                  f"inverse {inv}")
+            check(peak_r < peak_p, f"extras reversible, {blocks} blocks: peak {peak_r} MiB, "
+                  f"plain {peak_p} MiB")
+    log(f"extras (b) reversible, width {REV_WIDTH} MLPs over [{REV_ROWS}, {REV_WIDTH}] streams: "
+        + "; ".join(report) + f"; (b) {time.perf_counter() - t0:.1f} s")
+
+
+def extras_so3_basis(torch, dev):
+    """(c) of the extras phase: the real spherical harmonics of the
+    2048·16 edge directions of one cloud's k-NN graph (self-loops out) and
+    the kernel basis at max_degree 2, in float64 on the card, against the
+    CPU and against their identities Y(Rx) = D(R) Y(x) (l ≤ 3) and
+    K(Rr) = D_out(R) K(r) D_in(R)ᵀ."""
+    from se3_equi_graph_registration_tpu_torch.core.so3_basis import basis, wigner
+    from se3_equi_graph_registration_tpu_torch.core.so3_basis import spherical_harmonics as sh
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch
+    from se3_equi_graph_registration_tpu_torch.ops.knn import knn_graph
+
+    t0 = time.perf_counter()
+    x = torch.from_numpy(make_pair_batch(np.random.default_rng(64), batch=1, n=2048).src_pts[0])
+    nbr = knn_graph(x, 16, include_self=False).long()
+    rel = (x[:, None, :] - x[nbr]).reshape(-1, 3).double()
+    rel_d = rel.to(dev)
+    angles = np.random.default_rng(65).uniform(-np.pi, np.pi, 3)
+    R = wigner.rot(*angles)
+    R_d = torch.from_numpy(R).to(dev)
+    sh_cpu, sh_id = 0.0, 0.0
+    for l in range(4):
+        Y = sh.spherical_harmonics_xyz(l, rel_d)
+        D = torch.from_numpy(wigner.wigner_d_from_matrix(l, R)).to(dev)
+        sh_id = max(sh_id, float((sh.spherical_harmonics_xyz(l, rel_d @ R_d.T) - Y @ D.T)
+                                 .abs().max()))
+        sh_cpu = max(sh_cpu, float((Y.cpu() - sh.spherical_harmonics_xyz(l, rel)).abs().max()))
+    on_card, on_cpu = basis.get_basis(rel_d, 2), basis.get_basis(rel, 2)
+    rotated = basis.get_basis(rel_d @ R_d.T, 2)
+    basis_cpu, basis_id = 0.0, 0.0
+    for key, K in on_card.items():
+        d_in, d_out = map(int, key.split(","))
+        D_in, D_out = (torch.from_numpy(wigner.irr_repr(d, *angles)).to(dev) for d in (d_in, d_out))
+        want = torch.einsum("ij,njkf,lk->nilf", D_out, K, D_in)
+        basis_id = max(basis_id, float((rotated[key] - want).abs().max()))
+        basis_cpu = max(basis_cpu, float((K.cpu() - on_cpu[key]).abs().max()))
+    log(f"extras (c) SO(3) basis, float64, {rel.shape[0]} edge directions: SH l ≤ 3 card vs CPU "
+        f"max|Δ| {sh_cpu:.3g}, Y(Rx) − D(R)Y(x) on the card {sh_id:.3g}; get_basis(max_degree "
+        f"2, {len(on_card)} keys) card vs CPU {basis_cpu:.3g}, equivariance on the card "
+        f"{basis_id:.3g}; (c) {time.perf_counter() - t0:.1f} s")
+    check(sh_cpu <= SH_TOL and basis_cpu <= SH_TOL, f"extras SO(3) basis card vs CPU: SH "
+          f"{sh_cpu}, basis {basis_cpu}")
+    check(sh_id <= SH_TOL and basis_id <= SH_IDENTITY_TOL, f"extras SO(3) basis identities: "
+          f"SH {sh_id}, basis {basis_id}")
+
+
+def extras_examples(torch, dev, cfg, rows):
+    """(d) of the extras phase: the example twins as a user calls them on
+    the card, each with its launches counted and timed on the host clock."""
+    import socket
+
+    import torch.distributed as tdist
+
+    from se3_equi_graph_registration_tpu_torch.examples import (denoise, global_registration,
+                                                                multihost_train, register_pair)
+
+    secs = {}
+
+    def timed(name, call, want):
+        t0 = time.perf_counter()
+        out = counted(rows, f"extras {name}", call, want)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    L, card = cfg.n_layers, str(dev)
+    fast = {"knn_window": {"warp": 2}, "egcl_layer": {"tile": 2 * L}}
+    rp = timed("register_pair", lambda: register_pair.main(["--n", "2048", "--device", card]),
+               fast)
+    rr = timed("register_pair --robust",
+               lambda: register_pair.main(["--n", "2048", "--robust", "--device", card]), fast)
+    for out in (rp, rr):
+        check(abs(np.linalg.det(out["R"]) - 1) < 1e-4 and np.all(np.isfinite(out["t"]))
+              and np.isfinite(out["rot_err_deg"]), f"extras register_pair: {out}")
+    whole = {"knn_window": {"warp": 2}}
+    gr = timed("global_registration", lambda: global_registration.main(["--device", card]), whole)
+    check(gr["rot_err_deg"] < 1.0, f"extras global_registration: {gr['rot_err_deg']} deg")
+    go = timed("global_registration --overlap 0.4",
+               lambda: global_registration.main(["--overlap", "0.4", "--device", card]), whole)
+    gf = timed("global_registration, fused knobs",
+               lambda: global_registration.global_registration(
+                   global_registration.parse_args(["--device", card]), knn_method="fused",
+                   knn_packed="chunked", window=FPFH_WINDOW),
+               {"knn_chunked": {"warp": 2}, "spfh": {"redux": 2}})
+    dn = timed("denoise", lambda: denoise.denoise(EXTRAS_DENOISE_STEPS, 2048, 16, device=dev), {})
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    try:
+        logs = timed("multihost_train worker", lambda: multihost_train.worker(
+            f"127.0.0.1:{port}", 1, 0, 2, 2048, dev),
+            {"knn_window": {"warp": 4}, "egcl_layer": {"tile_f32": 4 * L},
+             "egcl_backward": {"tile_f32": 4 * L}})
+        check(tdist.is_initialized() and tdist.get_backend() == "nccl"
+              and tdist.get_world_size() == 1, "extras multihost_train: not a one-rank NCCL group")
+        check(len(logs) == 2 and all(np.isfinite(logs)), f"extras multihost_train losses {logs}")
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+    log(f"extras (d) examples on the card: register_pair R error vs the truth "
+        f"{rp['rot_err_deg']:.2f} deg (seeded weights), --robust {rr['rot_err_deg']:.2f} deg; "
+        f"global_registration {gr['rot_err_deg']:.3f} deg / {gr['trans_err_cm']:.3f} cm, "
+        f"--overlap 0.4 {go['rot_err_deg']:.3f} deg / {go['trans_err_cm']:.3f} cm, fused "
+        f"{gf['rot_err_deg']:.3f} deg / {gf['trans_err_cm']:.3f} cm; denoise "
+        f"{EXTRAS_DENOISE_STEPS} steps at n=2048 k=16: MSE {dn['baseline']:.5f} -> "
+        f"{dn['final']:.5f}; multihost_train worker (NCCL, one rank, N=2048, 16 pairs, 2 "
+        f"epochs) losses {logs}; host seconds " + ", ".join(
+            f"{name} {t:.2f}" for name, t in secs.items()))
 
 
 if __name__ == "__main__":

@@ -168,3 +168,14 @@ def pose_covariance(src: torch.Tensor, tgt: torch.Tensor, R: torch.Tensor,
     M = torch.einsum("...n,...nij,...nik->...jk", w, J, J)
     M = M + eps * torch.eye(6, dtype=M.dtype, device=M.device)
     return ((sigma2 / n_eff)[..., None, None] * torch.linalg.inv(M)).float()
+
+
+def kabsch_from_features(src_pts: torch.Tensor, tgt_pts: torch.Tensor,
+                         src_feat: torch.Tensor, tgt_feat: torch.Tensor,
+                         valid_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's train-head pose solve in one call: weights are the
+    softmax of the feature dot products over the valid (label 1)
+    correspondences, then the weighted Kabsch. Points [..., N, 3], features
+    [..., N, C], valid_mask [..., N]."""
+    scores = torch.sum(src_feat * tgt_feat, dim=-1)
+    return kabsch_weighted(src_pts, tgt_pts, masked_softmax(scores, valid_mask))

@@ -3,6 +3,9 @@
 The graph is a dense k-regular neighbor table ``nbr_idx [..., N, K]``: for
 every point, the indices of its K nearest points, self included when
 ``include_self=True`` (torch_cluster ``loop=True`` parity).
+
+For large clouds `knn_tiled` computes the same graph a tile of query rows at
+a time, so the whole [N, N] distance matrix never exists at once.
 """
 from __future__ import annotations
 
@@ -63,3 +66,39 @@ def knn_graph(x: torch.Tensor, k: int, include_self: bool = True,
         eye = torch.eye(n, dtype=torch.bool, device=x.device)
         d2 = d2.masked_fill(eye, float("inf"))
     return smallest_k(d2, k).to(torch.int32)
+
+
+def knn_tiled(x: torch.Tensor, k: int, include_self: bool = True,
+              tile: int = 1024) -> torch.Tensor:
+    """Row-tiled exact k-NN: the sets of `knn_graph`, ties broken at the
+    lowest index, with peak memory O(tile·N) instead of O(N²). N must
+    divide by `tile`."""
+    n = x.shape[-2]
+    if n % tile:
+        raise ValueError(f"N={n} must be divisible by tile={tile}")
+    out = []
+    for start in range(0, n, tile):
+        d2 = pairwise_sq_dists(x[..., start:start + tile, :], x)     # [..., tile, N]
+        if not include_self:
+            rows = torch.arange(start, start + tile, device=x.device)
+            d2 = d2.masked_fill(rows[:, None] == torch.arange(n, device=x.device), float("inf"))
+        out.append(smallest_k(d2, k))
+    return torch.cat(out, dim=-2).to(torch.int32)
+
+
+def nbr_to_edge_list(nbr_idx: torch.Tensor, direction: str = "center"
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A dense neighbor table [..., N, K] as an edge list (row, col), each
+    [..., N·K]: 'center' gives row = the center i, col = its neighbor j (the
+    EGNN's aggregation onto the query point); 'cluster' the reverse, the
+    torch_cluster `knn_graph(flow='source_to_target')` orientation whose
+    aggregation target is edge_index[0]."""
+    n, k = nbr_idx.shape[-2:]
+    centers = torch.arange(n, dtype=torch.int32, device=nbr_idx.device)[:, None]
+    centers = centers.expand(nbr_idx.shape).reshape(nbr_idx.shape[:-2] + (n * k,))
+    nbrs = nbr_idx.reshape(nbr_idx.shape[:-2] + (n * k,))
+    if direction == "center":
+        return centers, nbrs
+    if direction == "cluster":
+        return nbrs, centers
+    raise ValueError(f"unknown direction {direction!r}")

@@ -14,9 +14,10 @@ from __future__ import annotations
 
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
-from .knn import pairwise_sq_dists, smallest_k
+from .knn import knn_graph, pairwise_sq_dists, smallest_k
 
 
 def _expand_bits_10(v: torch.Tensor) -> torch.Tensor:
@@ -159,3 +160,41 @@ def knn_graph_window(x_sorted: torch.Tensor, k: int, tile: int = 128,
     d2 = pairwise_sq_dists(queries, cand)                  # [..., N/T, T, W]
     idx = smallest_k(d2, k) + starts[:, None, None]
     return idx.reshape(x_sorted.shape[:-1] + (k,)).to(torch.int32)
+
+
+def window_recall(x, k: int, tile: int = 128, window: int = 384,
+                  curve: str = "hilbert") -> float:
+    """Share of the exact k-NN edges that the window graph keeps, for one
+    cloud [N, 3] (numpy or tensor): a host-side diagnostic over the plain
+    window graph (exact keys inside the window)."""
+    x = torch.as_tensor(np.asarray(x, np.float32))
+    xs = x[morton_perm(x, curve=curve)]
+    win = knn_graph_window(xs, k, tile, window)
+    exact = knn_graph(xs, k)
+    hits = (win[:, :, None] == exact[:, None, :]).any(-1).sum()
+    return int(hits) / exact.numel()
+
+
+def calibrate_window(clouds, k: int, target_recall: float = 0.90, tile: int = 128,
+                     candidates: tuple = (128, 256, 384, 512, 768, 1024),
+                     curve: str = "hilbert") -> tuple[int, float]:
+    """The smallest `egnn_window` whose window recall meets `target_recall`.
+
+    `clouds`: one [N, 3] cloud or a sequence of them (recall averaged).
+    Returns (window, recall) for the first candidate, in ascending order,
+    that meets the target; a candidate that covers the whole cloud returns
+    recall 1.0; else the largest candidate with its recall. Run once offline
+    on a sample of a deployment's clouds and pass the result as
+    `EngineConfig(egnn_window=...)`: the window's speed is nearly flat in W
+    while its recall rises with it, so W is chosen for recall on real data."""
+    arr = np.asarray(clouds)
+    batch = arr[None] if arr.ndim == 2 else arr
+    best = (candidates[-1], 0.0)
+    for w in sorted(candidates):
+        if w >= batch.shape[1]:
+            return int(w), 1.0
+        r = float(np.mean([window_recall(c, k, tile, w, curve) for c in batch]))
+        best = (int(w), r)
+        if r >= target_recall:
+            return best
+    return best

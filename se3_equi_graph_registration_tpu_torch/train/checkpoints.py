@@ -15,9 +15,11 @@
   optimizer, with bf16 parameters the fp32 masters and the rounding
   generator's state, schedule, step) with retention and resume, for `fit`;
 - `params_from_jax` takes the JAX package's flax `params` tree with numpy
-  leaves (bf16 leaves of a `bf16_params` state keep their dtype); `init_weights` draws weights from an explicit `torch.Generator`
-  the way flax initializes them (LeCun-normal kernels, zero biases, the
-  reference's tiny coord output).
+  leaves (bf16 leaves of a `bf16_params` state keep their dtype);
+  `dense_params_from_jax` takes any flax tree whose leaves are `Dense`
+  layers (the model zoo's `models/variants.py`); `init_weights` draws
+  weights from an explicit `torch.Generator` the way flax initializes them
+  (LeCun-normal kernels, zero biases, the reference's tiny coord output).
 """
 from __future__ import annotations
 
@@ -31,6 +33,11 @@ from torch import nn
 
 from ..models.pose_head import RegistrationModel
 
+# the reference's trained EGNN (the shapes of its shipped checkpoints)
+REFERENCE_EGNN_CONFIG = dict(
+    in_node_nf=32, hidden_nf=32, out_node_nf=32, edge_attr_dim=1,
+    n_layers=3, num_heads=4,
+)
 MLP_LAYERS = (("dense_0", 0), ("dense_1", 2), ("dense_2", 4))   # port name, reference index
 
 
@@ -276,6 +283,24 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             for name, leaf in leaves.items():
                 sd.update(_dense(f"pointnet.{conv}.{name}", leaf))
     return {k: _tensor(v) for k, v in sd.items()}
+
+
+def _dense_tree(tree: Mapping[str, Any], prefix: str) -> dict:
+    sd: dict = {}
+    for name, leaf in tree.items():
+        sd.update(_dense(prefix + name, leaf) if "kernel" in leaf
+                  else _dense_tree(leaf, f"{prefix}{name}."))
+    return sd
+
+
+def dense_params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A flax `params` tree whose leaves are `Dense` layers ({'kernel',
+    optional 'bias'}), nested to any depth, → a state_dict whose keys join
+    the path with '.' (`gcl_0.edge_mlp_0.weight`): the modules of
+    `models/variants.py`, which name their submodules after the flax names,
+    load it with `strict=True`."""
+    tree = tree["params"] if "params" in tree else tree
+    return {k: _tensor(v) for k, v in _dense_tree(tree, "").items()}
 
 
 def _tensor(a) -> torch.Tensor:

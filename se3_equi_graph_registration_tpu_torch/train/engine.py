@@ -517,8 +517,9 @@ def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
     each global batch (its `PairLoader(process_shard=...)` slice; equal
     sizes on every rank). The weights (and bf16 masters) start as rank 0's,
     every step is the full batch's (`make_train_step`), the epoch's metrics
-    are the global batch's, and only rank 0 saves checkpoints and logs while
-    the others wait at a barrier.
+    are the global batch's and go to `logger` on every rank (as the JAX
+    package's fit gives them to every process), and only rank 0 saves
+    checkpoints while the others wait at a barrier.
 
     A mesh with a 'point' axis (the 2-axis data x point mesh) needs
     `train_step=parallel.point_sharding.make_point_sharded_train_step(...)`:
@@ -592,7 +593,7 @@ def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
                 save(state.step, state, metrics={f"val_{cfg.best_val_metric}": val_score})
         if checkpointer is not None and (epoch + 1) % checkpoint_every == 0:
             save(state.step, state)
-        if logger is not None and lead:
+        if logger is not None:
             logger(epoch, train_metrics)
     return state
 

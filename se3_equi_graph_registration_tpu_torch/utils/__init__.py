@@ -1,1 +1,3 @@
-"""Host-side utilities of the port: timing, metrics logging, failure detection."""
+"""Utilities of the port: timing, metrics logging, failure detection,
+trajectories, bf16 training (`bf16_training`), small tensor functions
+(`nn_extras`) and reversible residual blocks (`reversible`)."""

@@ -194,3 +194,9 @@ def test_from_checkpoint_reads_a_train_checkpointer_directory(tmp_path):
     np.testing.assert_array_equal(Rg, Rw)
     np.testing.assert_array_equal(tg, tw)
     np.testing.assert_array_equal(ig["pose_covariance"], iw["pose_covariance"])
+
+
+def test_reference_egnn_config_is_the_jax_packages():
+    assert tckpt.REFERENCE_EGNN_CONFIG == jckpt.REFERENCE_EGNN_CONFIG
+    model = EGNN(**tckpt.REFERENCE_EGNN_CONFIG)
+    assert model.gcl_0.edge_mlp.fused_in.weight.shape == (32, 77)

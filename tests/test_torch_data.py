@@ -30,7 +30,7 @@ from se3_equi_graph_registration_tpu_torch.utils import trajectory as ttraj
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ("core/se3_np.py", "utils/trajectory.py", "data/sampling.py", "data/threedmatch.py",
           "data/kitti.py", "data/redwood.py", "data/pipeline.py", "data/preprocess/__init__.py",
-          "data/preprocess/split.py", "data/preprocess/threedmatch_cli.py")
+          "data/preprocess/split.py", "data/preprocess/threedmatch_cli.py", "data/synthetic.py")
 
 
 def _code(path):
@@ -245,3 +245,36 @@ def test_trajectory_log_round_trips_between_packages(tmp_path):
     assert list(got) == list(want) == list(trans)
     for k in trans:
         assert np.array_equal(got[k], want[k]) and np.allclose(got[k], trans[k], atol=1e-8)
+
+
+@pytest.mark.parametrize("writer,kw", [
+    ("write_reference_test_archive", dict(n_pairs=2, n_points=64)),
+    ("write_reference_kitti_archive", dict(n_train=2, n_val=1, n_test=1, n_points=64)),
+    ("write_reference_train_archive", dict(n_train=2, n_val=1, n_points=64)),
+], ids=["test", "kitti", "train"])
+def test_archive_writers_write_the_jax_packages_files(tmp_path, writer, kw):
+    """Both packages' writers, from the same seed, write the same files: the
+    same names, lists and pickled values (numpy arrays, and torch tensors
+    in the 3DMatch train archive), and return the same names."""
+    import pickle
+
+    from se3_equi_graph_registration_tpu.data import synthetic as jsyn
+    from se3_equi_graph_registration_tpu_torch.data import synthetic as tsyn
+
+    ref = getattr(jsyn, writer)(str(tmp_path / "jax"), **kw)
+    got = getattr(tsyn, writer)(str(tmp_path / "port"), **kw)
+    assert got == ref
+    files = sorted(os.path.relpath(os.path.join(d, f), tmp_path / "jax")
+                   for d, _, fs in os.walk(tmp_path / "jax") for f in fs)
+    assert files == sorted(os.path.relpath(os.path.join(d, f), tmp_path / "port")
+                           for d, _, fs in os.walk(tmp_path / "port") for f in fs)
+    for rel in files:
+        a, b = (tmp_path / side / rel for side in ("jax", "port"))
+        if rel.endswith(".txt"):
+            assert a.read_text() == b.read_text()
+            continue
+        da, db = (pickle.load(open(p, "rb")) for p in (a, b))
+        assert sorted(da) == sorted(db)
+        for key in da:
+            x, y = np.asarray(da[key]), np.asarray(db[key])
+            assert x.dtype == y.dtype and np.array_equal(x, y), (rel, key)

@@ -57,6 +57,21 @@ PORT_MODULES = [
     "se3_equi_graph_registration_tpu_torch.parallel.dryrun",
     "se3_equi_graph_registration_tpu_torch.models.egnn",
     "se3_equi_graph_registration_tpu_torch.ops.morton",
+    "se3_equi_graph_registration_tpu_torch.ops.knn",
+    "se3_equi_graph_registration_tpu_torch.ops.kabsch",
+    "se3_equi_graph_registration_tpu_torch.utils.nn_extras",
+    "se3_equi_graph_registration_tpu_torch.utils.reversible",
+    "se3_equi_graph_registration_tpu_torch.core.so3_basis",
+    "se3_equi_graph_registration_tpu_torch.core.so3_basis.basis",
+    "se3_equi_graph_registration_tpu_torch.core.so3_basis.spherical_harmonics",
+    "se3_equi_graph_registration_tpu_torch.core.so3_basis.wigner",
+    "se3_equi_graph_registration_tpu_torch.models.variants",
+    "se3_equi_graph_registration_tpu_torch.tools.viz",
+    "se3_equi_graph_registration_tpu_torch.examples",
+    "se3_equi_graph_registration_tpu_torch.examples.register_pair",
+    "se3_equi_graph_registration_tpu_torch.examples.global_registration",
+    "se3_equi_graph_registration_tpu_torch.examples.denoise",
+    "se3_equi_graph_registration_tpu_torch.examples.multihost_train",
 ]
 
 
@@ -601,3 +616,116 @@ def test_model_variants_route_as_the_jax_package_does(monkeypatch, variant, path
         assert np.isfinite(float(m["total"]))
     assert (len(knn_calls), egcl.egcl_layer.launches, eb.egcl_backward.launches) == want
     assert knn_calls == [None, None]                 # whole-cloud graphs
+
+
+# --- completeness: every module and public name of the JAX package and of
+# examples/ has a counterpart in the port ---------------------------------
+
+JAX_PKG = os.path.join(ROOT, "se3_equi_graph_registration_tpu")
+PORT_PKG = os.path.join(ROOT, "se3_equi_graph_registration_tpu_torch")
+
+# JAX module or "module::name" → the port's. Modules are paths inside the
+# JAX package, or "examples/<script>.py" (whose twins live in the port's
+# `examples/`); a module that is not listed keeps its path, a name its name.
+RENAMED = {
+    "ops/pallas/__init__.py": "ops/kernels/__init__.py",
+    "ops/pallas/knn_kernel.py": "ops/kernels/knn.py",
+    "ops/pallas/knn_kernel.py::knn_pallas": "ops/kernels/knn.py::knn_window",
+    "ops/pallas/egcl_kernel.py": "ops/kernels/egcl.py",
+    "ops/pallas/egcl_kernel.py::egcl_layer_pallas": "ops/kernels/egcl.py::egcl_layer",
+    "ops/pallas/egcl_kernel.py::egnn_forward_pallas": "ops/kernels/egcl.py::egnn_forward",
+    "ops/pallas/egcl_kernel.py::params_from_tree": "ops/kernels/egcl.py::params_from_layer",
+    "ops/pallas/egcl_backward.py": "ops/kernels/egcl_backward.py",
+    "ops/pallas/egcl_backward.py::egcl_backward_pallas":
+        "ops/kernels/egcl_backward.py::egcl_backward",
+    "ops/pallas/egcl_backward.py::egcl_fused_diff": "ops/kernels/egcl_backward.py::EGCLFunction",
+    "ops/pallas/spfh_kernel.py": "ops/kernels/spfh.py",
+    "ops/pallas/spfh_kernel.py::spfh_pallas": "ops/kernels/spfh.py::spfh",
+    "native/max_clique.py::max_clique_heuristic_jax": "native/max_clique.py::max_clique_heuristic",
+    "utils/bf16_training.py::bf16_sr_optimizer": "utils/bf16_training.py::Bf16SROptimizer",
+    "utils/bf16_training.py::Bf16SRState": "utils/bf16_training.py::Bf16SROptimizer",
+    "utils/compile_cache.py": "ops/kernels/build.py",
+    "examples/scenario_table.py": "tools/scenario_table.py",
+    "examples/multiway_registration.py": "tools/multiway.py",
+}
+
+# names dropped on purpose → why (ROADMAP.md, "Dropped on purpose")
+DROPPED = {
+    "Array": "the JAX package's alias of jax.Array for annotations; the port annotates "
+             "torch.Tensor",
+    "permute_rows_matmul": "a TPU workaround: a bf16 one-hot MXU gather that rounds h; the "
+                           "port gathers exactly",
+    "enable_compilation_cache": "JAX's XLA compile cache; ops/kernels/build.py names each "
+                                "library by a hash of its sources and flags",
+    "local_mesh_for_testing": "JAX's virtual-CPU mesh for tests; the port's tests build gloo "
+                              "worlds of processes",
+}
+
+
+def _jax_modules():
+    import glob
+
+    found = sorted(os.path.relpath(p, JAX_PKG)
+                   for p in glob.glob(os.path.join(JAX_PKG, "**", "*.py"), recursive=True))
+    return found + sorted("examples/" + os.path.basename(p)
+                          for p in glob.glob(os.path.join(ROOT, "examples", "*.py")))
+
+
+def _top_level_names(path, with_imports=False):
+    """The module's top-level def, class and assignment names (and, with
+    `with_imports`, the names its imports bind)."""
+    import ast
+
+    with open(path) as f:
+        body = ast.parse(f.read()).body
+    out = set()
+    for node in body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            out.update(e.id for t in targets for e in ast.walk(t) if isinstance(e, ast.Name))
+        elif with_imports and isinstance(node, (ast.Import, ast.ImportFrom)):
+            out.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return out
+
+
+def _jax_path(module):
+    return os.path.join(ROOT, module) if module.startswith("examples/") else \
+        os.path.join(JAX_PKG, module)
+
+
+@pytest.mark.parametrize("module", _jax_modules())
+def test_every_jax_module_and_public_name_has_a_counterpart(module):
+    """The module's counterpart exists in the port, and so does each public
+    top-level name: under its own name there, under its `RENAMED` name, or
+    it is in `DROPPED`."""
+    target = RENAMED.get(module, module)
+    port_path = os.path.join(PORT_PKG, target)
+    assert os.path.exists(port_path), f"{module}: no counterpart at {target}"
+    have = _top_level_names(port_path, with_imports=True)
+    missing = []
+    for name in sorted(_top_level_names(_jax_path(module))):
+        if name.startswith("_") or name in DROPPED:
+            continue
+        want = RENAMED.get(f"{module}::{name}", f"{target}::{name}")
+        path, want_name = want.split("::")
+        names = have if path == target else _top_level_names(os.path.join(PORT_PKG, path), True)
+        if want_name not in names:
+            missing.append(f"{name} (wanted {want})")
+    assert not missing, f"{module}: no counterpart in the port for {missing}"
+
+
+def test_renamed_and_dropped_entries_name_real_jax_names():
+    """No stale entry: each RENAMED key is a JAX module or one of its
+    top-level names, and each DROPPED name is defined somewhere in the JAX
+    package."""
+    modules = set(_jax_modules())
+    every = set()
+    for m in modules:
+        every |= _top_level_names(_jax_path(m))
+    for key in RENAMED:
+        module, _, name = key.partition("::")
+        assert module in modules, key
+        assert not name or name in _top_level_names(_jax_path(module)), key
+    assert set(DROPPED) <= every, set(DROPPED) - every

@@ -147,3 +147,24 @@ def test_heads_match_jax_on_same_embeddings(rng, head_mode, over):
                                atol=1e-6, rtol=1e-5)
     assert np.all(rot_delta(got.R.numpy(), ref.R) < 1e-4)
     np.testing.assert_allclose(got.t.numpy(), np.asarray(ref.t), atol=1e-4)
+
+
+def test_kabsch_from_features_matches_jax(rng):
+    """Feature-softmax weights over the valid rows, then weighted Kabsch:
+    R and t within the fp32 tolerances above; an all-invalid row gives the
+    identity."""
+    b, n, c = 3, 64, 8
+    src = rng.uniform(-1, 1, (b, n, 3)).astype(np.float32)
+    R = np.stack([random_rotation(rng) for _ in range(b)]).astype(np.float32)
+    tgt = (np.einsum("bij,bnj->bni", R, src) + 0.3
+           + rng.standard_normal((b, n, 3)) * 0.01).astype(np.float32)
+    fs = rng.standard_normal((b, n, c)).astype(np.float32)
+    ft = (fs + rng.standard_normal((b, n, c)) * 0.3).astype(np.float32)
+    valid = (rng.uniform(size=(b, n)) < 0.6).astype(np.float32)
+    valid[2] = 0.0
+    Rr, tr = jk.kabsch_from_features(*(jnp.asarray(a) for a in (src, tgt, fs, ft, valid)))
+    Rg, tg = tkb.kabsch_from_features(*(T(a) for a in (src, tgt, fs, ft, valid)))
+    assert np.all(rot_delta(Rg, Rr) < 1e-4)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(tr), atol=1e-4)
+    np.testing.assert_array_equal(Rg[2].numpy(), np.eye(3, dtype=np.float32))
+    assert rot_delta(Rg[0], R[0]) < 5e-2

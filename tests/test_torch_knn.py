@@ -136,3 +136,39 @@ def test_thread_kernel_refuses_lists_beyond_32_queries_a_block_naming_the_limit(
         kk.thread_queries_per_block(845, 128, False, H100_SMEM_OPTIN)
     with pytest.raises(ValueError, match=r"k <= 1688"):
         kk.thread_queries_per_block(1689, 128, True, H100_SMEM_OPTIN)
+
+
+@pytest.mark.parametrize("include_self", [True, False], ids=["self", "no_self"])
+def test_knn_tiled_has_the_sets_of_knn_graph_and_of_jax(rng, include_self):
+    """The tiled k-NN gives knn_graph's table (ties at the lowest index)
+    for a batch, and JAX knn_tiled's for each cloud, row by row and in
+    order (JAX's is held one cloud at a time: its lax.map stacks tiles
+    ahead of the batch axis and the final reshape does not move them back,
+    so a batch comes out scrambled); an indivisible tile raises."""
+    x = rng.uniform(-1.5, 1.5, (2, 256, 3)).astype(np.float32)
+    got = tknn.knn_tiled(torch.from_numpy(x), 8, include_self=include_self, tile=64)
+    whole = tknn.knn_graph(torch.from_numpy(x), 8, include_self=include_self)
+    assert got.dtype == torch.int32 and got.shape == (2, 256, 8)
+    np.testing.assert_array_equal(got.numpy(), whole.numpy())
+    for b in range(2):
+        ref = jknn.knn_tiled(jnp.asarray(x[b]), 8, include_self=include_self, tile=64)
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(ref))
+    with pytest.raises(ValueError, match="divisible"):
+        tknn.knn_tiled(torch.from_numpy(x), 8, tile=100)
+
+
+@pytest.mark.parametrize("direction", ["center", "cluster"])
+def test_nbr_to_edge_list_matches_jax(rng, direction):
+    """One graph [N, K] as JAX flattens it; a batch [B, N, K] (which the
+    JAX function cannot take) graph by graph."""
+    nbr = rng.integers(0, 32, (2, 32, 4)).astype(np.int32)
+    batched = tknn.nbr_to_edge_list(torch.from_numpy(nbr), direction)
+    for b in range(2):
+        got = tknn.nbr_to_edge_list(torch.from_numpy(nbr[b]), direction)
+        ref = jknn.nbr_to_edge_list(jnp.asarray(nbr[b]), direction)
+        for g, r, whole in zip(got, ref, batched):
+            assert g.dtype == torch.int32 and g.shape == (32 * 4,)
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+            np.testing.assert_array_equal(whole[b].numpy(), g.numpy())
+    with pytest.raises(ValueError, match="direction"):
+        tknn.nbr_to_edge_list(torch.from_numpy(nbr), "sideways")

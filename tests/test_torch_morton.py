@@ -65,3 +65,20 @@ def test_knn_graph_window_same_sets(rng):
     for b in range(2):
         for r in range(512):
             assert set(got[b, r]) == set(ref[b, r]), (b, r)
+
+
+def test_window_recall_and_calibrate_window_match_jax(rng):
+    """The host diagnostics over the port's window graph give the JAX
+    package's numbers: the recall of one cloud, the mean over a batch, and
+    the window `calibrate_window` picks (a whole-cloud window reads 1.0)."""
+    x = rng.uniform(-1.5, 1.5, (2, 512, 3)).astype(np.float32)
+    for w in (128, 256):
+        ref = jm.window_recall(jnp.asarray(x[0]), 8, 128, w)
+        got = tm.window_recall(x[0], 8, 128, w)
+        assert abs(got - ref) <= 2 / (512 * 8), (w, got, ref)
+        assert tm.window_recall(torch.from_numpy(x[0]), 8, 128, w) == got
+    for target in (0.5, 0.99, 1.01):
+        ref = jm.calibrate_window(jnp.asarray(x), 8, target, candidates=(128, 256, 384))
+        got = tm.calibrate_window(x, 8, target, candidates=(128, 256, 384))
+        assert got[0] == ref[0] and abs(got[1] - ref[1]) <= 2 / (512 * 8), (target, got, ref)
+    assert tm.calibrate_window(x[0], 8, 0.999, candidates=(128, 512)) == (512, 1.0)
