@@ -10,11 +10,13 @@ version on the card at the main paths' shapes. B1 packed, B1 exact (over a
 window and over the whole cloud) and B4 each have a warp-a-query kernel on
 the paths and the thread-a-query kernel kept to compare; the EGCL forward
 and backward have, at C=32, a bf16 tensor-core tile kernel for fast mode
-and an fp32 register-blocked tile kernel for accurate mode, and a SIMT
-kernel for other widths that each mode's tile kernel is also timed and
-held against; all are held against their plain versions, and each pair is
-timed in the same run. Then it drives the four main paths, each with the launch counters
-set to 0 just before it and read just after (`--phases` runs a subset:
+and an fp32 register-blocked tile kernel for accurate mode, the fp32 tile
+kernel built a second time at 36 channels for accurate mode at 32 < C <=
+36 (KITTI's C=33, one head: zero pads), and a SIMT kernel for the other
+shapes that each tile kernel is also timed and held against; all are held
+against their plain versions, and each pair is timed in the same run. Then
+it drives the four main paths, each with the launch counters set to 0 just
+before it and read just after (`--phases` runs a subset:
 `knn` is the k-NN kernel checks alone, `egcl` the EGCL forward's, `bwd`
 the EGCL backward's, for iterating on a kernel; with no argument
 everything runs):
@@ -64,8 +66,9 @@ everything runs):
   train, 8 val, 8 test pairs of 5000 putative correspondences drawn by
   `make_raw_pair`; 3DMatch train pickles of torch tensors, KITTI at LiDAR
   scale with FPFH 33): `cli train` for one epoch (2 steps, a validation batch;
-  the whole-cloud exact warp k-NN, B2 and B3 on the fp32 tile kernels at
-  C=32 and on the SIMT kernels at C=33), `cli export` (no launch) read
+  the whole-cloud exact warp k-NN, B2 and B3 on the fp32 tile kernels,
+  built at 32 channels for C=32 and at 36 for C=33), `cli export` (no
+  launch) read
   back by `convert_reference_checkpoint`, `cli eval` on the card and with
   `--device cpu`, one step with `engine.remat=true` (B2 launched 12 times
   against 6), the same step on the CPU, and a step's time and profile. It runs with torch's default
@@ -73,7 +76,8 @@ everything runs):
 - the rest of serving (`serve_extra`): (a) `register(clique_prefilter=True)`
   at `fast_tpu_config` on 2048 correspondences, 40% of them gross outliers,
   the exact clique timed on the host; (b) `register_raw` at the kitti
-  preset's engine config (N=2048, C=33, 1 head, top_k=2048; the SIMT EGCL)
+  preset's engine config (N=2048, C=33, 1 head, top_k=2048; the fp32 tile
+  EGCL built at 36 channels)
   on a bumpy-surface pair of 20 000 points a cloud, without and with a
   0.03 m voxel, with the gather FPFH's card-vs-CPU divergence by stage
   printed (normals, the source pick, the bins); (c) the Registrar exported
@@ -187,7 +191,9 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   tile kernel, whose SiLU runs on the fast exponential and divide); the
   fp32 tile kernel in every case (K=7, 12, 16, 20, head widths 1, 8 and 32,
   repeated and collinear points, B=1, with and without agg_m); fp32 tile
-  against SIMT at twice the tolerance.
+  against SIMT at twice the tolerance. The same at C=33 with one head on
+  the kernel built at 36 channels (K=7, 16, 20, repeated points, B=1, with
+  and without agg_m), against SIMT and timed beside it at B=8 and B=64.
 - egcl fast: tol 2e-2 on h′ and 1e-2 on u (measured 2.2e-3 on h′ and
   5.5e-4 on u at C=32): both round the same operands to bf16, but a sum that
   differs in its last fp32 bit can round to the next bf16 value (2⁻⁸
@@ -210,7 +216,9 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   (a sum that differs in its last fp32 bit can round an operand to the
   next bf16 value, 2⁻⁸ relative, as in the forward; measured ≤ 2e-4).
   The fp32 tile backward in the forward's cases and on the coordinate path
-  at B=8, and against SIMT at twice the tolerance.
+  at B=8, and against SIMT at twice the tolerance; at C=33 with one head
+  on the kernel built at 36 channels the same (the C=33 forward's cases
+  and the coordinate path), timed beside SIMT at B=8 and B=64.
   Two cases in each mode: random dagg_m and dagg_x at the seeded weights,
   and the coordinate path alone (dagg_m = 0, the coord output drawn at
   O(1/√C) instead of the init's 1e-3 gain). At the seeded weights the
@@ -275,7 +283,16 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   so two backward runs differ in order); one train step on the same batch
   and weights, card vs CPU: every loss term within 1e-4 relative, every
   gradient at cosine >= 0.9999 and relative L2 <= 1e-4 (the train phase's
-  accurate gates).
+  accurate gates), taken with the CPU on the card's side of each ReLU of
+  the head's score MLP whose input the two round to opposite sides of 0,
+  after the inputs of those layers agree card vs CPU within 1e-5 of each
+  layer's largest (SCORE_KINK_TOL; measured ≤ 6.9e-7). At the kitti
+  preset's cli-trained weights one such input sits within ~1.5e-6 of 0,
+  and in about half the trainings (the atomics' order moves the weights'
+  last bits) the two take opposite branches, which moves
+  egnn.embedding_in.weight's gradient by 1.01e-3 relative L2 whatever EGCL
+  kernel runs (egcl_f32_numerics.py); the gap on each
+  side's own branches is printed.
 - variants: (a) and (b) card vs CPU, R and t within 2e-5 (the plain EGNN
   in fp32 on both sides, the 'cluster' sums by atomics on the card); (b)
   the target rotated by Q: R' = QR and t' = Qt within 1e-4; the EGNN in
@@ -518,11 +535,19 @@ def only(variant, n):
     return {**dict.fromkeys(egcl.VARIANTS, 0), variant: n}
 
 
-def by_row(wrapper, by_variant):
-    """An EGCL wrapper's launches by kernel row: the bf16 tile kernel's row
-    (named as the wrapper) counts 'tile', the fp32 tile kernel's ('_f32')
-    'tile_f32'; the SIMT kernels have no row of their own."""
-    return {wrapper: by_variant["tile"], f"{wrapper}_f32": by_variant["tile_f32"]}
+def by_row(wrapper, by_variant, c=32):
+    """An EGCL wrapper's launches by kernel row on a path of width c: the
+    bf16 tile kernel's row (named as the wrapper) counts 'tile'; the fp32
+    tile kernel's 'tile_f32', in the row of the width it was built at: '_f32'
+    (CP=32) at C=32, '_f32_cp36' (CP=36) at 32 < C <= 36; the SIMT kernels
+    have no row of their own (no path launches them)."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+
+    cp = egcl.f32_width(c)
+    check(cp is not None or by_variant["tile_f32"] == 0,
+          f"{wrapper}: 'tile_f32' launches at C={c}, which no fp32 tile width runs")
+    f32 = f"{wrapper}_f32_cp36" if cp == 36 else f"{wrapper}_f32"
+    return {wrapper: by_variant["tile"], f32: by_variant["tile_f32"]}
 
 
 def reset_backward_counters(eb):
@@ -635,9 +660,9 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
     shapes, on random cotangents and on the coordinate path alone: the bf16
     tile kernel from the bottom up and the fp32 tile kernel in every case;
     each mode through its tile kernel and the SIMT kernel, timed beside the
-    plain version, the two held against each other; then C=33 with one
-    head (SIMT). Returns the rows of the bf16 and the fp32 tile kernels."""
-    from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
+    plain version, the two held against each other (C=33 is
+    `egcl_backward_c33_phase`'s). Returns the rows of the bf16 and the fp32
+    tile kernels at C=32."""
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
 
@@ -700,13 +725,7 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
                                   2 * BWD_TOL_ACCURATE)):
         errs = backward_errors(outs[a], outs[b_], accurate, f"{a} vs {b_}", tol=tol)
         log_backward_errors(errs, f"{a} vs {b_}")
-    wh = p.head_width
-    fwd_edge = 2 * c * (c + 12) + 2 * c * wh + 2 * c * c + 2 * c + 12 * c
-    bwd_edge = (2 * c * c * 4 + 2 * c * wh * 2 + 2 * 12 * c * 2 + 2 * c   # products
-                + 20 * c + 150)                                          # LN, SiLU, geometry
-    center = 3 * 2 * c * c
-    ops = b * n * (k * (fwd_edge + bwd_edge) + center)
-    nbytes = 4 * b * n * (2 * c + 6 + k) + 2 * 4 * b * n * (c + 3) + packed.simt.numel() * 4
+    ops, nbytes = egcl_backward_bound(c, p.head_width, b, n, k, packed.simt.numel())
     fb, fby = bound_ms(nbytes, ops, PEAK_BF16)
     ab, aby = bound_ms(nbytes, ops, PEAK_FP32)
     log(f"egcl_backward bound: {ops / (b * n * k):.0f} FLOP/edge; fast vs bf16 peak "
@@ -715,22 +734,6 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
         f"accurate vs fp32 peak {ab:.4f} ms (tile_f32 {stats['accurate tile_f32'][0]:.4f} ms "
         f"at {100 * ab / stats['accurate tile_f32'][0]:.2f}%, SIMT "
         f"{stats['accurate simt'][0]:.4f} ms at {100 * ab / stats['accurate simt'][0]:.2f}%)")
-
-    m33 = EGNN(in_node_nf=33, hidden_nf=33, out_node_nf=33, n_layers=1, num_heads=1)
-    p33 = egcl.params_from_layer(m33.to(dev).gcl_0)
-    b33 = min(8, b)
-    h33 = torch.randn(b33, n, 33, generator=gen).to(dev)
-    x33, nbr33 = xs[:b33].contiguous(), nbr[:b33].contiguous()
-    dm33 = torch.randn(b33, n, 33, generator=gen).to(dev)
-    dx33 = dagg_x[:b33].contiguous()
-    for accurate in (True, False):
-        reset_backward_counters(eb)
-        got = eb.egcl_backward(h33, x33, nbr33, p33, dm33, dx33, accurate)
-        check(eb.egcl_backward.launches_by_variant == only("simt", 1),
-              f"egcl_backward C=33 launched {eb.egcl_backward.launches_by_variant}")
-        errs = backward_errors(got, eb.egcl_backward_plain(h33, x33, nbr33, p33, dm33, dx33,
-                                                           accurate), accurate, "C=33")
-        log_backward_errors(errs, f"C=33, 1 head, accurate={accurate}, B={b33}")
     src = "se3_equi_graph_registration_tpu_torch/csrc/"
     replaces = "se3_equi_graph_registration_tpu/ops/pallas/egcl_backward.py:53"
     row = lambda name, source, stat, simt, bound, by, variant: dict(
@@ -744,10 +747,97 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
                 "accurate simt", ab, aby, "tile_f32"))
 
 
+def egcl_backward_c33_phase(torch, xs, nbr, gen):
+    """B3 at KITTI's width (C=33, one head), accurate mode on the fp32 tile
+    kernel built at CP=36: in every case of `c33_cases` and on the
+    coordinate path alone (dagg_m = 0, the coord output at O(1/√C)),
+    against the plain accurate version at BWD_TOL_ACCURATE; then at B=8 and
+    at the run's batch the fp32 tile and the SIMT kernel, each against the
+    plain version, against each other at twice the tolerance and timed,
+    with the bound at C=33; fast mode at C=33 on the SIMT kernel. Returns
+    the padded kernel's row (its numbers at the run's batch, B=8's under
+    `b8`)."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+
+    dev = xs.device
+    bsz, n = xs.shape[:2]
+    b8 = min(8, bsz)
+    p33, h33 = c33_inputs(torch, xs, nbr, gen)
+    packed = egcl.pack_for_kernels(p33)
+    dm = torch.randn(bsz, n, 33, generator=gen).to(dev)
+    dx = torch.randn(bsz, n, 3, generator=gen).to(dev)
+    h8, x8, nbr8 = h33[:b8].contiguous(), xs[:b8].contiguous(), nbr[:b8].contiguous()
+    pc = p33._replace(wc1=torch.randn(1, 33, generator=gen).to(dev) / 33 ** 0.5)
+    cases = [(*case, dm[:b8]) for case in c33_cases(torch, p33, h8, x8, nbr8)]
+    cases.append(("C=33, coordinate path", h8, x8, nbr8, pc, torch.zeros_like(dm[:b8])))
+    for name, h_, x_, nbr_, p_, dm_ in cases:
+        b_ = h_.shape[0]
+        dm_, dx_ = dm_[:b_].contiguous(), dx[:b_].contiguous()
+        check(egcl.egcl_variant(33, nbr_.shape[-1], p_.head_width, True) == "tile_f32",
+              f"egcl_backward case {name} is not routed to the fp32 tile kernel")
+        reset_backward_counters(eb)
+        got = eb.egcl_backward(h_, x_, nbr_, p_, dm_, dx_, True)
+        torch.cuda.synchronize()
+        check(eb.egcl_backward.launches_by_variant == only("tile_f32", 1),
+              f"egcl_backward case {name} launched {eb.egcl_backward.launches_by_variant}")
+        check(all(bool(torch.isfinite(t_).all()) for t_ in (got[0], got[1], *got[2].values())),
+              f"egcl_backward case {name}: non-finite output")
+        errs = backward_errors(got, eb.egcl_backward_plain(h_, x_, nbr_, p_, dm_, dx_, True),
+                               True, f"case {name}")
+        log_backward_errors(errs, f"f32 CP=36 case {name}, B={b_}")
+    stats = {}
+    for b in sorted({b8, bsz}):
+        h_, x_, nbr_ = h33[:b].contiguous(), xs[:b].contiguous(), nbr[:b].contiguous()
+        dm_, dx_ = dm[:b].contiguous(), dx[:b].contiguous()
+        k = nbr_.shape[-1]
+        ref = eb.egcl_backward_plain(h_, x_, nbr_, p33, dm_, dx_, True)
+        plain = cuda_ms(torch, lambda: eb.egcl_backward_plain(h_, x_, nbr_, p33, dm_, dx_,
+                                                               True), 2)
+        outs = {}
+        for variant in ("tile_f32", "simt"):
+            reset_backward_counters(eb)
+            got = eb.egcl_backward(h_, x_, nbr_, p33, dm_, dx_, True, packed, variant)
+            torch.cuda.synchronize()
+            check(eb.egcl_backward.launches_by_variant == only(variant, 1),
+                  f"egcl_backward C=33 {variant} launched {eb.egcl_backward.launches_by_variant}")
+            errs = backward_errors(got, ref, True, f"C=33 {variant} B={b}")
+            ms = cuda_ms(torch, lambda: eb.egcl_backward(h_, x_, nbr_, p33, dm_, dx_, True,
+                                                          packed, variant), 5)
+            stats[b, variant] = (ms, plain, max(e for e, _ in errs.values()))
+            outs[variant] = got
+            log_backward_errors(errs, f"C=33, 1 head, accurate {variant}, B={b} N={n} K={k}")
+            log(f"egcl_backward[C=33 accurate {variant}] B={b}: kernel {ms:.4f} ms, plain "
+                f"{plain:.3f} ms")
+        errs = backward_errors(outs["tile_f32"], outs["simt"], True,
+                               f"C=33 tile_f32 vs simt B={b}", tol=2 * BWD_TOL_ACCURATE)
+        log_backward_errors(errs, f"C=33 tile_f32 vs simt, B={b}")
+        ops, nbytes = egcl_backward_bound(33, p33.head_width, b, n, k, packed.simt.numel())
+        bound, by = bound_ms(nbytes, ops, PEAK_FP32)
+        stats[b, "bound"] = (bound, by)
+        tile_ms, simt_ms = stats[b, "tile_f32"][0], stats[b, "simt"][0]
+        log(f"egcl_backward C=33 B={b}: bound {ops / (b * n * k):.0f} FLOP/edge, {bound:.4f} ms "
+            f"({by}); tile_f32 {tile_ms:.4f} ms at {100 * bound / tile_ms:.2f}%, SIMT "
+            f"{simt_ms:.4f} ms at {100 * bound / simt_ms:.2f}% ({simt_ms / tile_ms:.2f}x); "
+            f"{card_line()}")
+    reset_backward_counters(eb)
+    got = eb.egcl_backward(h8, x8, nbr8, p33, dm[:b8].contiguous(), dx[:b8].contiguous(), False)
+    check(eb.egcl_backward.launches_by_variant == only("simt", 1),
+          f"egcl_backward C=33 fast launched {eb.egcl_backward.launches_by_variant}")
+    errs = backward_errors(got, eb.egcl_backward_plain(h8, x8, nbr8, p33, dm[:b8].contiguous(),
+                                                       dx[:b8].contiguous(), False),
+                           False, "C=33 fast")
+    log_backward_errors(errs, f"C=33, 1 head, fast simt, B={b8}")
+    src = "se3_equi_graph_registration_tpu_torch/csrc/"
+    return c33_row(stats, "egcl_backward_f32_cp36", src + "egcl_backward_tile_f32.cu",
+                   "se3_equi_graph_registration_tpu/ops/pallas/egcl_backward.py:53",
+                   src + "egcl_backward.cu", bsz, b8)
+
+
 PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh", "robust", "cli", "serve_extra",
           "variants", "multiway", "tools", "dist", "point", "extras")
-ROW_ORDER = ("knn_window", "egcl_layer", "egcl_layer_f32", "egcl_backward", "egcl_backward_f32",
-             "knn_chunked", "spfh")
+ROW_ORDER = ("knn_window", "egcl_layer", "egcl_layer_f32", "egcl_layer_f32_cp36",
+             "egcl_backward", "egcl_backward_f32", "egcl_backward_f32_cp36", "knn_chunked", "spfh")
 # the phases whose paths launch each kernel row's kernel
 DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust", "cli", "serve_extra",
                              "variants", "multiway", "tools", "dist", "point", "extras"),
@@ -758,12 +848,12 @@ DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust", "cli", "serve_e
                  egcl_backward=("train", "variants", "tools"),
                  egcl_backward_f32=("train", "cli", "variants", "tools", "dist", "point",
                                     "extras"),
+                 # the fp32 tile kernels built at CP=36: KITTI's C=33 (the kitti preset)
+                 egcl_layer_f32_cp36=("cli", "serve_extra"),
+                 egcl_backward_f32_cp36=("cli",),
                  knn_chunked=("fpfh", "robust", "serve_extra", "multiway", "tools", "dist",
                               "extras"),
                  spfh=("fpfh", "robust", "serve_extra", "multiway", "tools", "dist", "extras"))
-# the phases whose paths launch the SIMT kernels (accurate mode at C=33, the
-# kitti preset), counted in the fp32 rows' `simt_launches`
-SIMT_DRIVEN_BY = dict(egcl_layer_f32=("cli", "serve_extra"), egcl_backward_f32=("cli",))
 
 
 def main(argv=None) -> int:
@@ -817,18 +907,13 @@ def card_line():
     return smi[0] if smi else "nvidia-smi: no output"
 
 
-def record_launches(rows, path, launches, by_variant=None, simt=None):
-    """Write one path's launch counts {kernel name: n}, for the k-NN rows
-    {kernel name: {variant: n}}, and for the fp32 EGCL rows the SIMT
-    kernel's launches {kernel name: n}, into the rows."""
+def record_launches(rows, path, launches, by_variant=None):
+    """Write one path's launch counts {kernel name: n}, and for the k-NN rows
+    {kernel name: {variant: n}}, into the rows."""
     for name, n in launches.items():
         if name in rows:
             rows[name].setdefault("launches_by_path", {})[path] = n
             rows[name]["launches"] = sum(rows[name]["launches_by_path"].values())
-    for name, n in (simt or {}).items():
-        if name in rows:
-            rows[name].setdefault("simt_launches_by_path", {})[path] = n
-            rows[name]["simt_launches"] = sum(rows[name]["simt_launches_by_path"].values())
     for name, counts in (by_variant or {}).items():
         if name in rows:
             for v, n in counts.items():
@@ -884,11 +969,13 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
         rows["knn_window"], rows["knn_chunked"] = knn_phase(torch, x, xs, k, tile, window)
     if "egcl" in phases:
         rows["egcl_layer"], rows["egcl_layer_f32"] = egcl_phase(torch, p, h, xs, nbr, gen)
+        rows["egcl_layer_f32_cp36"] = egcl_c33_phase(torch, xs, nbr, gen)
     if "serve" in phases:
         serve_phase(torch, dev, cfg, bsz, sd, rows)
     if "bwd" in phases:
         rows["egcl_backward"], rows["egcl_backward_f32"] = egcl_backward_phase(
             torch, p, h, xs, nbr, gen)
+        rows["egcl_backward_f32_cp36"] = egcl_backward_c33_phase(torch, xs, nbr, gen)
     if "train" in phases:
         train_phase(torch, dev, cfg, bsz, rows)
     if "fpfh" in phases:
@@ -916,9 +1003,6 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
     for name, row in rows.items():
         if any(ph in phases for ph in DRIVEN_BY[name]):
             check(row["launches"] > 0, f"{name}: no launch on the paths this run drove")
-        if any(ph in phases for ph in SIMT_DRIVEN_BY.get(name, ())):
-            check(row.get("simt_launches", 0) > 0,
-                  f"{name}: no SIMT launch on the paths this run drove")
     return [rows[name] for name in ROW_ORDER if name in rows]
 
 
@@ -1225,6 +1309,57 @@ def f32_cases(torch, p, h8, x8, nbr8):
             ("B=1", h8[:1].contiguous(), x8[:1].contiguous(), nbr8[:1].contiguous(), p)]
 
 
+def c33_inputs(torch, xs, nbr, gen):
+    """KITTI's layer shape, C=33 with one head: (p33, its weights seeded
+    apart from the smoke's other draws; h [B,N,33] from gen), on the clouds
+    xs and the graph nbr of the C=32 checks."""
+    from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+
+    dev = xs.device
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(33)
+        m33 = EGNN(in_node_nf=33, hidden_nf=33, out_node_nf=33, n_layers=1, num_heads=1)
+    p33 = egcl.params_from_layer(m33.to(dev).gcl_0)
+    return p33, torch.randn(*xs.shape[:2], 33, generator=gen).to(dev)
+
+
+def c33_cases(torch, p33, h8, x8, nbr8):
+    """The cases of the fp32 tile kernels built at CP=36, at C=33 with one
+    head and B=8: (name, h, x, nbr, p) for K=16, 7 (masked rows) and 20 (two
+    row tiles), repeated points and B=1."""
+    x_dup = x8.clone()
+    x_dup[:, 1::2] = x_dup[:, ::2]                 # every point twice: degenerate frames
+    k = nbr8.shape[-1]
+    wide = torch.cat([nbr8, nbr8.flip(1)[..., :4]], dim=-1).contiguous()
+    return [(f"C=33, K={k}", h8, x8, nbr8, p33),
+            ("C=33, K=7", h8, x8, nbr8[..., :7].contiguous(), p33),
+            (f"C=33, K={k + 4} (two row tiles)", h8, x8, wide, p33),
+            ("C=33, repeated points", h8, x_dup, nbr8, p33),
+            ("C=33, B=1", h8[:1].contiguous(), x8[:1].contiguous(), nbr8[:1].contiguous(), p33)]
+
+
+def egcl_bound(c, wh, b, n, k, weights):
+    """B2's least time at width c and head width wh over b clouds (fp32
+    peak): its FLOP an edge and a center, each input read once."""
+    edge_ops = 2 * c * (c + 12) + 2 * c * wh + 2 * c * c + 2 * c + 12 * c
+    center_ops = 2 * c * c + 2 * 2 * c * c + 2 * c * c
+    ops = b * n * (k * edge_ops + center_ops)
+    nbytes = 4 * b * n * (2 * c + 6 + k) + weights * 4
+    return ops, nbytes
+
+
+def egcl_backward_bound(c, wh, b, n, k, weights):
+    """B3's FLOP and bytes at width c and head width wh over b clouds."""
+    fwd_edge = 2 * c * (c + 12) + 2 * c * wh + 2 * c * c + 2 * c + 12 * c
+    bwd_edge = (2 * c * c * 4 + 2 * c * wh * 2 + 2 * 12 * c * 2 + 2 * c   # products
+                + 20 * c + 150)                                          # LN, SiLU, geometry
+    center = 3 * 2 * c * c
+    ops = b * n * (k * (fwd_edge + bwd_edge) + center)
+    nbytes = 4 * b * n * (2 * c + 6 + k) + 2 * 4 * b * n * (c + 3) + weights * 4
+    return ops, nbytes
+
+
 def egcl_f32_checks(torch, p, h, xs, nbr):
     """The fp32 tile forward in every case of `f32_cases`, with and without
     agg_m, against the plain accurate version (1e-4 of the scale on h′, the
@@ -1260,12 +1395,11 @@ def egcl_phase(torch, p, h, xs, nbr, gen):
     and the fp32 tile kernel in every case, then at the main path's shape
     the fp32 tile and SIMT kernels in accurate mode and the bf16 tile and
     SIMT kernels in fast mode, each timed beside the plain version and the
-    two kernels of a mode held against each other; then C=33 with one head
-    (SIMT). Returns the rows of the bf16 and the fp32 tile kernels."""
-    from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
+    two kernels of a mode held against each other (C=33 is
+    `egcl_c33_phase`'s). Returns the rows of the bf16 and the fp32 tile
+    kernels at C=32."""
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
 
-    dev = h.device
     bsz, n, c = h.shape
     k = nbr.shape[-1]
     egcl_tile_checks(torch, p, h, xs, nbr, gen)
@@ -1302,32 +1436,13 @@ def egcl_phase(torch, p, h, xs, nbr, gen):
               f"egcl {a} vs {b}: max|Δh′| {dh} (scale {hs}), max|Δu| {du} (scale {us})")
         log(f"egcl {a} vs {b}: max|Δh′| {dh:.3g} (rel {dh / hs:.3g}), max|Δu| {du:.3g} "
             f"(rel {du / us:.3g})")
-    wh = p.head_width
-    edge_ops = 2 * c * (c + 12) + 2 * c * wh + 2 * c * c + 2 * c + 12 * c
-    center_ops = 2 * c * c + 2 * 2 * c * c + 2 * c * c
-    ops = bsz * n * (k * edge_ops + center_ops)
-    nbytes = 4 * bsz * n * (2 * c + 6 + k) + packed.simt.numel() * 4
+    ops, nbytes = egcl_bound(c, p.head_width, bsz, n, k, packed.simt.numel())
     fb, fby = bound_ms(nbytes, ops, PEAK_BF16)
     ab, aby = bound_ms(nbytes, ops, PEAK_FP32)
     log(f"egcl bound: {ops / (bsz * n * k):.0f} FLOP/edge; fast vs bf16 peak {fb:.4f} ms "
         f"(tile at {100 * fb / stats['fast tile'][0]:.2f}%), accurate vs fp32 peak {ab:.4f} ms "
         f"(tile_f32 at {100 * ab / stats['accurate tile_f32'][0]:.2f}%, SIMT at "
         f"{100 * ab / stats['accurate simt'][0]:.2f}%)")
-
-    m33 = EGNN(in_node_nf=33, hidden_nf=33, out_node_nf=33, n_layers=1, num_heads=1)
-    p33 = egcl.params_from_layer(m33.to(dev).gcl_0)
-    b33 = min(8, bsz)
-    h33 = torch.randn(b33, n, 33, generator=gen).to(dev)
-    x33, nbr33 = xs[:b33].contiguous(), nbr[:b33].contiguous()
-    for accurate in (True, False):
-        reset_egcl_counters(egcl)
-        got = egcl.egcl_layer(h33, x33, nbr33, p33, accurate)
-        check(egcl.egcl_layer.launches_by_variant == only("simt", 1),
-              f"egcl C=33 launched {egcl.egcl_layer.launches_by_variant}")
-        ref = egcl.egcl_layer_plain(h33, x33, nbr33, p33, accurate)
-        eh, eu, sh, su = egcl_errors(torch, got, ref, x33, accurate)
-        log(f"egcl[C=33, 1 head, accurate={accurate}] B={b33}: max|Δh′| {eh:.3g} "
-            f"(rel {eh / sh:.3g}), max|Δu| {eu:.3g} (rel {eu / su:.3g})")
     src = "se3_equi_graph_registration_tpu_torch/csrc/"
     replaces = "se3_equi_graph_registration_tpu/ops/pallas/egcl_kernel.py:116"
     row = lambda name, source, stat, simt, bound, by, variant: dict(
@@ -1338,6 +1453,107 @@ def egcl_phase(torch, p, h, xs, nbr, gen):
     return (row("egcl_layer", "egcl_tile.cu", "fast tile", "fast simt", fb, fby, "tile"),
             row("egcl_layer_f32", "egcl_tile_f32.cu", "accurate tile_f32", "accurate simt", ab,
                 aby, "tile_f32"))
+
+
+def egcl_c33_phase(torch, xs, nbr, gen):
+    """B2 at KITTI's width (C=33, one head), accurate mode on the fp32 tile
+    kernel built at CP=36: in every case of `c33_cases`, with and without
+    agg_m, against the plain accurate version (1e-4 of the scale on h′, the
+    update and agg_m); then at B=8 and at the run's batch the fp32 tile and
+    the SIMT kernel (`variant='simt'`), each against the plain version,
+    against each other at 2e-4 and timed, with the bound at C=33; fast mode
+    at C=33 on the SIMT kernel. Returns the padded kernel's row (its
+    numbers at the run's batch, B=8's under `b8`)."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+
+    bsz, n = xs.shape[:2]
+    b8 = min(8, bsz)
+    p33, h33 = c33_inputs(torch, xs, nbr, gen)
+    packed = egcl.pack_for_kernels(p33)
+    check(packed.f32 is not None and packed.f32.numel() == 15552 and packed.tile is None,
+          "egcl C=33: the fp32 tile buffer is not the CP=36 one")
+    for name, h_, x_, nbr_, p_ in c33_cases(torch, p33, h33[:b8].contiguous(),
+                                            xs[:b8].contiguous(), nbr[:b8].contiguous()):
+        check(egcl.egcl_variant(33, nbr_.shape[-1], p_.head_width, True) == "tile_f32",
+              f"egcl case {name} is not routed to the fp32 tile kernel")
+        reset_egcl_counters(egcl)
+        gh, gx, gm = egcl.egcl_layer(h_, x_, nbr_, p_, True, return_aggm=True)
+        gh2, gx2 = egcl.egcl_layer(h_, x_, nbr_, p_, True)
+        torch.cuda.synchronize()
+        check(egcl.egcl_layer.launches_by_variant == only("tile_f32", 2),
+              f"egcl case {name} launched {egcl.egcl_layer.launches_by_variant}")
+        check(torch.equal(gh, gh2) and torch.equal(gx, gx2),
+              f"egcl case {name}: asking for agg_m changed h′ or x′")
+        rh, rx, rm = egcl.egcl_layer_plain(h_, x_, nbr_, p_, True, return_aggm=True)
+        check(all(bool(torch.isfinite(t_).all()) for t_ in (gh, gx, gm)),
+              f"egcl case {name}: non-finite output")
+        eh, eu, sh, su = egcl_errors(torch, (gh, gx), (rh, rx), x_, accurate=True)
+        em, sm = (gm - rm).abs().max().item(), rm.abs().max().item()
+        check(em <= 1e-4 * sm, f"egcl case {name}: agg_m max|Δ| {em} against scale {sm}")
+        log(f"egcl f32 CP=36 case {name} B={h_.shape[0]}: rel h′ {eh / sh:.3g}, u {eu / su:.3g}, "
+            f"agg_m {em / sm:.3g}; same with and without agg_m")
+    stats = {}
+    ulp = torch.finfo(torch.float32).eps * xs.abs().max().item()
+    for b in sorted({b8, bsz}):
+        h_, x_, nbr_ = h33[:b].contiguous(), xs[:b].contiguous(), nbr[:b].contiguous()
+        k = nbr_.shape[-1]
+        ref = egcl.egcl_layer_plain(h_, x_, nbr_, p33, True)
+        plain = cuda_ms(torch, lambda: egcl.egcl_layer_plain(h_, x_, nbr_, p33, True), 3)
+        outs = {}
+        for variant in ("tile_f32", "simt"):
+            reset_egcl_counters(egcl)
+            got = egcl.egcl_layer(h_, x_, nbr_, p33, True, packed, variant=variant)
+            torch.cuda.synchronize()
+            check(egcl.egcl_layer.launches_by_variant == only(variant, 1),
+                  f"egcl C=33 {variant} launched {egcl.egcl_layer.launches_by_variant}")
+            eh, eu, sh, su = egcl_errors(torch, got, ref, x_, True)
+            ms = cuda_ms(torch, lambda: egcl.egcl_layer(h_, x_, nbr_, p33, True, packed,
+                                                         variant=variant), 10)
+            stats[b, variant] = (ms, plain, max(eh, eu))
+            outs[variant] = got
+            log(f"egcl[C=33, 1 head, accurate {variant}] B={b} N={n} K={k}: max|Δh′| {eh:.3g} "
+                f"(rel {eh / sh:.3g}), max|Δu| {eu:.3g} (rel {eu / su:.3g}), kernel {ms:.4f} ms, "
+                f"plain {plain:.3f} ms")
+        (th, tx), (sh_, sx) = outs["tile_f32"], outs["simt"]
+        dh, hs = (th - sh_).abs().max().item(), sh_.abs().max().item()
+        du, us = ((tx - x_) - (sx - x_)).abs().max().item(), (sx - x_).abs().max().item()
+        check(dh <= 2e-4 * hs and du <= 2e-4 * us + ulp,
+              f"egcl C=33 tile_f32 vs simt B={b}: max|Δh′| {dh} (scale {hs}), max|Δu| {du} "
+              f"(scale {us})")
+        ops, nbytes = egcl_bound(33, p33.head_width, b, n, k, packed.simt.numel())
+        bound, by = bound_ms(nbytes, ops, PEAK_FP32)
+        stats[b, "bound"] = (bound, by)
+        tile_ms, simt_ms = stats[b, "tile_f32"][0], stats[b, "simt"][0]
+        log(f"egcl C=33 B={b}: tile_f32 vs simt max|Δh′| {dh:.3g} (rel {dh / hs:.3g}), max|Δu| "
+            f"{du:.3g} (rel {du / us:.3g}); bound {ops / (b * n * k):.0f} FLOP/edge, "
+            f"{bound:.4f} ms ({by}); tile_f32 {tile_ms:.4f} ms at {100 * bound / tile_ms:.2f}%, "
+            f"SIMT {simt_ms:.4f} ms at {100 * bound / simt_ms:.2f}% ({simt_ms / tile_ms:.2f}x); "
+            f"{card_line()}")
+    reset_egcl_counters(egcl)
+    h8, x8, nbr8 = h33[:b8].contiguous(), xs[:b8].contiguous(), nbr[:b8].contiguous()
+    got = egcl.egcl_layer(h8, x8, nbr8, p33, False)
+    check(egcl.egcl_layer.launches_by_variant == only("simt", 1),
+          f"egcl C=33 fast launched {egcl.egcl_layer.launches_by_variant}")
+    eh, eu, sh, su = egcl_errors(torch, got, egcl.egcl_layer_plain(h8, x8, nbr8, p33, False), x8,
+                                 False)
+    log(f"egcl[C=33, 1 head, fast simt] B={b8}: max|Δh′| {eh:.3g} (rel {eh / sh:.3g}), "
+        f"max|Δu| {eu:.3g} (rel {eu / su:.3g})")
+    src = "se3_equi_graph_registration_tpu_torch/csrc/"
+    return c33_row(stats, "egcl_layer_f32_cp36", src + "egcl_tile_f32.cu",
+                   "se3_equi_graph_registration_tpu/ops/pallas/egcl_kernel.py:116",
+                   src + "egcl.cu", bsz, b8)
+
+
+def c33_row(stats, name, source, replaces, simt_source, bsz, b8):
+    """A kernel row of the fp32 tile kernel built at CP=36, from the
+    C=33 phase's stats: the numbers at the run's batch, B=8's under `b8`."""
+    at = lambda b: dict(ms=stats[b, "tile_f32"][0], plain_ms=stats[b, "tile_f32"][1],
+                        bound_ms=stats[b, "bound"][0], bound_by=stats[b, "bound"][1],
+                        simt_ms=stats[b, "simt"][0])
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
+                max_abs_err=max(stats[b, "tile_f32"][2] for b in {b8, bsz}), **at(bsz),
+                library_ms=None, variant="tile_f32", width="C=33, one head, built at CP=36",
+                simt_source=simt_source, b8=at(b8))
 
 
 def serve_gap(a, b, what, sim=True):
@@ -2310,6 +2526,41 @@ def cli_phase(torch, dev, rows):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
 
 
+# The head's score MLP (models/pose_head.py): 2H → H → H/2 → 1 with ReLUs
+# after its first two layers. A ReLU whose input the card and the CPU round
+# to opposite sides of 0 gives each its own branch, and the two gradients
+# differ by that unit's whole contribution: at the kitti preset's
+# cli-trained weights one `mlp.dense_1` input sits within 1.5e-6 of 0 and
+# moves egnn.embedding_in.weight's gradient by 1.01e-3 (relative L2) when
+# it changes side, whatever EGCL kernel trained or differentiates the step
+# (egcl_f32_numerics.py). The cli phase's gradient gate therefore holds the
+# CPU on the card's side of such units, after checking that card and CPU
+# agree on every input of these layers within SCORE_KINK_TOL of the layer's
+# largest (an input that changes side lies within that gap of 0).
+SCORE_RELU_LAYERS = ("mlp.dense_0", "mlp.dense_1")
+SCORE_KINK_TOL = 1e-5
+
+
+def score_relu_hooks(model, fn):
+    """Forward hooks calling fn(layer name, output) on the score MLP's two
+    ReLU layers (their output is the ReLU's input); fn's return value, if
+    not None, replaces the output."""
+    for name, module in model.named_modules():
+        if name.endswith(SCORE_RELU_LAYERS):
+            layer = name[name.index("mlp."):]
+            module.register_forward_hook(lambda m, i, o, layer=layer: fn(layer, o))
+
+
+def follow_card(torch, name, o, card_pre, moved):
+    """The CPU's ReLU input o of score-MLP layer `name`, moved to the card's
+    value where the two lie on opposite sides of 0 (the gradient still
+    flows through o); records (units moved, max |card − CPU|, max |o|)."""
+    pc = card_pre[name]
+    other = (o > 0) != (pc > 0)
+    moved[name] = (int(other.sum()), float((pc - o).abs().max()), float(o.abs().max()))
+    return o + torch.where(other, (pc - o).detach(), torch.zeros_like(o))
+
+
 def cli_preset(torch, dev, rows, preset, c, base):
     """One preset of the cli phase (its docstring), in the directory `base`."""
     import os
@@ -2327,8 +2578,9 @@ def cli_preset(torch, dev, rows, preset, c, base):
     cfg, _ = config.parse_cli(common)
     ecfg, L = cfg.engine, cfg.engine.n_layers
     variant = egcl.egcl_variant(ecfg.hidden_nf, ecfg.k, ecfg.hidden_nf // ecfg.num_heads, True)
-    check((preset, variant) in (("3dmatch", "tile_f32"), ("kitti", "simt")),
-          f"cli {preset}: accurate EGCL at C={ecfg.hidden_nf} runs {variant}")
+    width = egcl.f32_width(ecfg.hidden_nf)
+    check((preset, variant, width) in (("3dmatch", "tile_f32", 32), ("kitti", "tile_f32", 36)),
+          f"cli {preset}: accurate EGCL at C={ecfg.hidden_nf} runs {variant} at width {width}")
     steps = CLI_PAIRS[0] // cfg.data.batch_size
     val, test = (n // cfg.data.batch_size for n in CLI_PAIRS[1:])     # drop_last
     check(cfg.data.batch_size == 8 and ecfg.num_nodes == cfg.data.num_node == 2048,
@@ -2351,10 +2603,10 @@ def cli_preset(torch, dev, rows, preset, c, base):
         if want:
             fwd, bwd = counts["egcl_layer"], counts["egcl_backward"]
             record_launches(rows, f"cli {preset} {what}",
-                            dict(knn_window=knn.knn_window.launches, **by_row("egcl_layer", fwd),
-                                 **by_row("egcl_backward", bwd)),
-                            dict(knn_window=counts["knn_window"]),
-                            simt=dict(egcl_layer_f32=fwd["simt"], egcl_backward_f32=bwd["simt"]))
+                            dict(knn_window=knn.knn_window.launches,
+                                 **by_row("egcl_layer", fwd, ecfg.hidden_nf),
+                                 **by_row("egcl_backward", bwd, ecfg.hidden_nf)),
+                            dict(knn_window=counts["knn_window"]))
         log(f"cli {preset} {what}: {secs:.2f} s (host clock), launches {got}")
         return out
 
@@ -2431,11 +2683,13 @@ def cli_preset(torch, dev, rows, preset, c, base):
           f"cli {preset} eval: card vs CPU summaries {evals}")
     # --- remat: one step with engine.remat=true against one without, same weights and batch
     batch = engine.batch_to_device(next(iter(cli._loader(cfg, "train", shuffle=False)())), dev)
-    losses = {}
+    losses, card_pre = {}, {}
     for remat in (False, True):
         rcfg, _ = config.parse_cli(common + ["--set", f"engine.remat={str(remat).lower()}"])
         model = engine.build_model(rcfg.engine, device=dev)
         model.load_state_dict(sd)
+        if remat:
+            score_relu_hooks(model, lambda name, o: card_pre.__setitem__(name, o.detach().cpu()))
         reset_egcl_counters(egcl)
         reset_backward_counters(eb)
         lb = engine.train_loss(model, rcfg.engine, batch)
@@ -2455,20 +2709,36 @@ def cli_preset(torch, dev, rows, preset, c, base):
           f"cli {preset} remat: EGCL launches {f1} vs {f0}, backward {b1} vs {b0}")
     check(torch.equal(l0, l1), f"cli {preset} remat: loss {l1} vs {l0}")
     check(rel <= BWD_TOL_ACCURATE, f"cli {preset} remat: gradient {worst} moved {rel} of its scale")
-    # --- the same step on the CPU: every loss term and every gradient
-    model = engine.build_model(ecfg, device="cpu")
-    model.load_state_dict(sd)
+    # --- the same step on the CPU: every loss term and every gradient, first
+    # as it falls (printed), then on the card's side of each score-MLP ReLU
+    # whose input the two put on opposite sides of 0 (held; SCORE_KINK_TOL)
     t1 = time.perf_counter()
-    lb = engine.train_loss(model, ecfg, {k: v.cpu() for k, v in batch.items()})
-    lb.total.backward()
-    cpu_terms = {k: float(v.detach()) for k, v in lb._asdict().items()}
-    cos = grad_cosines(torch, g1, {n: q.grad for n, q in model.named_parameters()})
+    cpu = {}
+    for follow in (False, True):
+        model = engine.build_model(ecfg, device="cpu")
+        model.load_state_dict(sd)
+        moved = {}
+        if follow:
+            score_relu_hooks(model, lambda name, o: follow_card(torch, name, o, card_pre, moved))
+        lb = engine.train_loss(model, ecfg, {k: v.cpu() for k, v in batch.items()})
+        lb.total.backward()
+        cpu[follow] = ({k: float(v.detach()) for k, v in lb._asdict().items()},
+                       grad_cosines(torch, g1, {n: q.grad for n, q in model.named_parameters()}),
+                       moved)
+    (_, raw, _), (cpu_terms, cos, moved) = cpu[False], cpu[True]
+    raw_l2 = max(raw, key=lambda k: raw[k][1])
     worst, worst_l2 = min(cos, key=lambda k: cos[k][0]), max(cos, key=lambda k: cos[k][1])
     dl = {k: abs(terms[k] - cpu_terms[k]) / abs(cpu_terms[k]) for k in terms}
     log(f"cli {preset} train step card vs CPU: loss terms card {json.dumps(terms)}, relative "
-        f"|Δ| {json.dumps(dl)}; worst gradient cosine {worst} {cos[worst][0]:.6f}, worst "
-        f"relative L2 {worst_l2} {cos[worst_l2][1]:.2g}; CPU side {time.perf_counter() - t1:.1f} s")
+        f"|Δ| {json.dumps(dl)}; score-MLP ReLU inputs card vs CPU (units on opposite sides "
+        f"of 0, max |Δ|, max |input|): {json.dumps(moved)}; on the card's branches worst "
+        f"gradient cosine {worst} {cos[worst][0]:.6f}, worst relative L2 {worst_l2} "
+        f"{cos[worst_l2][1]:.2g} (each on its own branches: {raw_l2} {raw[raw_l2][1]:.2g}); "
+        f"CPU side {time.perf_counter() - t1:.1f} s")
     check(all(v <= 1e-4 for v in dl.values()), f"cli {preset} train card vs CPU: loss terms {dl}")
+    check(set(moved) == set(card_pre) == set(SCORE_RELU_LAYERS)
+          and all(gap <= SCORE_KINK_TOL * top for _, gap, top in moved.values()),
+          f"cli {preset} train card vs CPU: score-MLP ReLU inputs {moved}")
     check(cos[worst][0] >= 0.9999 and cos[worst_l2][1] <= 1e-4,
           f"cli {preset} train card vs CPU: gradients {worst} {cos[worst]}, {worst_l2} "
           f"{cos[worst_l2]}")
@@ -2483,7 +2753,8 @@ def cli_preset(torch, dev, rows, preset, c, base):
     wall = (time.perf_counter() - t1) / 5 * 1e3
     prof = profile_call(torch, lambda: step(state, batch),
                         f"cli {preset} train step B={cfg.data.batch_size}")
-    busy = f"{100 * prof[1] / prof[0]:.1f}% device busy (profiler on)" if prof else "not measured"
+    busy = (f"device {prof[1]:.3f} ms of a {prof[0]:.2f} ms profiled wall, "
+            f"{100 * prof[1] / prof[0]:.1f}% busy (profiler on)") if prof else "not measured"
     log(f"cli {preset} train step B={cfg.data.batch_size} N={ecfg.num_nodes} C={ecfg.hidden_nf}: "
         f"{wall:.2f} ms a step (host clock, 5 steps after a warm one, synchronized), {busy}; "
         f"{card_line()}")
@@ -2676,7 +2947,7 @@ def extra_clique(torch, dev, cfg, sd, rows):
 
 def extra_register_raw(torch, dev, rows):
     """(b) register_raw at the kitti preset's engine config (N=2048, C=33, 1
-    head, top_k=2048; the SIMT EGCL kernels), seeded weights, on a bumpy
+    head, top_k=2048; the fp32 tile EGCL built at CP=36), seeded weights, on a bumpy
     surface pair of EXTRA_RAW_POINTS points, without and with a voxel:
     the k-NN tables identical card vs CPU, descriptor entries apart by more
     than 0.1 counted, matches equal on ≥ 99.5% of the rows, the card's
@@ -2704,12 +2975,12 @@ def extra_register_raw(torch, dev, rows):
         card = reg.register_raw(src, tgt, voxel=voxel)
         card_s = time.perf_counter() - t0
         kd, by_variant = knn.knn_window.launches, dict(egcl.egcl_layer.launches_by_variant)
-        check(kd == 3 and by_variant == only("simt", 2 * kcfg.n_layers),
+        check(kd == 3 and by_variant == only("tile_f32", 2 * kcfg.n_layers),
               f"register_raw voxel={voxel}: launches knn {kd} (1 descriptor table, 2 "
               f"graphs), egcl {by_variant}")
-        record_launches(rows, f"serve_extra register_raw voxel={voxel}", dict(knn_window=kd),
-                        dict(knn_window=check_knn_warp(knn.knn_window, "register_raw")),
-                        simt=dict(egcl_layer_f32=by_variant["simt"]))
+        record_launches(rows, f"serve_extra register_raw voxel={voxel}",
+                        dict(knn_window=kd, **by_row("egcl_layer", by_variant, kcfg.hidden_nf)),
+                        dict(knn_window=check_knn_warp(knn.knn_window, "register_raw")))
         c = {k: v.cpu() for k, v in reg.raw_correspondences(src, tgt, voxel=voxel).items()}
         ref = cpu_reg.raw_correspondences(src, tgt, voxel=voxel)
         check(torch.equal(c["src_pts"], ref["src_pts"]), "register_raw: fitted clouds differ")

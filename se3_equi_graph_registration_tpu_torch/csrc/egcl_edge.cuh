@@ -1,7 +1,8 @@
 // The scalar edge code shared by every EGCL tile kernel, whatever the type of
 // its products: the edge geometry, its backward, and the staging of a row tile
-// of 16 edges. Included by egcl_tile.cuh (bf16 mma.sync tiles, fast mode) and
-// egcl_tile_f32.cuh (fp32 register-blocked tiles, accurate mode).
+// of 16 edges. Included by egcl_tile.cuh (bf16 mma.sync tiles, fast mode, at
+// C = kC) and egcl_tile_f32.cuh (fp32 register-blocked tiles, accurate mode,
+// at C = kC and at a padded width).
 //
 // Numerics (ops/pallas/egcl_kernel.py:97-114, egcl_backward.py:131-235):
 // rel = x_i - x_j; g = [radial, dist, dot, a0,b0,c0, a1,b1,c1, a2,b2,c2] with
@@ -116,22 +117,27 @@ __device__ __forceinline__ void geometry_bwd(float xi0, float xi1, float xi2, fl
 }
 
 // Stage edges row0 .. row0 + 15 of `center` into a warp's tile, rows of
-// Tile::kStride elements of type Tile::T: [h_col 32 | what Tile::geo writes].
+// Tile::kStride elements of type Tile::T: [h_col W | what Tile::geo writes].
 // Lane l and lane l + 16 both take edge row0 + (l % 16): they load its
 // neighbor index and x_j and compute its geometry once (lanes 0-15 write it);
-// all 32 lanes then copy the 16 gathered h_j rows with 16-byte loads, 8 lanes
-// a row. An edge at or beyond K is staged from the center itself (finite
-// values) and reported invalid: the caller masks it out of every sum. Returns
+// all 32 lanes then copy the 16 gathered h_j rows. At W = c = 32 that is
+// 16-byte loads, 8 lanes a row. At a padded width W > 32 the rows of h have
+// their true stride c (32 < c <= W, not 16-byte aligned): the 16 x c words go
+// one word a lane, 32 consecutive words of the flattened block a step, and
+// the pad columns c .. W - 1 are never written (the caller zeroes them once).
+// An edge at or beyond K is staged from the center itself (finite values)
+// and reported invalid: the caller masks it out of every sum. Returns
 // whether this lane's edge is valid, and its rel.
 //
-// Tile provides: T; kStride; geo(T* row + kC, g, rel, j_nb), the geometry part
+// Tile provides: T; kStride; geo(T* row + W, g, rel, j_nb), the geometry part
 // of one row; h4(T* dst, float4 v), four channels of h_col.
-template <class Tile>
+template <class Tile, int W = kC>
 __device__ __forceinline__ bool stage_edges(const float* __restrict__ h,
                                             const float* __restrict__ x,
                                             const int* __restrict__ nbr, int center, int base,
                                             int K, int row0, float xi0, float xi1, float xi2,
-                                            typename Tile::T* tile, int lane, float (&rel)[3]) {
+                                            typename Tile::T* tile, int lane, float (&rel)[3],
+                                            int c = W) {
   const int row = lane & 15;
   const bool valid = row0 + row < K;
   const int j_nb = valid ? base + nbr[(size_t)center * K + row0 + row] : center;
@@ -141,13 +147,25 @@ __device__ __forceinline__ bool stage_edges(const float* __restrict__ h,
   float g[12];
   edge_geometry(xi0, xi1, xi2, xc0, xc1, xc2, rel, g);
   __syncwarp();   // the previous tile's operand loads are done
-  if (lane < kRows) Tile::geo(tile + row * Tile::kStride + kC, g, rel, j_nb);
+  if (lane < kRows) Tile::geo(tile + row * Tile::kStride + W, g, rel, j_nb);
+  if constexpr (W == kC) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * i + (lane >> 3), chunk = lane & 7;
-    const int src = __shfl_sync(kFull, j_nb, r);
-    const float4 v = reinterpret_cast<const float4*>(h + (size_t)src * kC)[chunk];
-    Tile::h4(tile + r * Tile::kStride + 4 * chunk, v);
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * i + (lane >> 3), chunk = lane & 7;
+      const int src = __shfl_sync(kFull, j_nb, r);
+      const float4 v = reinterpret_cast<const float4*>(h + (size_t)src * kC)[chunk];
+      Tile::h4(tile + r * Tile::kStride + 4 * chunk, v);
+    }
+  } else {
+    // word e = r c + ch of the block; with c > 32 a step of 32 words crosses
+    // at most one row end. Every lane takes every step (the shuffle).
+    int r = 0, ch = lane;
+    for (int e0 = 0; e0 < kRows * c; e0 += 32) {
+      const int src = __shfl_sync(kFull, j_nb, r);
+      if (e0 + lane < kRows * c) tile[r * Tile::kStride + ch] = h[(size_t)src * c + ch];
+      ch += 32;
+      if (ch >= c) { ch -= c; ++r; }
+    }
   }
   __syncwarp();
   return valid;

@@ -1,6 +1,7 @@
 """Fused EGCL layer: the CUDA kernels `csrc/egcl_tile.cu` (fast mode at
-C=32, on the tensor cores), `csrc/egcl_tile_f32.cu` (accurate mode at C=32,
-fp32 register-blocked tiles) and `csrc/egcl.cu` (every other width), and
+C=32, on the tensor cores), `csrc/egcl_tile_f32.cu` (accurate mode at C=32
+and at 32 < C <= 36, fp32 register-blocked tiles) and `csrc/egcl.cu` (every
+other shape), and
 their plain version (counterpart of
 `ops/pallas/egcl_kernel.py`), forward, 'center' direction, 'frame' so3 mode,
 all-ones edge_attr, no edge mask. `egcl_variant` picks the kernel from the
@@ -107,6 +108,17 @@ def pack_params(p: EGCLParams) -> torch.Tensor:
 
 
 TILE_C = 32                    # the tile kernel's width (csrc/egcl_tile.cuh)
+# the fp32 tile kernels' compiled widths CP (csrc/egcl_tile_f32.cuh): CP=32
+# runs C=32, CP=36 runs 32 < C <= 36 with the channels C..35 as zero pads
+F32_WIDTHS = (32, 36)
+
+
+def f32_width(c: int) -> int | None:
+    """The compiled width of the fp32 tile kernels that runs width `c`:
+    32 at C=32, 36 at 32 < C <= 36, else None."""
+    if c == TILE_C:
+        return TILE_C
+    return F32_WIDTHS[1] if TILE_C < c <= F32_WIDTHS[1] else None
 # the B-fragment matrices, then the fp32 vectors [32], in the order of
 # `Layout` in csrc/egcl_tile.cuh
 TILE_MATRICES = ("w1", "w2", "wc0", "wn0", "wn1")
@@ -118,8 +130,9 @@ class Packed(NamedTuple):
     `csrc/egcl_backward.cu` (`pack_params`); `tile` for `csrc/egcl_tile.cu`
     (`pack_params_tile`) and, with `tile_bwd` (`pack_params_tile_bwd`), for
     `csrc/egcl_backward_tile.cu`; `f32` for `csrc/egcl_tile_f32.cu` and
-    `csrc/egcl_backward_tile_f32.cu` (`pack_params_f32`); the last three
-    None where the layer's shape has no tile kernel."""
+    `csrc/egcl_backward_tile_f32.cu` (`pack_params_f32`); `tile` and
+    `tile_bwd` None where fast mode has no tile kernel for the layer's
+    shape, `f32` None where accurate mode has none."""
     simt: torch.Tensor
     tile: torch.Tensor | None
     tile_bwd: torch.Tensor | None
@@ -131,13 +144,17 @@ VARIANTS = ("tile", "tile_f32", "simt")
 
 def egcl_variant(c: int, k: int, head_width: int, accurate: bool) -> str:
     """Which hand-written kernel runs a layer of width `c`, `k` neighbors and
-    heads of `head_width` channels: at C=32 with a head width that divides
-    32, 'tile' (`csrc/egcl_tile.cu`, bf16 mma.sync) in fast mode and
-    'tile_f32' (`csrc/egcl_tile_f32.cu`, fp32 register-blocked tiles) in
-    accurate mode; 'simt' (`csrc/egcl.cu`) for every other shape. A choice
-    by shape, made before the launch; a launch that fails raises."""
-    if c == TILE_C and k >= 1 and head_width >= 1 and TILE_C % head_width == 0:
-        return "tile_f32" if accurate else "tile"
+    heads of `head_width` channels, the heads whole: at C=32, 'tile'
+    (`csrc/egcl_tile.cu`, bf16 mma.sync) in fast mode and 'tile_f32'
+    (`csrc/egcl_tile_f32.cu`, fp32 register-blocked tiles) in accurate mode;
+    at 32 < C <= 36 (KITTI's C=33) 'tile_f32' in accurate mode, padded to 36
+    channels; 'simt' (`csrc/egcl.cu`) for every other shape and mode. A
+    choice by shape, made before the launch; a launch that fails raises."""
+    if k >= 1 and head_width >= 1 and c % head_width == 0:
+        if c == TILE_C:
+            return "tile_f32" if accurate else "tile"
+        if accurate and f32_width(c) is not None:
+            return "tile_f32"
     return "simt"
 
 
@@ -212,63 +229,93 @@ def pack_params_tile_bwd(p: EGCLParams) -> torch.Tensor:
     return frags.contiguous().view(torch.float32)
 
 
-# `Layout` in csrc/egcl_tile_f32.cuh: (name, [rows][row length] as stored).
-# Matrices are [in][out] (the kernel computes activations @ matrix); the
-# backward's `*_t` are the torch [out][in] weights a cotangent goes back
-# through; w1 = [w1_hcol.T; w1_geo.T] and w1g_t = w1_geo padded to 16 inputs.
-F32_LAYOUT = (("w1", (44, 32)), ("w1hr", (32, 32)), ("w2", (32, 32)), ("wc0", (32, 32)),
-              ("b1", (32,)), ("b2", (32,)), ("ln_scale", (32,)), ("ln_bias", (32,)),
-              ("bc0", (32,)), ("wc1", (32,)),
-              ("wc0_t", (32, 32)), ("w2_t", (32, 32)), ("w1hc_t", (32, 32)),
-              ("w1hr_t", (32, 32)), ("w1g_t", (32, 16)),
-              ("wn0", (64, 32)), ("wn1", (32, 32)), ("bn0", (32,)), ("bn1", (32,)))
+def f32_layout(cp: int) -> tuple:
+    """`Layout<CP>` in csrc/egcl_tile_f32.cuh: (name, [rows][row length] as
+    stored) at the compiled width `cp`. Matrices are [in][out] (the kernel
+    computes activations @ matrix); the backward's `*_t` are the torch
+    [out][in] weights a cotangent goes back through; w1 = [w1_hcol.T;
+    w1_geo.T] and w1g_t = w1_geo padded to 16 inputs; wn0 = [h | agg_m]
+    inputs, cp rows each."""
+    return (("w1", (cp + 12, cp)), ("w1hr", (cp, cp)), ("w2", (cp, cp)), ("wc0", (cp, cp)),
+            ("b1", (cp,)), ("b2", (cp,)), ("ln_scale", (cp,)), ("ln_bias", (cp,)),
+            ("bc0", (cp,)), ("wc1", (cp,)),
+            ("wc0_t", (cp, cp)), ("w2_t", (cp, cp)), ("w1hc_t", (cp, cp)),
+            ("w1hr_t", (cp, cp)), ("w1g_t", (cp, 16)),
+            ("wn0", (2 * cp, cp)), ("wn1", (cp, cp)), ("bn0", (cp,)), ("bn1", (cp,)))
+
+
+F32_LAYOUT = f32_layout(TILE_C)
+
+
+def _pad(t: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """t in the leading corner of a zero tensor of `shape`."""
+    widths = [w for n, m in zip(reversed(t.shape), reversed(shape)) for w in (0, m - n)]
+    return F.pad(t, widths)
 
 
 def pack_params_f32(p: EGCLParams) -> torch.Tensor:
     """The fp32 buffer `csrc/egcl_tile_f32.cu` and
-    `csrc/egcl_backward_tile_f32.cu` read (`F32_LAYOUT`, `Layout` in
-    egcl_tile_f32.cuh): every row 32 (w1g_t 16) consecutive fp32 words, so
-    that a row group's float4 loads of a weight row hit 32 distinct banks;
-    no rounding."""
+    `csrc/egcl_backward_tile_f32.cu` read (`f32_layout`, `Layout<CP>` in
+    egcl_tile_f32.cuh) at the compiled width CP = `f32_width(C)`: every row
+    CP (w1g_t 16) consecutive fp32 words, so that a row group's float4 loads
+    of a weight row hit 32 distinct banks; each block holds the layer's
+    weights in its leading corner and zeros in the pad rows and columns of
+    the channels C..CP-1 (in w1 and wn0, the h_col and the agg_m inputs
+    each start a block of CP rows); no rounding."""
     c = p.b1.shape[0]
-    if c != TILE_C or TILE_C % p.head_width:
-        raise ValueError(f"the fp32 tile kernels take C={TILE_C} with whole heads, got C={c}, "
-                         f"head width {p.head_width}")
+    cp = f32_width(c)
+    if cp is None or c % p.head_width:
+        raise ValueError(f"the fp32 tile kernels take C=32 or 32 < C <= {F32_WIDTHS[-1]} with "
+                         f"whole heads, got C={c}, head width {p.head_width}")
     f32 = lambda t: t.detach().to(torch.float32)
-    geo = f32(p.w1_geo)
+    sq = lambda t: _pad(f32(t), (cp, cp))
+    v = lambda t: _pad(f32(t).reshape(-1), (cp,))
+    wn0 = f32(p.wn0).T                                       # [2C, C]: h, agg_m
     parts = dict(
-        w1=torch.cat([f32(p.w1_hcol).T, geo.T]), w1hr=f32(p.w1_hrow).T, w2=f32(p.w2).T,
-        wc0=f32(p.wc0).T, b1=p.b1, b2=p.b2, ln_scale=p.ln_scale, ln_bias=p.ln_bias,
-        bc0=p.bc0, wc1=p.wc1, wc0_t=p.wc0, w2_t=p.w2, w1hc_t=p.w1_hcol, w1hr_t=p.w1_hrow,
-        w1g_t=torch.cat([geo, torch.zeros_like(geo[:, :4])], dim=1), wn0=f32(p.wn0).T,
-        wn1=f32(p.wn1).T, bn0=p.bn0, bn1=p.bn1)
-    return torch.cat([f32(parts[name]).reshape(-1) for name, _ in F32_LAYOUT]).contiguous()
+        w1=torch.cat([sq(f32(p.w1_hcol).T), _pad(f32(p.w1_geo).T, (12, cp))]),
+        w1hr=sq(f32(p.w1_hrow).T), w2=sq(f32(p.w2).T), wc0=sq(f32(p.wc0).T), b1=v(p.b1),
+        b2=v(p.b2), ln_scale=v(p.ln_scale), ln_bias=v(p.ln_bias), bc0=v(p.bc0), wc1=v(p.wc1),
+        wc0_t=sq(p.wc0), w2_t=sq(p.w2), w1hc_t=sq(p.w1_hcol), w1hr_t=sq(p.w1_hrow),
+        w1g_t=_pad(f32(p.w1_geo), (cp, 16)),
+        wn0=torch.cat([sq(wn0[:c]), sq(wn0[c:])]), wn1=sq(f32(p.wn1).T), bn0=v(p.bn0),
+        bn1=v(p.bn1))
+    return torch.cat([parts[name].reshape(-1) for name, _ in f32_layout(cp)]).contiguous()
 
 
-def unpack_params_f32(buf: torch.Tensor, head_width: int) -> EGCLParams:
-    """`pack_params_f32`'s inverse, from the forward's [in][out] blocks."""
+def unpack_params_f32(buf: torch.Tensor, head_width: int, c: int = TILE_C) -> EGCLParams:
+    """`pack_params_f32`'s inverse at the true width `c`, from the
+    forward's [in][out] blocks (their pads dropped)."""
+    cp = f32_width(c)
+    if cp is None:
+        raise ValueError(f"no fp32 tile width runs C={c}")
     parts, o = {}, 0
-    for name, shape in F32_LAYOUT:
+    for name, shape in f32_layout(cp):
         n = int(torch.Size(shape).numel())
         parts[name] = buf[o:o + n].reshape(shape)
         o += n
     if o != buf.numel():
-        raise ValueError(f"an fp32 tile buffer holds {o} words, got {buf.numel()}")
-    w1 = parts["w1"].T
+        raise ValueError(f"an fp32 tile buffer at CP={cp} holds {o} words, got {buf.numel()}")
+    sq = lambda name: parts[name][:c, :c].T
+    w1, wn0 = parts["w1"], parts["wn0"]
     return EGCLParams(
-        w1_hrow=parts["w1hr"].T, w1_hcol=w1[:, :TILE_C], w1_geo=w1[:, TILE_C:],
-        b1=parts["b1"], w2=parts["w2"].T, b2=parts["b2"], ln_scale=parts["ln_scale"],
-        ln_bias=parts["ln_bias"], wc0=parts["wc0"].T, bc0=parts["bc0"],
-        wc1=parts["wc1"].reshape(1, -1), wn0=parts["wn0"].T, bn0=parts["bn0"],
-        wn1=parts["wn1"].T, bn1=parts["bn1"], head_width=head_width)
+        w1_hrow=sq("w1hr"), w1_hcol=w1[:c, :c].T, w1_geo=w1[cp:, :c].T,
+        b1=parts["b1"][:c], w2=sq("w2"), b2=parts["b2"][:c], ln_scale=parts["ln_scale"][:c],
+        ln_bias=parts["ln_bias"][:c], wc0=sq("wc0"), bc0=parts["bc0"][:c],
+        wc1=parts["wc1"][:c].reshape(1, -1),
+        wn0=torch.cat([wn0[:c, :c], wn0[cp:cp + c, :c]]).T, bn0=parts["bn0"][:c],
+        wn1=sq("wn1"), bn1=parts["bn1"][:c], head_width=head_width)
 
 
 def pack_for_kernels(p: EGCLParams) -> Packed:
-    """Every kernel buffer of a layer, on the parameters' device."""
-    if egcl_variant(p.b1.shape[0], 1, p.head_width, accurate=False) != "tile":
-        return Packed(pack_params(p), None, None, None)
-    return Packed(pack_params(p), pack_params_tile(p), pack_params_tile_bwd(p),
-                  pack_params_f32(p))
+    """Every kernel buffer of a layer, on the parameters' device: the SIMT
+    kernels' always, the bf16 tile kernels' and the fp32 tile kernels'
+    where the layer's shape has them."""
+    c, hw = p.b1.shape[0], p.head_width
+    bf16 = egcl_variant(c, 1, hw, accurate=False) == "tile"
+    f32 = egcl_variant(c, 1, hw, accurate=True) == "tile_f32"
+    return Packed(pack_params(p), pack_params_tile(p) if bf16 else None,
+                  pack_params_tile_bwd(p) if bf16 else None,
+                  pack_params_f32(p) if f32 else None)
 
 
 def _round(fast: bool):
@@ -387,16 +434,16 @@ def _launch_tile(h, x, nbr, head_width, tile, agg_m, dbg):
 
 def _launch_tile_f32(h, x, nbr, head_width, f32, agg_m):
     """Launch `csrc/egcl_tile_f32.cu` → (h', x'); fills agg_m if given."""
-    b, n, _ = h.shape
+    b, n, c = h.shape
     h_out, x_out = torch.empty_like(h), torch.empty_like(x)
     fn = build.load("egcl_tile_f32").egcl_tile_f32_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), f32.data_ptr(),
                  h_out.data_ptr(), x_out.data_ptr(),
-                 None if agg_m is None else agg_m.data_ptr(), b, n, nbr.shape[-1],
+                 None if agg_m is None else agg_m.data_ptr(), b, n, nbr.shape[-1], c,
                  head_width, stream)
     build.check(err, "egcl_tile_f32_launch")
     return h_out, x_out

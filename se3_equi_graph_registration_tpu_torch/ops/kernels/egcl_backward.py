@@ -1,7 +1,8 @@
 """Backward of the fused EGCL layer: the CUDA kernels
 `csrc/egcl_backward_tile.cu` (fast mode at C=32, on the tensor cores),
-`csrc/egcl_backward_tile_f32.cu` (accurate mode at C=32, fp32
-register-blocked tiles) and `csrc/egcl_backward.cu` (every other width),
+`csrc/egcl_backward_tile_f32.cu` (accurate mode at C=32 and at
+32 < C <= 36, fp32 register-blocked tiles) and `csrc/egcl_backward.cu`
+(every other shape),
 their plain version, and `EGCLFunction`, the layer as a differentiable
 function (counterpart of `ops/pallas/egcl_backward.py`: `egcl_backward_pallas`
 and the custom VJP `egcl_fused_diff`).
@@ -198,7 +199,7 @@ def _launch(h, x, nbr, p, packed, dagg_m, dagg_x, variant, accurate, dbg=None):
         f32 = egcl.pack_params_f32(p).to(h.device) if packed is None else packed.f32
         name = "egcl_backward_tile_f32_launch"
         ptrs = [h, x, nbr, f32, dagg_m, dagg_x, *outs]
-        ints = [b, n, nbr.shape[-1], p.head_width]
+        ints = [b, n, nbr.shape[-1], c, p.head_width]
     else:
         simt = egcl.pack_params(p).to(h.device) if packed is None else packed.simt
         name = "egcl_backward_launch"
@@ -243,8 +244,8 @@ def egcl_backward(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
     its shape and mode, as the forward does: `csrc/egcl_backward_tile.cu`
     ('tile', bf16 mma.sync, fast mode at C=32 with whole heads),
     `csrc/egcl_backward_tile_f32.cu` ('tile_f32', fp32, accurate mode at
-    C=32 with whole heads) or `csrc/egcl_backward.cu` ('simt', every other
-    width). `variant='simt'` asks for the SIMT kernel where a tile kernel
+    C=32 and at 32 < C <= 36 with whole heads) or `csrc/egcl_backward.cu`
+    ('simt', every other shape and mode). `variant='simt'` asks for the SIMT kernel where a tile kernel
     would run (to compare the two); a tile variant that is not the shape's
     and mode's raises. Every kernel's neighbor and parameter sums are atomic
     (their order changes from run to run)."""

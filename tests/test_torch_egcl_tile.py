@@ -171,17 +171,77 @@ def test_b_fragments_follow_the_mma_layout():
 
 
 def test_pack_params_tile_rejects_other_widths():
+    """The bf16 tile buffers exist at C=32 only; at KITTI's C=33 (one head)
+    the fp32 tile buffer is the padded one (CP=36), and widths above 36 or
+    heads that do not divide C have none."""
     egnn = EGNN(in_node_nf=33, hidden_nf=33, out_node_nf=33, n_layers=1, num_heads=1)
     p33 = tk.params_from_layer(egnn.gcl_0)
     with pytest.raises(ValueError, match="C=32"):
         tk.pack_params_tile(p33)
     assert tk.pack_for_kernels(p33).tile is None and tk.pack_for_kernels(p33).tile_bwd is None
-    assert tk.pack_for_kernels(p33).f32 is None
+    assert torch.equal(tk.pack_for_kernels(p33).f32, tk.pack_params_f32(p33))
+    assert tk.pack_params_f32(p33).numel() == 15552              # Layout<36>::total
     with pytest.raises(ValueError, match="C=32"):
         tk.pack_params_tile_bwd(p33)
-    with pytest.raises(ValueError, match="C=32"):
-        tk.pack_params_f32(p33)
+    for c, heads in ((37, 1), (16, 1), (36, 1)):
+        egnn = EGNN(in_node_nf=c, hidden_nf=c, out_node_nf=c, n_layers=1, num_heads=heads)
+        p = tk.params_from_layer(egnn.gcl_0)
+        if c == 36:
+            p = p._replace(head_width=8)                     # 8 does not divide 36
+        with pytest.raises(ValueError, match="C=32"):
+            tk.pack_params_f32(p)
+        assert tk.pack_for_kernels(p).f32 is None
     assert tk.pack_for_kernels(_layer(8, 0)).tile.numel() == 4096
+
+
+def test_pack_params_f32_pads_c33_with_zeros_and_round_trips():
+    """At C=33 with one head every block of the padded buffer (CP=36) holds
+    the layer's weights in its leading corner and zeros in every pad row and
+    column (channels 33..35), ln_scale, ln_bias and wc1 included; the agg_m
+    half of wn0 starts at row 36; `unpack_params_f32` at the true C returns
+    the layer exactly."""
+    rng = np.random.default_rng(33)
+    egnn = EGNN(in_node_nf=33, hidden_nf=33, out_node_nf=33, n_layers=1, num_heads=1)
+    with torch.no_grad():
+        for q in egnn.parameters():
+            q.copy_(torch.from_numpy(rng.standard_normal(tuple(q.shape)).astype(np.float32)))
+    p = tk.params_from_layer(egnn.gcl_0)
+    buf = tk.pack_params_f32(p)
+    assert tk.f32_width(33) == 36 and buf.dtype == torch.float32 and buf.is_contiguous()
+    blocks, o = {}, 0
+    for name, shape in tk.f32_layout(36):
+        blocks[name] = buf[o:o + int(torch.Size(shape).numel())].reshape(shape)
+        o += blocks[name].numel()
+    assert o == buf.numel() == 15552
+    c, cp = 33, 36
+    real = {name: torch.zeros(shape, dtype=torch.bool) for name, shape in tk.f32_layout(cp)}
+    for name, shape in tk.f32_layout(cp):
+        if len(shape) == 1:
+            real[name][:c] = True
+        elif name == "w1":
+            real[name][:c, :c] = real[name][cp:, :c] = True
+        elif name == "wn0":
+            real[name][:c, :c] = real[name][cp:cp + c, :c] = True
+        elif name == "w1g_t":
+            real[name][:c, :12] = True
+        else:
+            real[name][:c, :c] = True
+    for name, block in blocks.items():
+        assert torch.count_nonzero(block[~real[name]]) == 0, name
+        assert torch.count_nonzero(block[real[name]]) == int(real[name].sum()), name
+    for name in ("ln_scale", "ln_bias", "wc1"):
+        assert torch.count_nonzero(blocks[name][c:]) == 0, name
+    assert torch.equal(blocks["w1g_t"][:c, :12], p.w1_geo)
+    for name, w in (("wc0_t", p.wc0), ("w2_t", p.w2), ("w1hc_t", p.w1_hcol),
+                    ("w1hr_t", p.w1_hrow)):
+        assert torch.equal(blocks[name][:c, :c], w), name
+    back = tk.unpack_params_f32(buf, p.head_width, c=33)
+    for name in tk.EGCLParams._fields[:-1]:
+        assert getattr(back, name).shape == getattr(p, name).shape, name
+        assert torch.equal(getattr(back, name), getattr(p, name)), name
+    assert back.head_width == 33
+    with pytest.raises(ValueError, match="holds"):
+        tk.unpack_params_f32(buf, p.head_width)                 # read at C=32: the wrong size
 
 
 def test_egcl_variant_routes_by_shape_and_mode():
@@ -194,7 +254,13 @@ def test_egcl_variant_routes_by_shape_and_mode():
             assert tk.egcl_variant(32, k, w, False) == "tile"
             assert tk.egcl_variant(32, k, w, True) == "tile_f32"
     assert tk.egcl_variant(33, 16, 33, False) == "simt"
-    assert tk.egcl_variant(33, 16, 33, True) == "simt"
+    assert tk.egcl_variant(33, 16, 33, True) == "tile_f32"        # padded to CP=36
+    assert tk.egcl_variant(33, 16, 11, True) == "tile_f32"
+    assert tk.egcl_variant(36, 16, 12, True) == "tile_f32"
+    assert tk.egcl_variant(36, 16, 12, False) == "simt"
+    assert tk.egcl_variant(37, 16, 37, True) == "simt"            # above the padded width
+    assert tk.egcl_variant(40, 16, 8, True) == "simt"
+    assert tk.egcl_variant(36, 16, 8, True) == "simt"             # heads must tile C
     assert tk.egcl_variant(64, 16, 8, False) == "simt"
     assert tk.egcl_variant(16, 16, 8, False) == "simt"
     assert tk.egcl_variant(32, 16, 12, False) == "simt"      # heads must tile 32

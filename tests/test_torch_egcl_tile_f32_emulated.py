@@ -5,13 +5,16 @@ the host emulation in `tests/torch_cuda_emulation` (fibers for lanes,
 barriers for shuffles, `std::atomic_ref`-free atomics on one OS thread, a
 per-block buffer for the dynamic shared memory), run at small shapes and held
 against the plain accurate versions (`egcl_layer_plain`,
-`egcl_backward_plain`, `accurate=True`), and one forward case against the
-JAX Pallas kernel in interpret mode. This reaches the staging, the row
-masks, the register-blocked products and their lane layout, the LayerNorm
-and coordinate reductions, the node MLP, the backward's chain, the scatters
-and the parameter gradients' tile products and flush; what only nvcc and the
-card can say (that it builds, launches and how fast) is `chip_smoke.py`'s.
-Skipped where there is no g++.
+`egcl_backward_plain`, `accurate=True`), and one forward case at each width
+against the JAX Pallas kernel in interpret mode. Both compiled widths run:
+CP=32 at C=32, and CP=36 at KITTI's C=33 with one head (zero pads in the
+channels 33..35; lanes cg < 4 own the tail channels 32..35). This reaches the staging (at C=33 from rows of the true
+stride), the row masks, the register-blocked products and their lane layout
+(the tail channels at CP=36), the LayerNorm and coordinate reductions with
+the pads masked out, the node MLP, the backward's chain, the scatters and
+the parameter gradients' tile products and flush at the true width; what
+only nvcc and the card can say (that it builds, launches and how fast) is
+`chip_smoke.py`'s. Skipped where there is no g++.
 
 The sources are rewritten in two places only: `extern __shared__` becomes a
 pointer to the emulated block's buffer, and each `<<<...>>>` launch a call
@@ -72,7 +75,7 @@ def fwd(tmp_path_factory):
         pytest.skip("the host emulation of the tile kernels needs g++")
     return _compile(tmp_path_factory.mktemp("egcl_tile_f32"), "egcl_tile_f32",
                     "egcl_tile_f32_launch",
-                    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 @pytest.fixture(scope="module")
@@ -81,14 +84,14 @@ def bwd(tmp_path_factory):
         pytest.skip("the host emulation of the tile kernels needs g++")
     return _compile(tmp_path_factory.mktemp("egcl_backward_tile_f32"), "egcl_backward_tile_f32",
                     "egcl_backward_tile_f32_launch",
-                    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
-def _layer(heads: int, seed: int) -> tk.EGCLParams:
+def _layer(heads: int, seed: int, c: int = 32) -> tk.EGCLParams:
     """O(1/√fan-in) weights everywhere, the coord output too, so that the
     coordinate update and the coordinate MLP's backward carry weight."""
     rng = np.random.default_rng(seed)
-    egnn = EGNN(in_node_nf=32, hidden_nf=32, out_node_nf=32, n_layers=1, num_heads=heads)
+    egnn = EGNN(in_node_nf=c, hidden_nf=c, out_node_nf=c, n_layers=1, num_heads=heads)
     with torch.no_grad():
         for q in egnn.parameters():
             scale = 0.1 if q.ndim == 1 else 1.0 / np.sqrt(q.shape[-1])
@@ -97,14 +100,14 @@ def _layer(heads: int, seed: int) -> tk.EGCLParams:
     return tk.params_from_layer(egnn.gcl_0)
 
 
-def _inputs(b, n, k, points, seed):
-    """h [b,n,32], x [b,n,3], nbr [b,n,k]: k > 16 repeats neighbors from a
+def _inputs(b, n, k, points, seed, c=32):
+    """h [b,n,c], x [b,n,3], nbr [b,n,k]: k > 16 repeats neighbors from a
     second list; 'repeated' puts every point twice (coincident points:
     degenerate frames), 'collinear' every point on one line through the
     origin, exactly (x = t·(1, −1, 1), so x_i × x_j = 0 in fp32: the identity
     frame on every edge)."""
     rng = np.random.default_rng(seed)
-    h = torch.from_numpy(rng.standard_normal((b, n, 32)).astype(np.float32))
+    h = torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32))
     x = torch.from_numpy(rng.uniform(-1, 1, (b, n, 3)).astype(np.float32))
     if points == "repeated":
         x[:, 1::2] = x[:, ::2]
@@ -130,7 +133,7 @@ def _forward(fn, h, x, nbr, p, aggm=True):
     buf = tk.pack_params_f32(p)
     assert fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), buf.data_ptr(), h_out.data_ptr(),
               x_out.data_ptr(), None if agg_m is None else agg_m.data_ptr(), b, n, k,
-              p.head_width, None) == 0
+              h.shape[-1], p.head_width, None) == 0
     return h_out, x_out, agg_m
 
 
@@ -154,10 +157,30 @@ def test_emulated_f32_forward_matches_the_plain_accurate_layer(fwd, b, n, k, hea
     assert torch.equal(gh2, gh) and torch.equal(gx2, gx)
 
 
-def test_emulated_f32_forward_matches_the_jax_pallas_kernel(fwd):
-    """One layer at B=1, N=128, K=16, C=32, 4 heads against
-    `egcl_layer_pallas(accurate=True)` in interpret mode, the weights drawn
-    by the JAX EGNN and carried across with `params_from_jax`."""
+# KITTI's width, one head, on the padded instantiation (CP=36)
+CASES33 = [(1, 48, 16, "uniform"), (1, 40, 7, "uniform"), (1, 48, 20, "uniform"),
+           (1, 48, 16, "repeated")]
+CASE33_IDS = ["C33-K16", "C33-K7-masked-rows", "C33-K20-two-row-tiles", "C33-repeated-points"]
+
+
+@pytest.mark.parametrize("b,n,k,points", CASES33, ids=CASE33_IDS)
+def test_emulated_f32_forward_at_c33_matches_the_plain_accurate_layer(fwd, b, n, k, points):
+    p = _layer(1, seed=33 + k, c=33)
+    h, x, nbr = _inputs(b, n, k, points, seed=33 + k, c=33)
+    gh, gx, gm = _forward(fwd, h, x, nbr, p)
+    rh, rx, rm = tk.egcl_layer_plain(h, x, nbr, p, accurate=True, return_aggm=True)
+    assert all(bool(torch.isfinite(t).all()) for t in (gh, gx, gm))
+    errs = dict(h=_rel(gh, rh), u=_rel(gx - x, rx - x), agg_m=_rel(gm, rm))
+    assert max(errs.values()) <= FWD_TOL, errs
+    gh2, gx2, _ = _forward(fwd, h, x, nbr, p, aggm=False)
+    assert torch.equal(gh2, gh) and torch.equal(gx2, gx)
+
+
+def _jax_forward_case(fwd, c, heads):
+    """One layer at B=1, N=128, K=16, width c with `heads` heads: the
+    kernel's (h′, x′) and `egcl_layer_pallas(accurate=True)`'s in interpret
+    mode, the weights drawn by the JAX EGNN and carried across with
+    `params_from_jax`; returns (x, kernel h′, kernel x′, JAX h′, JAX x′)."""
     import jax
     import jax.numpy as jnp
 
@@ -166,20 +189,35 @@ def test_emulated_f32_forward_matches_the_jax_pallas_kernel(fwd):
         egcl_layer_pallas, params_from_tree)
     from se3_equi_graph_registration_tpu_torch.train.checkpoints import params_from_jax
 
-    h, x, nbr = _inputs(1, 128, 16, "uniform", seed=9)
-    jmod = JaxEGNN(in_node_nf=32, hidden_nf=32, out_node_nf=32, n_layers=1, num_heads=4)
+    h, x, nbr = _inputs(1, 128, 16, "uniform", seed=9, c=c)
+    jmod = JaxEGNN(in_node_nf=c, hidden_nf=c, out_node_nf=c, n_layers=1, num_heads=heads)
     params = jax.tree_util.tree_map(np.asarray, jax.jit(jmod.init)(
         jax.random.PRNGKey(0), h.numpy(), x.numpy(), nbr.numpy()))
     jh, jx = egcl_layer_pallas(jnp.asarray(h.numpy()).swapaxes(1, 2),
                                jnp.asarray(x.numpy()).swapaxes(1, 2), jnp.asarray(nbr.numpy()),
                                params_from_tree(params["params"]["gcl_0"]), tile_t=128,
                                chunk=512, interpret=True, accurate=True)
-    egnn = EGNN(in_node_nf=32, hidden_nf=32, out_node_nf=32, n_layers=1, num_heads=4)
+    egnn = EGNN(in_node_nf=c, hidden_nf=c, out_node_nf=c, n_layers=1, num_heads=heads)
     sd = params_from_jax({"egnn": params["params"], "mlp": {}})
     egnn.load_state_dict({k[len("egnn."):]: v for k, v in sd.items()})
     gh, gx, _ = _forward(fwd, h, x, nbr, tk.params_from_layer(egnn.gcl_0))
     jh = torch.from_numpy(np.asarray(jh).swapaxes(1, 2).copy())
     jx = torch.from_numpy(np.asarray(jx).swapaxes(1, 2).copy())
+    return x, gh, gx, jh, jx
+
+
+def test_emulated_f32_forward_matches_the_jax_pallas_kernel(fwd):
+    """One layer at B=1, N=128, K=16, C=32, 4 heads against
+    `egcl_layer_pallas(accurate=True)` in interpret mode, the weights drawn
+    by the JAX EGNN and carried across with `params_from_jax`."""
+    x, gh, gx, jh, jx = _jax_forward_case(fwd, 32, 4)
+    assert _rel(gh, jh) <= FWD_TOL
+    assert _rel(gx - x, jx - x) <= 1e-4      # the Pallas update's own fp32 budget (test_torch_egcl)
+
+
+def test_emulated_f32_forward_at_c33_matches_the_jax_pallas_kernel(fwd):
+    """The same at C=33 with one head, on the padded build (CP=36)."""
+    x, gh, gx, jh, jx = _jax_forward_case(fwd, 33, 1)
     assert _rel(gh, jh) <= FWD_TOL
     assert _rel(gx - x, jx - x) <= 1e-4      # the Pallas update's own fp32 budget (test_torch_egcl)
 
@@ -196,12 +234,13 @@ def _backward(fn, h, x, nbr, p, dagg_m, dagg_x):
     b, n, k = nbr.shape
     dh, dx = torch.empty_like(h), torch.empty_like(x)
     dh_nbr, dx_nbr = torch.zeros_like(h), torch.zeros_like(x)
-    grads = torch.zeros(5 * 32 * 32 + 18 * 32)
+    c = h.shape[-1]
+    grads = torch.zeros(5 * c * c + 18 * c)
     buf = tk.pack_params_f32(p)
     assert fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), buf.data_ptr(), dagg_m.data_ptr(),
               dagg_x.data_ptr(), dh.data_ptr(), dx.data_ptr(), dh_nbr.data_ptr(),
-              dx_nbr.data_ptr(), grads.data_ptr(), b, n, k, p.head_width, None) == 0
-    return dh + dh_nbr, dx + dx_nbr, eb._unpack_grads(grads, 32)
+              dx_nbr.data_ptr(), grads.data_ptr(), b, n, k, c, p.head_width, None) == 0
+    return dh + dh_nbr, dx + dx_nbr, eb._unpack_grads(grads, c)
 
 
 @pytest.mark.parametrize("b,n,k,heads,points", CASES + [(1, 48, 16, 4, "coordinate-path")],
@@ -222,6 +261,29 @@ def test_emulated_f32_backward_matches_the_plain_accurate_backward(bwd, b, n, k,
     pairs = dict(dh=(dh, rh), dx=(dx, rx), **{q: (grads[q], rg[q]) for q in rg})
     for name, (got, _) in pairs.items():
         assert bool(torch.isfinite(got).all()), name
+    errs = {name: _rel(got, ref) for name, (got, ref) in pairs.items()}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= BWD_TOL, (worst, errs)
+
+
+@pytest.mark.parametrize("b,n,k,points", CASES33 + [(1, 48, 16, "coordinate-path")],
+                         ids=CASE33_IDS + ["C33-coordinate-path"])
+def test_emulated_f32_backward_at_c33_matches_the_plain_accurate_backward(bwd, b, n, k, points):
+    """dh, dx and the 11 parameter gradients at C=33 with one head, at their
+    true shapes; 'coordinate-path' as at C=32."""
+    rng = np.random.default_rng(133 + k)
+    p = _layer(1, seed=33 + k, c=33)
+    h, x, nbr = _inputs(b, n, k, "uniform" if points == "coordinate-path" else points,
+                        seed=33 + k, c=33)
+    dagg_m = torch.from_numpy(rng.standard_normal((b, n, 33)).astype(np.float32))
+    if points == "coordinate-path":
+        dagg_m.zero_()
+    dagg_x = torch.from_numpy(rng.standard_normal((b, n, 3)).astype(np.float32))
+    dh, dx, grads = _backward(bwd, h, x, nbr, p, dagg_m, dagg_x)
+    rh, rx, rg = eb.egcl_backward_plain(h, x, nbr, p, dagg_m, dagg_x, accurate=True)
+    pairs = dict(dh=(dh, rh), dx=(dx, rx), **{q: (grads[q], rg[q]) for q in rg})
+    for name, (got, ref) in pairs.items():
+        assert bool(torch.isfinite(got).all()) and got.shape == ref.shape, name
     errs = {name: _rel(got, ref) for name, (got, ref) in pairs.items()}
     worst = max(errs, key=errs.get)
     assert errs[worst] <= BWD_TOL, (worst, errs)

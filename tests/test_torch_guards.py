@@ -100,7 +100,8 @@ def test_import_pulls_in_no_jax(module, imported_jax):
     assert imported_jax[module] == [], imported_jax[module]
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "spfh_sweep.py", "egcl_f32_sweep.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "spfh_sweep.py", "egcl_f32_sweep.py",
+                                    "egcl_f32_numerics.py"])
 def test_card_scripts_import_no_jax(script):
     """The scripts run on the card machine, which has no jax: no import
     statement in them, at any depth, names jax or the JAX package."""
@@ -419,15 +420,17 @@ def test_register_fpfh_rejects_unported_options(monkeypatch):
 
 @pytest.mark.parametrize("c,head_width,accurate,want", [
     (32, 8, True, "tile_f32"), (32, 8, False, "tile"), (32, 1, True, "tile_f32"),
-    (32, 32, True, "tile_f32"), (33, 33, True, "simt"), (33, 1, False, "simt"),
+    (32, 32, True, "tile_f32"), (33, 33, True, "tile_f32"), (33, 1, False, "simt"),
     (32, 12, True, "simt"), (32, 12, False, "simt"), (64, 8, True, "simt"),
+    (37, 37, True, "simt"),
 ], ids=["c32-accurate", "c32-fast", "c32-32heads-accurate", "c32-1head-accurate",
         "c33-accurate", "c33-fast", "heads-not-dividing-32-accurate",
-        "heads-not-dividing-32-fast", "c64-accurate"])
+        "heads-not-dividing-32-fast", "c64-accurate", "c37-accurate"])
 def test_egcl_variant_names_one_kernel_per_shape_and_mode(c, head_width, accurate, want):
-    """Accurate mode at C=32 with whole heads runs the fp32 tile kernels,
-    fast mode there the bf16 tile kernels, every other shape the SIMT
-    kernels; `check_variant` returns that choice when asked for none."""
+    """Accurate mode at C=32 and at 32 < C <= 36 with whole heads runs the
+    fp32 tile kernels (padded to 36 channels above 32), fast mode at C=32
+    the bf16 tile kernels, every other shape and mode the SIMT kernels;
+    `check_variant` returns that choice when asked for none."""
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
 
     assert egcl.egcl_variant(c, 16, head_width, accurate) == want
@@ -436,10 +439,11 @@ def test_egcl_variant_names_one_kernel_per_shape_and_mode(c, head_width, accurat
 
 
 @pytest.mark.parametrize("variant,c,head_width,accurate", [
-    ("tile_f32", 32, 8, False), ("tile", 32, 8, True), ("tile_f32", 33, 33, True),
+    ("tile_f32", 32, 8, False), ("tile", 32, 8, True), ("tile_f32", 33, 33, False),
     ("tile", 33, 1, False), ("tile_f32", 32, 12, True), ("wgmma", 32, 8, True),
+    ("tile_f32", 37, 37, True),
 ], ids=["f32-in-fast-mode", "bf16-in-accurate-mode", "f32-at-c33", "bf16-at-c33",
-        "f32-heads-not-dividing-32", "unknown"])
+        "f32-heads-not-dividing-32", "unknown", "f32-above-the-padded-width"])
 def test_a_kernel_variant_the_shape_lacks_raises(variant, c, head_width, accurate):
     """Asked for a kernel that the shape and mode do not have, both EGCL
     wrappers raise before any launch, on any device."""
