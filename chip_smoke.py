@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases knn,egcl,serve,bwd,train,fpfh,robust,cli,serve_extra,variants,
-                                    multiway,tools,dist,point,extras]
+                                    multiway,tools,dist,point,extras,kitti]
 
 Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
@@ -10,9 +10,9 @@ version on the card at the main paths' shapes. B1 packed, B1 exact (over a
 window and over the whole cloud) and B4 each have a warp-a-query kernel on
 the paths and the thread-a-query kernel kept to compare; the EGCL forward
 and backward have, at C=32, a bf16 tensor-core tile kernel for fast mode
-and an fp32 register-blocked tile kernel for accurate mode, the fp32 tile
-kernel built a second time at 36 channels for accurate mode at 32 < C <=
-36 (KITTI's C=33, one head: zero pads), and a SIMT kernel for the other
+and an fp32 register-blocked tile kernel for accurate mode, each built a
+second time for 32 < C <= 36 (KITTI's C=33, one head: zero pads), the bf16
+one at 48 channels and the fp32 one at 36, and a SIMT kernel for the other
 shapes that each tile kernel is also timed and held against; all are held
 against their plain versions, and each pair is timed in the same run. Then
 it drives the four main paths, each with the launch counters set to 0 just
@@ -169,7 +169,15 @@ everything runs):
   (2 warp B4, 2 'redux' B5), `denoise` for 50 steps at n=2048, k=16 (the
   plain EGNN and k-NN: no kernel), and the `multihost_train` worker in a
   one-rank NCCL group (N=2048, 16 pairs, 2 epochs: 4 warp B1, 12 fp32 tile
-  B2 and 12 B3).
+  B2 and 12 B3);
+- KITTI's width in fast mode (`kitti`; N=2048, C=33, 1 head, top_k=2048,
+  3 layers, on the bf16 tile kernels built at 48 channels): (a) a `.pth`
+  the port's exporter writes from seeded weights, served as README.md
+  shows by `Registrar.from_checkpoint(path, robust=True)` on the card and
+  on the CPU: `register()` at B=16 and 64 (2 warp B1 and 6 B2 a call),
+  `register_raw` on a 20 000-point bumpy-surface pair (3 warp B1, 6 B2);
+  (b) one fast train step at B=8 (2 warp B1, 6 B2 and 6 B3), card against
+  CPU on the same batch and weights, then 5 timed steps and a profile.
 Any failed check raises (non-zero exit, no result line). The last line is
 one JSON object with the device.
 
@@ -197,7 +205,11 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
 - egcl fast: tol 2e-2 on h′ and 1e-2 on u (measured 2.2e-3 on h′ and
   5.5e-4 on u at C=32): both round the same operands to bf16, but a sum that
   differs in its last fp32 bit can round to the next bf16 value (2⁻⁸
-  relative), and that propagates.
+  relative), and that propagates. At C=33 on the bf16 tile kernel built at
+  48 channels the same, with its stages and agg_m, in the cases of the
+  fp32 kernel at C=33 and with three heads of 11 (heads that straddle the
+  16-channel k-steps); against SIMT at twice the tolerances, both timed at
+  B=8 and B=64.
 - register() card vs CPU: ‖ΔR‖_F/√2 ≤ 2e-3, |Δt| ≤ 2e-3 m, covariance and
   similarity mean within 2e-2 relative (fast mode on both sides). The
   robust phase holds its three cases at the same gate (the fused
@@ -233,7 +245,9 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   forward's stages (measured ≤ 8.3e-4 in the CPU emulation); the backward
   at fast 5e-3 in every case (K=12, 16, 20, head widths 8 and 32, repeated
   points, B=1); tile against SIMT (the same function in two orders of
-  summation) at 1e-2 of the scale.
+  summation) at 1e-2 of the scale. At C=33 on the kernel built at 48
+  channels the same: its stages, the C=33 cases, three heads of 11 and the
+  coordinate path, against SIMT at 1e-2, both timed at B=8 and B=64.
 - train, accurate step at B=2 (every EGCL launch on the fp32 tile kernels),
   card vs CPU: loss within 1e-4 relative;
   every parameter's gradient at cosine ≥ 0.9999 and relative L2 ≤ 1e-4
@@ -322,6 +336,19 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   the Kabsch path by that much (the first card run measured 1.01e-4 on
   `egnn.gcl_1.edge_mlp.head_biases` at cosine 1 - 3.6e-11: a scale, not a
   direction).
+- kitti: (a) register() card vs CPU at the serve gate at B=16 and 64;
+  register_raw as serve_extra's (b) (the tables identical, matches ≥ 99.5%,
+  register() on the CPU's matched set at the serve gate, the full gap
+  printed); (b) the fast train step, card vs CPU: every loss term within
+  BWD_TOL_FAST (5e-3) relative; the score-MLP's ReLU inputs within
+  EGNN_TOL_FAST (2e-2) of each layer's largest, and with the CPU on the
+  card's side of each ReLU whose input the two put on opposite sides of 0
+  (the cli gate's guard), every gradient within EGNN_TOL_FAST relative L2.
+  Fast mode rounds the EGNN's operands to bf16 on both sides in another
+  order of the fp32 sums, so the score MLP's inputs agree only to the fast
+  forward's tolerance and the cli gate's SCORE_KINK_TOL (1e-5, fp32 on
+  both sides) does not apply; the same step on the card on the SIMT
+  kernels is printed beside it (the gap is the rounding order's).
 - serve_extra: (a) the clique keeps ≥ 80% of the inliers and ≤ 10% of the
   outliers, the card's clique_inliers equal the host labels' count (both
   sides label on the host), R and t at the serving gate (2e-3); (b) the
@@ -414,6 +441,10 @@ PEAK_BF16 = 989e12
 SLEEP_CYCLES_PER_CALL = 400_000   # ~0.2 ms at the H100's clocks, above a wrapper's host time
 BWD_TOL_ACCURATE = 1e-4
 EGNN_TOL_ACCURATE = 1e-4     # card vs CPU after a whole accurate EGNN pass, of the scale
+# card vs CPU in fast mode after the EGNN (and through it), of the scale: the
+# fast forward's tolerance on h′ (a sum that differs in its last fp32 bit can
+# round an operand to the next bf16 value, 2⁻⁸ relative, and that propagates)
+EGNN_TOL_FAST = 2e-2
 BWD_TOL_FAST = 5e-3
 # csrc/spfh.cu, fp32 operations per edge: d and d² (8), sqrt and d̂ (5), the
 # two source-pick dots (12), the v cross, norm and divides (20), w (9), four
@@ -536,18 +567,24 @@ def only(variant, n):
 
 
 def by_row(wrapper, by_variant, c=32):
-    """An EGCL wrapper's launches by kernel row on a path of width c: the
-    bf16 tile kernel's row (named as the wrapper) counts 'tile'; the fp32
-    tile kernel's 'tile_f32', in the row of the width it was built at: '_f32'
-    (CP=32) at C=32, '_f32_cp36' (CP=36) at 32 < C <= 36; the SIMT kernels
-    have no row of their own (no path launches them)."""
+    """An EGCL wrapper's launches by kernel row on a path of width c, each
+    in the row of the width its kernel was built at: the bf16 tile kernel's
+    'tile' in the row named as the wrapper (CP=32) at C=32, '_cp48' (CP=48)
+    at 32 < C <= 36; the fp32 tile kernel's 'tile_f32' in '_f32' (CP=32) at
+    C=32, '_f32_cp36' (CP=36) at 32 < C <= 36. The SIMT kernels have no row
+    of their own: a path that launched one fails."""
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
 
-    cp = egcl.f32_width(c)
+    cp, tp = egcl.f32_width(c), egcl.tile_width(c)
     check(cp is not None or by_variant["tile_f32"] == 0,
           f"{wrapper}: 'tile_f32' launches at C={c}, which no fp32 tile width runs")
+    check(tp is not None or by_variant["tile"] == 0,
+          f"{wrapper}: 'tile' launches at C={c}, which no bf16 tile width runs")
+    check(by_variant["simt"] == 0, f"{wrapper}: {by_variant['simt']} SIMT launches at C={c} "
+          f"on a driven path")
     f32 = f"{wrapper}_f32_cp36" if cp == 36 else f"{wrapper}_f32"
-    return {wrapper: by_variant["tile"], f32: by_variant["tile_f32"]}
+    tile = f"{wrapper}_cp48" if tp == 48 else wrapper
+    return {tile: by_variant["tile"], f32: by_variant["tile_f32"]}
 
 
 def reset_backward_counters(eb):
@@ -748,99 +785,126 @@ def egcl_backward_phase(torch, p, h, xs, nbr, gen):
 
 
 def egcl_backward_c33_phase(torch, xs, nbr, gen):
-    """B3 at KITTI's width (C=33, one head), accurate mode on the fp32 tile
-    kernel built at CP=36: in every case of `c33_cases` and on the
-    coordinate path alone (dagg_m = 0, the coord output at O(1/√C)),
-    against the plain accurate version at BWD_TOL_ACCURATE; then at B=8 and
-    at the run's batch the fp32 tile and the SIMT kernel, each against the
-    plain version, against each other at twice the tolerance and timed,
-    with the bound at C=33; fast mode at C=33 on the SIMT kernel. Returns
-    the padded kernel's row (its numbers at the run's batch, B=8's under
-    `b8`)."""
+    """B3 at KITTI's width (C=33, one head) on the tile kernels built at a
+    padded width, in both modes (`egcl_backward_c33_mode`): accurate on the
+    fp32 kernel at CP=36, fast on the bf16 kernel at CP=48. Returns their
+    rows, fp32 then bf16."""
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
-    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
 
     dev = xs.device
     bsz, n = xs.shape[:2]
-    b8 = min(8, bsz)
     p33, h33 = c33_inputs(torch, xs, nbr, gen)
-    packed = egcl.pack_for_kernels(p33)
     dm = torch.randn(bsz, n, 33, generator=gen).to(dev)
     dx = torch.randn(bsz, n, 3, generator=gen).to(dev)
-    h8, x8, nbr8 = h33[:b8].contiguous(), xs[:b8].contiguous(), nbr[:b8].contiguous()
     pc = p33._replace(wc1=torch.randn(1, 33, generator=gen).to(dev) / 33 ** 0.5)
-    cases = [(*case, dm[:b8]) for case in c33_cases(torch, p33, h8, x8, nbr8)]
-    cases.append(("C=33, coordinate path", h8, x8, nbr8, pc, torch.zeros_like(dm[:b8])))
+    p3 = c33_heads3(torch, dev)
+    packed = egcl.pack_for_kernels(p33)
+    return tuple(egcl_backward_c33_mode(torch, p33, p3, pc, packed, h33, xs, nbr, dm, dx, accurate)
+                 for accurate in (True, False))
+
+
+def egcl_backward_c33_mode(torch, p33, p3, pc, packed, h33, xs, nbr, dm, dx, accurate):
+    """B3 at C=33 in one mode on its tile kernel ('tile_f32' built at CP=36
+    in accurate mode, 'tile' at CP=48 in fast mode): in fast mode first its
+    per-edge cotangents (dcm_in, dv, du) against the plain fast version's
+    at 2e-2 of the scale; then the backward in every case of `c33_cases`,
+    with three heads of 11 (`p3`) and on the coordinate path alone (dagg_m
+    = 0, the coord output `pc` at O(1/√C)), against the plain version at
+    the mode's tolerance (BWD_TOL_ACCURATE, BWD_TOL_FAST); then at B=8 and
+    at the run's batch the tile and the SIMT kernel, each against the plain
+    version, against each other at twice the tolerance and timed, with the
+    bound at C=33 on the mode's peak. Returns the kernel's row (its numbers
+    at the run's batch, B=8's under `b8`)."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+
+    bsz, n = xs.shape[:2]
+    b8 = min(8, bsz)
+    tile = "tile_f32" if accurate else "tile"
+    cp = egcl.f32_width(33) if accurate else egcl.tile_width(33)
+    mode = f"{'accurate' if accurate else 'fast'} {tile} CP={cp}"
+    h8, x8, nbr8 = h33[:b8].contiguous(), xs[:b8].contiguous(), nbr[:b8].contiguous()
+    dm8, dx8 = dm[:b8].contiguous(), dx[:b8].contiguous()
+    if not accurate:
+        stages = eb.egcl_backward_tile_stages(h8, x8, nbr8, p33, dm8, dx8)
+        torch.cuda.synchronize()
+        refs = eb.backward_stages_plain(h8, x8, nbr8, p33, dm8, dx8, accurate=False)
+        for name, g_, r_ in zip(("dcm_in", "dv", "du"), stages, refs):
+            err, scale = (g_ - r_).abs().max().item(), r_.abs().max().item()
+            check(scale > 0 and err <= 2e-2 * scale,
+                  f"egcl_backward C=33 tile stage {name}: max|Δ| {err} against scale {scale}")
+            log(f"egcl_backward {mode} stage {name} B={b8}: max|Δ| {err:.3g} "
+                f"(rel {err / scale:.3g})")
+    cases = [(*case, dm8) for case in c33_cases(torch, p33, h8, x8, nbr8)]
+    cases.append(("C=33, 3 heads of 11", h8, x8, nbr8, p3, dm8))
+    cases.append(("C=33, coordinate path", h8, x8, nbr8, pc, torch.zeros_like(dm8)))
     for name, h_, x_, nbr_, p_, dm_ in cases:
         b_ = h_.shape[0]
-        dm_, dx_ = dm_[:b_].contiguous(), dx[:b_].contiguous()
-        check(egcl.egcl_variant(33, nbr_.shape[-1], p_.head_width, True) == "tile_f32",
-              f"egcl_backward case {name} is not routed to the fp32 tile kernel")
+        dm_, dx_ = dm_[:b_].contiguous(), dx8[:b_].contiguous()
+        check(egcl.egcl_variant(33, nbr_.shape[-1], p_.head_width, accurate) == tile,
+              f"egcl_backward case {name} is not routed to the {tile} kernel")
         reset_backward_counters(eb)
-        got = eb.egcl_backward(h_, x_, nbr_, p_, dm_, dx_, True)
+        got = eb.egcl_backward(h_, x_, nbr_, p_, dm_, dx_, accurate)
         torch.cuda.synchronize()
-        check(eb.egcl_backward.launches_by_variant == only("tile_f32", 1),
+        check(eb.egcl_backward.launches_by_variant == only(tile, 1),
               f"egcl_backward case {name} launched {eb.egcl_backward.launches_by_variant}")
         check(all(bool(torch.isfinite(t_).all()) for t_ in (got[0], got[1], *got[2].values())),
               f"egcl_backward case {name}: non-finite output")
-        errs = backward_errors(got, eb.egcl_backward_plain(h_, x_, nbr_, p_, dm_, dx_, True),
-                               True, f"case {name}")
-        log_backward_errors(errs, f"f32 CP=36 case {name}, B={b_}")
+        errs = backward_errors(got, eb.egcl_backward_plain(h_, x_, nbr_, p_, dm_, dx_, accurate),
+                               accurate, f"{mode} case {name}")
+        log_backward_errors(errs, f"{mode} case {name}, B={b_}")
+    tol = BWD_TOL_ACCURATE if accurate else BWD_TOL_FAST
     stats = {}
     for b in sorted({b8, bsz}):
         h_, x_, nbr_ = h33[:b].contiguous(), xs[:b].contiguous(), nbr[:b].contiguous()
         dm_, dx_ = dm[:b].contiguous(), dx[:b].contiguous()
         k = nbr_.shape[-1]
-        ref = eb.egcl_backward_plain(h_, x_, nbr_, p33, dm_, dx_, True)
+        ref = eb.egcl_backward_plain(h_, x_, nbr_, p33, dm_, dx_, accurate)
         plain = cuda_ms(torch, lambda: eb.egcl_backward_plain(h_, x_, nbr_, p33, dm_, dx_,
-                                                               True), 2)
+                                                               accurate), 2)
         outs = {}
-        for variant in ("tile_f32", "simt"):
+        for variant in (tile, "simt"):
             reset_backward_counters(eb)
-            got = eb.egcl_backward(h_, x_, nbr_, p33, dm_, dx_, True, packed, variant)
+            got = eb.egcl_backward(h_, x_, nbr_, p33, dm_, dx_, accurate, packed, variant)
             torch.cuda.synchronize()
             check(eb.egcl_backward.launches_by_variant == only(variant, 1),
                   f"egcl_backward C=33 {variant} launched {eb.egcl_backward.launches_by_variant}")
-            errs = backward_errors(got, ref, True, f"C=33 {variant} B={b}")
-            ms = cuda_ms(torch, lambda: eb.egcl_backward(h_, x_, nbr_, p33, dm_, dx_, True,
+            errs = backward_errors(got, ref, accurate, f"C=33 {variant} B={b}")
+            ms = cuda_ms(torch, lambda: eb.egcl_backward(h_, x_, nbr_, p33, dm_, dx_, accurate,
                                                           packed, variant), 5)
             stats[b, variant] = (ms, plain, max(e for e, _ in errs.values()))
             outs[variant] = got
-            log_backward_errors(errs, f"C=33, 1 head, accurate {variant}, B={b} N={n} K={k}")
-            log(f"egcl_backward[C=33 accurate {variant}] B={b}: kernel {ms:.4f} ms, plain "
-                f"{plain:.3f} ms")
-        errs = backward_errors(outs["tile_f32"], outs["simt"], True,
-                               f"C=33 tile_f32 vs simt B={b}", tol=2 * BWD_TOL_ACCURATE)
-        log_backward_errors(errs, f"C=33 tile_f32 vs simt, B={b}")
+            log_backward_errors(errs, f"C=33, 1 head, {mode if variant == tile else 'simt'}, "
+                                      f"B={b} N={n} K={k}")
+            log(f"egcl_backward[C=33 {'accurate' if accurate else 'fast'} {variant}] B={b}: "
+                f"kernel {ms:.4f} ms, plain {plain:.3f} ms")
+        errs = backward_errors(outs[tile], outs["simt"], accurate,
+                               f"C=33 {tile} vs simt B={b}", tol=2 * tol)
+        log_backward_errors(errs, f"C=33 {tile} vs simt, B={b}")
         ops, nbytes = egcl_backward_bound(33, p33.head_width, b, n, k, packed.simt.numel())
-        bound, by = bound_ms(nbytes, ops, PEAK_FP32)
+        bound, by = bound_ms(nbytes, ops, PEAK_FP32 if accurate else PEAK_BF16)
         stats[b, "bound"] = (bound, by)
-        tile_ms, simt_ms = stats[b, "tile_f32"][0], stats[b, "simt"][0]
-        log(f"egcl_backward C=33 B={b}: bound {ops / (b * n * k):.0f} FLOP/edge, {bound:.4f} ms "
-            f"({by}); tile_f32 {tile_ms:.4f} ms at {100 * bound / tile_ms:.2f}%, SIMT "
-            f"{simt_ms:.4f} ms at {100 * bound / simt_ms:.2f}% ({simt_ms / tile_ms:.2f}x); "
-            f"{card_line()}")
-    reset_backward_counters(eb)
-    got = eb.egcl_backward(h8, x8, nbr8, p33, dm[:b8].contiguous(), dx[:b8].contiguous(), False)
-    check(eb.egcl_backward.launches_by_variant == only("simt", 1),
-          f"egcl_backward C=33 fast launched {eb.egcl_backward.launches_by_variant}")
-    errs = backward_errors(got, eb.egcl_backward_plain(h8, x8, nbr8, p33, dm[:b8].contiguous(),
-                                                       dx[:b8].contiguous(), False),
-                           False, "C=33 fast")
-    log_backward_errors(errs, f"C=33, 1 head, fast simt, B={b8}")
+        tile_ms, simt_ms = stats[b, tile][0], stats[b, "simt"][0]
+        log(f"egcl_backward C=33 {mode} B={b}: bound {ops / (b * n * k):.0f} FLOP/edge, "
+            f"{bound:.4f} ms ({by}, {'fp32' if accurate else 'bf16'} peak); {tile} "
+            f"{tile_ms:.4f} ms at {100 * bound / tile_ms:.2f}%, SIMT {simt_ms:.4f} ms at "
+            f"{100 * bound / simt_ms:.2f}% ({simt_ms / tile_ms:.2f}x); {card_line()}")
     src = "se3_equi_graph_registration_tpu_torch/csrc/"
-    return c33_row(stats, "egcl_backward_f32_cp36", src + "egcl_backward_tile_f32.cu",
+    return c33_row(stats, "egcl_backward_f32_cp36" if accurate else "egcl_backward_cp48",
+                   src + ("egcl_backward_tile_f32.cu" if accurate else "egcl_backward_tile.cu"),
                    "se3_equi_graph_registration_tpu/ops/pallas/egcl_backward.py:53",
-                   src + "egcl_backward.cu", bsz, b8)
+                   src + "egcl_backward.cu", bsz, b8, tile, cp)
 
 
 PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh", "robust", "cli", "serve_extra",
-          "variants", "multiway", "tools", "dist", "point", "extras")
+          "variants", "multiway", "tools", "dist", "point", "extras", "kitti")
 ROW_ORDER = ("knn_window", "egcl_layer", "egcl_layer_f32", "egcl_layer_f32_cp36",
-             "egcl_backward", "egcl_backward_f32", "egcl_backward_f32_cp36", "knn_chunked", "spfh")
+             "egcl_layer_cp48", "egcl_backward", "egcl_backward_f32", "egcl_backward_f32_cp36",
+             "egcl_backward_cp48", "knn_chunked", "spfh")
 # the phases whose paths launch each kernel row's kernel
 DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust", "cli", "serve_extra",
-                             "variants", "multiway", "tools", "dist", "point", "extras"),
+                             "variants", "multiway", "tools", "dist", "point", "extras",
+                             "kitti"),
                  egcl_layer=("serve", "train", "robust", "serve_extra", "variants", "tools",
                              "dist", "extras"),
                  egcl_layer_f32=("serve", "train", "cli", "variants", "tools", "dist", "point",
@@ -851,6 +915,9 @@ DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust", "cli", "serve_e
                  # the fp32 tile kernels built at CP=36: KITTI's C=33 (the kitti preset)
                  egcl_layer_f32_cp36=("cli", "serve_extra"),
                  egcl_backward_f32_cp36=("cli",),
+                 # the bf16 tile kernels built at CP=48: KITTI's C=33 in fast mode
+                 egcl_layer_cp48=("kitti",),
+                 egcl_backward_cp48=("kitti",),
                  knn_chunked=("fpfh", "robust", "serve_extra", "multiway", "tools", "dist",
                               "extras"),
                  spfh=("fpfh", "robust", "serve_extra", "multiway", "tools", "dist", "extras"))
@@ -969,13 +1036,15 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
         rows["knn_window"], rows["knn_chunked"] = knn_phase(torch, x, xs, k, tile, window)
     if "egcl" in phases:
         rows["egcl_layer"], rows["egcl_layer_f32"] = egcl_phase(torch, p, h, xs, nbr, gen)
-        rows["egcl_layer_f32_cp36"] = egcl_c33_phase(torch, xs, nbr, gen)
+        rows["egcl_layer_f32_cp36"], rows["egcl_layer_cp48"] = egcl_c33_phase(torch, xs, nbr,
+                                                                               gen)
     if "serve" in phases:
         serve_phase(torch, dev, cfg, bsz, sd, rows)
     if "bwd" in phases:
         rows["egcl_backward"], rows["egcl_backward_f32"] = egcl_backward_phase(
             torch, p, h, xs, nbr, gen)
-        rows["egcl_backward_f32_cp36"] = egcl_backward_c33_phase(torch, xs, nbr, gen)
+        rows["egcl_backward_f32_cp36"], rows["egcl_backward_cp48"] = egcl_backward_c33_phase(
+            torch, xs, nbr, gen)
     if "train" in phases:
         train_phase(torch, dev, cfg, bsz, rows)
     if "fpfh" in phases:
@@ -1000,6 +1069,8 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
         point_phase(torch, dev, rows)
     if "extras" in phases:
         extras_phase(torch, dev, cfg, rows)
+    if "kitti" in phases:
+        kitti_phase(torch, dev, rows)
     for name, row in rows.items():
         if any(ph in phases for ph in DRIVEN_BY[name]):
             check(row["launches"] > 0, f"{name}: no launch on the paths this run drove")
@@ -1456,103 +1527,137 @@ def egcl_phase(torch, p, h, xs, nbr, gen):
 
 
 def egcl_c33_phase(torch, xs, nbr, gen):
-    """B2 at KITTI's width (C=33, one head), accurate mode on the fp32 tile
-    kernel built at CP=36: in every case of `c33_cases`, with and without
-    agg_m, against the plain accurate version (1e-4 of the scale on h′, the
-    update and agg_m); then at B=8 and at the run's batch the fp32 tile and
-    the SIMT kernel (`variant='simt'`), each against the plain version,
-    against each other at 2e-4 and timed, with the bound at C=33; fast mode
-    at C=33 on the SIMT kernel. Returns the padded kernel's row (its
-    numbers at the run's batch, B=8's under `b8`)."""
+    """B2 at KITTI's width (C=33, one head) on the tile kernels built at a
+    padded width, in both modes (`egcl_c33_mode`): accurate on the fp32
+    kernel at CP=36, fast on the bf16 kernel at CP=48. Returns their rows,
+    fp32 then bf16."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+
+    p33, h33 = c33_inputs(torch, xs, nbr, gen)
+    packed = egcl.pack_for_kernels(p33)
+    check(packed.f32 is not None and packed.f32.numel() == 15552 and packed.tile is not None
+          and packed.tile.numel() == 8832 and packed.tile_bwd.numel() == 4992,
+          "egcl C=33: the tile buffers are not the CP=36 and CP=48 ones")
+    p3 = c33_heads3(torch, xs.device)
+    return tuple(egcl_c33_mode(torch, p33, p3, packed, h33, xs, nbr, accurate)
+                 for accurate in (True, False))
+
+
+def c33_heads3(torch, dev):
+    """A C=33 layer with three heads of 11 (heads that straddle the
+    16-channel k-steps), seeded apart from the smoke's other draws."""
+    from se3_equi_graph_registration_tpu_torch.models.egnn import EGNN
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(11)
+        m = EGNN(in_node_nf=33, hidden_nf=33, out_node_nf=33, n_layers=1, num_heads=3)
+    return egcl.params_from_layer(m.to(dev).gcl_0)
+
+
+def egcl_c33_mode(torch, p33, p3, packed, h33, xs, nbr, accurate):
+    """B2 at C=33 in one mode on its tile kernel ('tile_f32' built at CP=36
+    in accurate mode, 'tile' at CP=48 in fast mode): in fast mode first its
+    per-edge stages s1 and m against the plain fast version's at 2e-2 of
+    the scale; then the layer in every case of `c33_cases` and with three
+    heads of 11 (`p3`), with and without agg_m, against the plain version
+    at the mode's tolerance (`egcl_errors`; agg_m as h′); then at B=8 and
+    at the run's batch the tile and the SIMT kernel (`variant='simt'`),
+    each against the plain version, against each other at twice the
+    tolerance and timed, with the bound at C=33 on the mode's peak. Returns
+    the kernel's row (its numbers at the run's batch, B=8's under `b8`)."""
     from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl
 
     bsz, n = xs.shape[:2]
     b8 = min(8, bsz)
-    p33, h33 = c33_inputs(torch, xs, nbr, gen)
-    packed = egcl.pack_for_kernels(p33)
-    check(packed.f32 is not None and packed.f32.numel() == 15552 and packed.tile is None,
-          "egcl C=33: the fp32 tile buffer is not the CP=36 one")
-    for name, h_, x_, nbr_, p_ in c33_cases(torch, p33, h33[:b8].contiguous(),
-                                            xs[:b8].contiguous(), nbr[:b8].contiguous()):
-        check(egcl.egcl_variant(33, nbr_.shape[-1], p_.head_width, True) == "tile_f32",
-              f"egcl case {name} is not routed to the fp32 tile kernel")
-        reset_egcl_counters(egcl)
-        gh, gx, gm = egcl.egcl_layer(h_, x_, nbr_, p_, True, return_aggm=True)
-        gh2, gx2 = egcl.egcl_layer(h_, x_, nbr_, p_, True)
+    tile = "tile_f32" if accurate else "tile"
+    cp = egcl.f32_width(33) if accurate else egcl.tile_width(33)
+    mode = f"{'accurate' if accurate else 'fast'} {tile} CP={cp}"
+    tol_h, tol_u = (1e-4, 1e-4) if accurate else (2e-2, 1e-2)
+    h8, x8, nbr8 = h33[:b8].contiguous(), xs[:b8].contiguous(), nbr[:b8].contiguous()
+    if not accurate:
+        s1, m = egcl.egcl_tile_stages(h8, x8, nbr8, p33)
         torch.cuda.synchronize()
-        check(egcl.egcl_layer.launches_by_variant == only("tile_f32", 2),
+        _, rs1, rm, _ = egcl.edge_stages_plain(h8, x8, nbr8, p33, accurate=False)
+        for name, g_, r_ in (("s1 (first layer)", s1, rs1), ("m (chain to LayerNorm)", m, rm)):
+            err, scale = (g_ - r_).abs().max().item(), r_.abs().max().item()
+            check(err <= 2e-2 * scale,
+                  f"egcl C=33 tile stage {name}: max|Δ| {err} against scale {scale}")
+            log(f"egcl {mode} stage {name} B={b8}: max|Δ| {err:.3g} (rel {err / scale:.3g})")
+    for name, h_, x_, nbr_, p_ in c33_cases(torch, p33, h8, x8, nbr8) + [
+            ("C=33, 3 heads of 11", h8, x8, nbr8, p3)]:
+        check(egcl.egcl_variant(33, nbr_.shape[-1], p_.head_width, accurate) == tile,
+              f"egcl case {name} is not routed to the {tile} kernel")
+        reset_egcl_counters(egcl)
+        gh, gx, gm = egcl.egcl_layer(h_, x_, nbr_, p_, accurate, return_aggm=True)
+        gh2, gx2 = egcl.egcl_layer(h_, x_, nbr_, p_, accurate)
+        torch.cuda.synchronize()
+        check(egcl.egcl_layer.launches_by_variant == only(tile, 2),
               f"egcl case {name} launched {egcl.egcl_layer.launches_by_variant}")
         check(torch.equal(gh, gh2) and torch.equal(gx, gx2),
               f"egcl case {name}: asking for agg_m changed h′ or x′")
-        rh, rx, rm = egcl.egcl_layer_plain(h_, x_, nbr_, p_, True, return_aggm=True)
+        rh, rx, rm = egcl.egcl_layer_plain(h_, x_, nbr_, p_, accurate, return_aggm=True)
         check(all(bool(torch.isfinite(t_).all()) for t_ in (gh, gx, gm)),
               f"egcl case {name}: non-finite output")
-        eh, eu, sh, su = egcl_errors(torch, (gh, gx), (rh, rx), x_, accurate=True)
+        eh, eu, sh, su = egcl_errors(torch, (gh, gx), (rh, rx), x_, accurate)
         em, sm = (gm - rm).abs().max().item(), rm.abs().max().item()
-        check(em <= 1e-4 * sm, f"egcl case {name}: agg_m max|Δ| {em} against scale {sm}")
-        log(f"egcl f32 CP=36 case {name} B={h_.shape[0]}: rel h′ {eh / sh:.3g}, u {eu / su:.3g}, "
+        check(em <= tol_h * sm, f"egcl case {name}: agg_m max|Δ| {em} against scale {sm}")
+        log(f"egcl {mode} case {name} B={h_.shape[0]}: rel h′ {eh / sh:.3g}, u {eu / su:.3g}, "
             f"agg_m {em / sm:.3g}; same with and without agg_m")
     stats = {}
     ulp = torch.finfo(torch.float32).eps * xs.abs().max().item()
     for b in sorted({b8, bsz}):
         h_, x_, nbr_ = h33[:b].contiguous(), xs[:b].contiguous(), nbr[:b].contiguous()
         k = nbr_.shape[-1]
-        ref = egcl.egcl_layer_plain(h_, x_, nbr_, p33, True)
-        plain = cuda_ms(torch, lambda: egcl.egcl_layer_plain(h_, x_, nbr_, p33, True), 3)
+        ref = egcl.egcl_layer_plain(h_, x_, nbr_, p33, accurate)
+        plain = cuda_ms(torch, lambda: egcl.egcl_layer_plain(h_, x_, nbr_, p33, accurate), 3)
         outs = {}
-        for variant in ("tile_f32", "simt"):
+        for variant in (tile, "simt"):
             reset_egcl_counters(egcl)
-            got = egcl.egcl_layer(h_, x_, nbr_, p33, True, packed, variant=variant)
+            got = egcl.egcl_layer(h_, x_, nbr_, p33, accurate, packed, variant=variant)
             torch.cuda.synchronize()
             check(egcl.egcl_layer.launches_by_variant == only(variant, 1),
                   f"egcl C=33 {variant} launched {egcl.egcl_layer.launches_by_variant}")
-            eh, eu, sh, su = egcl_errors(torch, got, ref, x_, True)
-            ms = cuda_ms(torch, lambda: egcl.egcl_layer(h_, x_, nbr_, p33, True, packed,
+            eh, eu, sh, su = egcl_errors(torch, got, ref, x_, accurate)
+            ms = cuda_ms(torch, lambda: egcl.egcl_layer(h_, x_, nbr_, p33, accurate, packed,
                                                          variant=variant), 10)
             stats[b, variant] = (ms, plain, max(eh, eu))
             outs[variant] = got
-            log(f"egcl[C=33, 1 head, accurate {variant}] B={b} N={n} K={k}: max|Δh′| {eh:.3g} "
-                f"(rel {eh / sh:.3g}), max|Δu| {eu:.3g} (rel {eu / su:.3g}), kernel {ms:.4f} ms, "
-                f"plain {plain:.3f} ms")
-        (th, tx), (sh_, sx) = outs["tile_f32"], outs["simt"]
+            log(f"egcl[C=33, 1 head, {'accurate' if accurate else 'fast'} {variant}] B={b} "
+                f"N={n} K={k}: max|Δh′| {eh:.3g} (rel {eh / sh:.3g}), max|Δu| {eu:.3g} "
+                f"(rel {eu / su:.3g}), kernel {ms:.4f} ms, plain {plain:.3f} ms")
+        (th, tx), (sh_, sx) = outs[tile], outs["simt"]
         dh, hs = (th - sh_).abs().max().item(), sh_.abs().max().item()
         du, us = ((tx - x_) - (sx - x_)).abs().max().item(), (sx - x_).abs().max().item()
-        check(dh <= 2e-4 * hs and du <= 2e-4 * us + ulp,
-              f"egcl C=33 tile_f32 vs simt B={b}: max|Δh′| {dh} (scale {hs}), max|Δu| {du} "
+        check(dh <= 2 * tol_h * hs and du <= 2 * tol_u * us + ulp,
+              f"egcl C=33 {tile} vs simt B={b}: max|Δh′| {dh} (scale {hs}), max|Δu| {du} "
               f"(scale {us})")
         ops, nbytes = egcl_bound(33, p33.head_width, b, n, k, packed.simt.numel())
-        bound, by = bound_ms(nbytes, ops, PEAK_FP32)
+        bound, by = bound_ms(nbytes, ops, PEAK_FP32 if accurate else PEAK_BF16)
         stats[b, "bound"] = (bound, by)
-        tile_ms, simt_ms = stats[b, "tile_f32"][0], stats[b, "simt"][0]
-        log(f"egcl C=33 B={b}: tile_f32 vs simt max|Δh′| {dh:.3g} (rel {dh / hs:.3g}), max|Δu| "
-            f"{du:.3g} (rel {du / us:.3g}); bound {ops / (b * n * k):.0f} FLOP/edge, "
-            f"{bound:.4f} ms ({by}); tile_f32 {tile_ms:.4f} ms at {100 * bound / tile_ms:.2f}%, "
-            f"SIMT {simt_ms:.4f} ms at {100 * bound / simt_ms:.2f}% ({simt_ms / tile_ms:.2f}x); "
-            f"{card_line()}")
-    reset_egcl_counters(egcl)
-    h8, x8, nbr8 = h33[:b8].contiguous(), xs[:b8].contiguous(), nbr[:b8].contiguous()
-    got = egcl.egcl_layer(h8, x8, nbr8, p33, False)
-    check(egcl.egcl_layer.launches_by_variant == only("simt", 1),
-          f"egcl C=33 fast launched {egcl.egcl_layer.launches_by_variant}")
-    eh, eu, sh, su = egcl_errors(torch, got, egcl.egcl_layer_plain(h8, x8, nbr8, p33, False), x8,
-                                 False)
-    log(f"egcl[C=33, 1 head, fast simt] B={b8}: max|Δh′| {eh:.3g} (rel {eh / sh:.3g}), "
-        f"max|Δu| {eu:.3g} (rel {eu / su:.3g})")
+        tile_ms, simt_ms = stats[b, tile][0], stats[b, "simt"][0]
+        log(f"egcl C=33 {mode} B={b}: {tile} vs simt max|Δh′| {dh:.3g} (rel {dh / hs:.3g}), "
+            f"max|Δu| {du:.3g} (rel {du / us:.3g}); bound {ops / (b * n * k):.0f} FLOP/edge, "
+            f"{bound:.4f} ms ({by}, {'fp32' if accurate else 'bf16'} peak); {tile} "
+            f"{tile_ms:.4f} ms at {100 * bound / tile_ms:.2f}%, SIMT {simt_ms:.4f} ms at "
+            f"{100 * bound / simt_ms:.2f}% ({simt_ms / tile_ms:.2f}x); {card_line()}")
     src = "se3_equi_graph_registration_tpu_torch/csrc/"
-    return c33_row(stats, "egcl_layer_f32_cp36", src + "egcl_tile_f32.cu",
+    return c33_row(stats, "egcl_layer_f32_cp36" if accurate else "egcl_layer_cp48",
+                   src + ("egcl_tile_f32.cu" if accurate else "egcl_tile.cu"),
                    "se3_equi_graph_registration_tpu/ops/pallas/egcl_kernel.py:116",
-                   src + "egcl.cu", bsz, b8)
+                   src + "egcl.cu", bsz, b8, tile, cp)
 
 
-def c33_row(stats, name, source, replaces, simt_source, bsz, b8):
-    """A kernel row of the fp32 tile kernel built at CP=36, from the
-    C=33 phase's stats: the numbers at the run's batch, B=8's under `b8`."""
-    at = lambda b: dict(ms=stats[b, "tile_f32"][0], plain_ms=stats[b, "tile_f32"][1],
+def c33_row(stats, name, source, replaces, simt_source, bsz, b8, variant, cp):
+    """A kernel row of a tile kernel built at the padded width cp (the fp32
+    one at 36, the bf16 one at 48), from a C=33 phase's stats: the numbers
+    at the run's batch, B=8's under `b8`."""
+    at = lambda b: dict(ms=stats[b, variant][0], plain_ms=stats[b, variant][1],
                         bound_ms=stats[b, "bound"][0], bound_by=stats[b, "bound"][1],
                         simt_ms=stats[b, "simt"][0])
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
-                max_abs_err=max(stats[b, "tile_f32"][2] for b in {b8, bsz}), **at(bsz),
-                library_ms=None, variant="tile_f32", width="C=33, one head, built at CP=36",
+                max_abs_err=max(stats[b, variant][2] for b in {b8, bsz}), **at(bsz),
+                library_ms=None, variant=variant, width=f"C=33, one head, built at CP={cp}",
                 simt_source=simt_source, b8=at(b8))
 
 
@@ -2559,6 +2664,219 @@ def follow_card(torch, name, o, card_pre, moved):
     other = (o > 0) != (pc > 0)
     moved[name] = (int(other.sum()), float((pc - o).abs().max()), float(o.abs().max()))
     return o + torch.where(other, (pc - o).detach(), torch.zeros_like(o))
+
+
+# KITTI's width in fast mode (the kitti phase): a KITTI checkpoint served as
+# README.md shows, `from_checkpoint(..., robust=True)`, and fast training at
+# that width; the batches of its register() calls and of its train step
+KITTI_FAST = dict(in_node_nf=33, hidden_nf=33, num_heads=1, top_k=2048)
+KITTI_SERVE_B = (16, 64)
+KITTI_TRAIN_B = 8
+
+
+def kitti_phase(torch, dev, rows):
+    """KITTI's width (C=33, one head, top_k=2048, N=2048) in fast mode, on
+    the bf16 tile kernels built at CP=48: (a) a `.pth` the port's exporter
+    writes from seeded weights, served by `Registrar.from_checkpoint(path,
+    robust=True, **KITTI_FAST)` on the card and on the CPU: `register()` at
+    B=16 and 64 on make_pair_batch requests, each held at the serve gate
+    (`serve_gap`) and timed; then `register_raw` on a bumpy-surface pair
+    through the same Registrar: the k-NN tables identical card vs CPU, the
+    matches equal on ≥ 99.5% of the rows, `register()` on the CPU's
+    matched set at the serve gate, the full register_raw gap printed (the
+    gather FPFH's card-vs-CPU differences move a few matches; serve_extra's
+    accurate case measured 1.9e-3 there); (b) one fast train step at B=8
+    (`fast_tpu_config(**KITTI_FAST)`, seeded weights), card against CPU on
+    the same batch: every loss term within BWD_TOL_FAST relative; the
+    score-MLP's ReLU inputs (SCORE_RELU_LAYERS) within EGNN_TOL_FAST of each
+    layer's largest, and with the CPU on the card's side of each such ReLU
+    whose input the two put on opposite sides of 0 (the cli gate's guard),
+    every gradient within EGNN_TOL_FAST relative L2; the gap on each side's
+    own branches, the cosines and the same card step on the SIMT kernels
+    (forced, a comparison and not a path: its launches are not recorded)
+    printed. The cli gate's SCORE_KINK_TOL (1e-5) holds fp32 on both sides;
+    fast mode rounds the EGNN's operands to bf16 on both sides in another
+    order of the fp32 sums, so its inputs agree only to the fast forward's
+    tolerance. Then 5 timed steps and a profile of one. Every path's
+    launches exact, counters at 0 just before it: 2 k-NN (3 for
+    register_raw) and 2·L B2 on 'tile' (and 2·L B3 a step), no SIMT."""
+    import os
+
+    from se3_equi_graph_registration_tpu_torch import serving
+    from se3_equi_graph_registration_tpu_torch.data.synthetic import make_pair_batch, random_rotation
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import build, egcl, knn
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import egcl_backward as eb
+    from se3_equi_graph_registration_tpu_torch.train import checkpoints, engine
+
+    t_phase = time.perf_counter()
+    cfg = engine.robust_eval_config(**KITTI_FAST)
+    L, c = cfg.n_layers, cfg.hidden_nf
+    variant = egcl.egcl_variant(c, cfg.k, c // cfg.num_heads, cfg.egnn_accurate)
+    check(not cfg.egnn_accurate and variant == "tile" and egcl.tile_width(c) == 48,
+          f"kitti: fast mode at C={c} runs {variant}, not the bf16 tile kernel built at 48")
+    model = engine.build_model(cfg, "eval_fusion", device="cpu")
+    checkpoints.init_weights(model, torch.Generator().manual_seed(21))
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    path = os.path.join(build.BUILD_DIR, "kitti_fast_smoke.pth")
+    checkpoints.export_reference_checkpoint(model.state_dict(), path, n_layers=L,
+                                            num_heads=cfg.num_heads, hidden=c)
+    reg = serving.Registrar.from_checkpoint(path, robust=True, device=dev, **KITTI_FAST)
+    cpu_reg = serving.Registrar.from_checkpoint(path, robust=True, device="cpu", **KITTI_FAST)
+    check(reg.device == dev and reg.cfg == cfg, f"kitti: from_checkpoint built {reg.cfg}")
+    log(f"kitti: {path} ({os.path.getsize(path)} bytes) written by the port's exporter, loaded "
+        f"by from_checkpoint(robust=True, {KITTI_FAST}) on {reg.device} and the CPU")
+
+    def counted(what, call, knn_n):
+        """One card call with the counters at 0 just before it; checks and
+        records its launches (knn_n k-NN, 2·L B2, all 'tile')."""
+        reset_knn_counters(knn)
+        reset_egcl_counters(egcl)
+        reset_backward_counters(eb)
+        out = call()
+        torch.cuda.synchronize()
+        fwd = dict(egcl.egcl_layer.launches_by_variant)
+        check(knn.knn_window.launches == knn_n and fwd == only("tile", 2 * L)
+              and eb.egcl_backward.launches == 0,
+              f"kitti {what}: launches knn {knn.knn_window.launches}, egcl {fwd}, backward "
+              f"{eb.egcl_backward.launches_by_variant}")
+        record_launches(rows, f"kitti {what}", dict(knn_window=knn_n, **by_row("egcl_layer", fwd, c)),
+                        dict(knn_window=check_knn_warp(knn.knn_window, f"kitti {what}")))
+        return out
+
+    # (a) register() at B=16 and 64
+    for b in KITTI_SERVE_B:
+        pb = make_pair_batch(np.random.default_rng(30 + b), batch=b, n=cfg.num_nodes,
+                             feat_dim=c)
+        args = (pb.src_pts, pb.src_feat, pb.tgt_pts, pb.tgt_feat)
+        got = counted(f"register() B={b}", lambda: reg.register(*args), 2)
+        ms = event_ms(torch, lambda: reg.register(*args), 5)
+        profile_call(torch, lambda: reg.register(*args), f"kitti fast register() B={b}")
+        t1 = time.perf_counter()
+        gaps = serve_gap(got, cpu_reg.register(*args), f"kitti register() B={b}")
+        log(f"kitti fast register() B={b} (robust, C=33, top_k=2048): card vs CPU ‖ΔR‖/√2 "
+            f"{gaps[0]:.3g}, |Δt| {gaps[1]:.3g} m, Δcov {gaps[2]:.3g}, Δsim {gaps[3]:.3g}; "
+            f"{ms:.2f} ms a call ({b / ms * 1e3:.1f} pairs/s; CUDA events, 5 calls after a "
+            f"warm-up); CPU {time.perf_counter() - t1:.1f} s; launches knn 2, egcl "
+            f"{only('tile', 2 * L)}")
+
+    # (a) register_raw through the same Registrar
+    surf, rng = bumpy_surface(), np.random.default_rng(12)
+    R = random_rotation(rng).astype(np.float32)
+    src = surf(rng, EXTRA_RAW_POINTS)
+    tgt = (surf(rng, EXTRA_RAW_POINTS) @ R.T + np.float32([0.1, -0.2, 0.05])).astype(np.float32)
+    t1 = time.perf_counter()
+    card = counted("register_raw", lambda: reg.register_raw(src, tgt), 3)
+    card_s = time.perf_counter() - t1
+    cc = {k: v.cpu() for k, v in reg.raw_correspondences(src, tgt).items()}
+    ref = cpu_reg.raw_correspondences(src, tgt)
+    check(torch.equal(cc["nbr_src"], ref["nbr_src"]) and torch.equal(cc["nbr_tgt"], ref["nbr_tgt"]),
+          "kitti register_raw: k-NN tables differ card vs CPU")
+    same_rows = float((cc["matches"] == ref["matches"]).float().mean())
+    check(same_rows >= 0.995, f"kitti register_raw: matches equal on only {same_rows:.4f} of "
+          f"the rows")
+    keys = ("src_pts", "src_feat", "tgt_pts", "tgt_feat")
+    on_set = serve_gap(reg.register(*(ref[k].numpy() for k in keys)),
+                       cpu_reg.register(*(ref[k].numpy() for k in keys)),
+                       "kitti register() on the CPU's matched set")
+    full = cpu_reg.register_raw(src, tgt)
+    fR = float(np.linalg.norm(card[0] - full[0]) / np.sqrt(2))
+    ft = float(np.abs(card[1] - full[1]).max())
+    log(f"kitti fast register_raw ({EXTRA_RAW_POINTS} points a cloud): card {card_s:.2f} s; "
+        f"k-NN tables identical; matches equal {same_rows:.4f}; register() on the CPU's matched "
+        f"set card vs CPU ‖ΔR‖/√2 {on_set[0]:.3g}, |Δt| {on_set[1]:.3g} m (held); full "
+        f"register_raw card vs CPU ‖ΔR‖/√2 {fR:.3g}, |Δt| {ft:.3g} m (printed)")
+
+    # (b) one fast train step at B=8, card against CPU
+    tcfg = engine.fast_tpu_config(**KITTI_FAST)
+    state = engine.init_state(tcfg, torch.Generator().manual_seed(22), device="cpu")
+    sd = state.model.state_dict()
+    pb = make_pair_batch(np.random.default_rng(23), batch=KITTI_TRAIN_B, n=tcfg.num_nodes,
+                         feat_dim=c)
+    batch = engine.batch_to_device(tuple(pb), dev)
+    card_model = engine.build_model(tcfg, device=dev)
+    card_model.load_state_dict(sd)
+    card_pre = {}
+    score_relu_hooks(card_model, lambda name, o: card_pre.__setitem__(name, o.detach().cpu()))
+    reset_knn_counters(knn)
+    reset_egcl_counters(egcl)
+    reset_backward_counters(eb)
+    lb = engine.train_loss(card_model, tcfg, batch)
+    lb.total.backward()
+    torch.cuda.synchronize()
+    fwd, bwd = dict(egcl.egcl_layer.launches_by_variant), dict(eb.egcl_backward.launches_by_variant)
+    check(knn.knn_window.launches == 2 and fwd == only("tile", 2 * L) and bwd == only("tile", 2 * L),
+          f"kitti fast train step: launches knn {knn.knn_window.launches}, egcl {fwd}, "
+          f"backward {bwd}")
+    record_launches(rows, f"kitti fast train step B={KITTI_TRAIN_B}",
+                    dict(knn_window=2, **by_row("egcl_layer", fwd, c),
+                         **by_row("egcl_backward", bwd, c)),
+                    dict(knn_window=check_knn_warp(knn.knn_window, "kitti fast train step")))
+    terms = {k: float(v.detach()) for k, v in lb._asdict().items()}
+    gcard = {n: q.grad.detach().cpu() for n, q in card_model.named_parameters()}
+    # the same step on the card with both EGCL wrappers sent to SIMT
+    pick = egcl.check_variant
+    egcl.check_variant = lambda variant, *shape: "simt"
+    try:
+        card_model.zero_grad(set_to_none=True)
+        engine.train_loss(card_model, tcfg, batch).total.backward()
+        gsimt = {n: q.grad.detach().cpu() for n, q in card_model.named_parameters()}
+    finally:
+        egcl.check_variant = pick
+    t1 = time.perf_counter()
+    cpu = {}
+    for follow in (False, True):
+        model = engine.build_model(tcfg, device="cpu")
+        model.load_state_dict(sd)
+        moved = {}
+        if follow:
+            score_relu_hooks(model, lambda name, o: follow_card(torch, name, o, card_pre, moved))
+        lbc = engine.train_loss(model, tcfg, {k: v.cpu() for k, v in batch.items()})
+        lbc.total.backward()
+        gcpu = {n: q.grad for n, q in model.named_parameters()}
+        cpu[follow] = ({k: float(v.detach()) for k, v in lbc._asdict().items()},
+                       grad_cosines(torch, gcard, gcpu), moved, grad_cosines(torch, gsimt, gcpu))
+    (_, raw, _, raw_simt), (cpu_terms, cos, moved, _) = cpu[False], cpu[True]
+    raw_l2, simt_l2 = max(raw, key=lambda k: raw[k][1]), max(raw_simt, key=lambda k: raw_simt[k][1])
+    worst, worst_l2 = min(cos, key=lambda k: cos[k][0]), max(cos, key=lambda k: cos[k][1])
+    dl = {k: abs(terms[k] - cpu_terms[k]) / max(abs(cpu_terms[k]), 1e-30) for k in terms}
+    log(f"kitti fast train step B={KITTI_TRAIN_B} card vs CPU: loss terms card "
+        f"{json.dumps(terms)}, relative |Δ| {json.dumps(dl)}; score-MLP ReLU inputs card vs "
+        f"CPU (units on opposite sides of 0, max |Δ|, max |input|): {json.dumps(moved)}; on the "
+        f"card's branches worst gradient cosine {worst} {cos[worst][0]:.6f}, worst relative L2 "
+        f"{worst_l2} {cos[worst_l2][1]:.3g} (each on its own branches: {raw_l2} "
+        f"{raw[raw_l2][1]:.3g}; the card on the SIMT kernels, on its own branches: {simt_l2} "
+        f"{raw_simt[simt_l2][1]:.3g}); CPU side {time.perf_counter() - t1:.1f} s")
+    check(all(v <= BWD_TOL_FAST for v in dl.values()),
+          f"kitti fast train step card vs CPU: loss terms {dl}")
+    check(set(moved) == set(card_pre) == set(SCORE_RELU_LAYERS)
+          and all(gap <= EGNN_TOL_FAST * top for _, gap, top in moved.values()),
+          f"kitti fast train step card vs CPU: score-MLP ReLU inputs {moved}")
+    check(cos[worst_l2][1] <= EGNN_TOL_FAST,
+          f"kitti fast train step card vs CPU: gradients {worst_l2} {cos[worst_l2]}")
+    # 5 timed steps and a profile of one
+    tstate = engine.TrainState(card_model, engine.build_optimizer(card_model, tcfg))
+    step = engine.make_train_step(tstate.model, tstate.optimizer, tcfg)
+    step(tstate, batch)
+    reset_knn_counters(knn)
+    reset_egcl_counters(egcl)
+    reset_backward_counters(eb)
+    ms = event_ms(torch, lambda: step(tstate, batch), 5)
+    fwd, bwd = dict(egcl.egcl_layer.launches_by_variant), dict(eb.egcl_backward.launches_by_variant)
+    check(knn.knn_window.launches == 12 and fwd == only("tile", 12 * L)
+          and bwd == only("tile", 12 * L),
+          f"kitti fast train steps: launches knn {knn.knn_window.launches}, egcl {fwd}, "
+          f"backward {bwd} over 6 steps")
+    record_launches(rows, "kitti fast train 6 steps",
+                    dict(knn_window=12, **by_row("egcl_layer", fwd, c),
+                         **by_row("egcl_backward", bwd, c)),
+                    dict(knn_window=check_knn_warp(knn.knn_window, "kitti fast train steps")))
+    prof = profile_call(torch, lambda: step(tstate, batch),
+                        f"kitti fast train step B={KITTI_TRAIN_B}")
+    busy = (f"device {prof[1]:.3f} ms of a {prof[0]:.2f} ms profiled wall, "
+            f"{100 * prof[1] / prof[0]:.1f}% busy (profiler on)") if prof else "not measured"
+    log(f"kitti fast train step B={KITTI_TRAIN_B} N={tcfg.num_nodes} C={c}: {ms:.2f} ms a step "
+        f"(CUDA events, 5 steps after a warm one), {busy}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card_line()}")
 
 
 def cli_preset(torch, dev, rows, preset, c, base):
@@ -3918,8 +4236,7 @@ def counted(rows, path, call, want):
     torch.cuda.synchronize()
     got = launches_since_zero()
     check(got == want, f"{path}: launches {got}, want {want}")
-    egcl_v = lambda w: {"tile": got.get(w, {}).get("tile", 0),
-                        "tile_f32": got.get(w, {}).get("tile_f32", 0)}
+    egcl_v = lambda w: {v: got.get(w, {}).get(v, 0) for v in ("tile", "tile_f32", "simt")}
     record_launches(rows, path, dict(knn_window=sum(got.get("knn_window", {}).values()),
                                      knn_chunked=sum(got.get("knn_chunked", {}).values()),
                                      spfh=sum(got.get("spfh", {}).values()),

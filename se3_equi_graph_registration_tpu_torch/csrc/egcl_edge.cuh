@@ -1,8 +1,8 @@
 // The scalar edge code shared by every EGCL tile kernel, whatever the type of
 // its products: the edge geometry, its backward, and the staging of a row tile
-// of 16 edges. Included by egcl_tile.cuh (bf16 mma.sync tiles, fast mode, at
-// C = kC) and egcl_tile_f32.cuh (fp32 register-blocked tiles, accurate mode,
-// at C = kC and at a padded width).
+// of 16 edges. Included by egcl_tile.cuh (bf16 mma.sync tiles, fast mode) and
+// egcl_tile_f32.cuh (fp32 register-blocked tiles, accurate mode), each at
+// C = kC and at a padded width.
 //
 // Numerics (ops/pallas/egcl_kernel.py:97-114, egcl_backward.py:131-235):
 // rel = x_i - x_j; g = [radial, dist, dot, a0,b0,c0, a1,b1,c1, a2,b2,c2] with
@@ -130,7 +130,8 @@ __device__ __forceinline__ void geometry_bwd(float xi0, float xi1, float xi2, fl
 // whether this lane's edge is valid, and its rel.
 //
 // Tile provides: T; kStride; geo(T* row + W, g, rel, j_nb), the geometry part
-// of one row; h4(T* dst, float4 v), four channels of h_col.
+// of one row; h4(T* dst, float4 v), four channels of h_col; h1(T* dst, float
+// v), one channel of h_col (the padded widths).
 template <class Tile, int W = kC>
 __device__ __forceinline__ bool stage_edges(const float* __restrict__ h,
                                             const float* __restrict__ x,
@@ -162,7 +163,7 @@ __device__ __forceinline__ bool stage_edges(const float* __restrict__ h,
     int r = 0, ch = lane;
     for (int e0 = 0; e0 < kRows * c; e0 += 32) {
       const int src = __shfl_sync(kFull, j_nb, r);
-      if (e0 + lane < kRows * c) tile[r * Tile::kStride + ch] = h[(size_t)src * c + ch];
+      if (e0 + lane < kRows * c) Tile::h1(tile + r * Tile::kStride + ch, h[(size_t)src * c + ch]);
       ch += 32;
       if (ch >= c) { ch -= c; ++r; }
     }

@@ -141,6 +141,7 @@ struct StageF32 {
   __device__ __forceinline__ static void h4(float* dst, float4 v) {
     *reinterpret_cast<float4*>(dst) = v;
   }
+  __device__ __forceinline__ static void h1(float* dst, float v) { *dst = v; }
 };
 
 template <int CP>

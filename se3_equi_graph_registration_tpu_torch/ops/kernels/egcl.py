@@ -1,7 +1,7 @@
 """Fused EGCL layer: the CUDA kernels `csrc/egcl_tile.cu` (fast mode at
-C=32, on the tensor cores), `csrc/egcl_tile_f32.cu` (accurate mode at C=32
-and at 32 < C <= 36, fp32 register-blocked tiles) and `csrc/egcl.cu` (every
-other shape), and
+C=32 and at 32 < C <= 36, on the tensor cores), `csrc/egcl_tile_f32.cu`
+(accurate mode at the same widths, fp32 register-blocked tiles) and
+`csrc/egcl.cu` (every other shape), and
 their plain version (counterpart of
 `ops/pallas/egcl_kernel.py`), forward, 'center' direction, 'frame' so3 mode,
 all-ones edge_attr, no edge mask. `egcl_variant` picks the kernel from the
@@ -107,20 +107,37 @@ def pack_params(p: EGCLParams) -> torch.Tensor:
     return torch.cat([t.detach().reshape(-1) for t in parts]).to(torch.float32).contiguous()
 
 
-TILE_C = 32                    # the tile kernel's width (csrc/egcl_tile.cuh)
+TILE_C = 32                    # the tile kernels' unpadded width
+# the bf16 tile kernels' compiled widths CP (csrc/egcl_tile.cuh): CP=32 runs
+# C=32, CP=48 runs 32 < C <= 36 with the channels C..47 as zero pads (a
+# width of whole 16-channel k-steps)
+TILE_WIDTHS = (32, 48)
 # the fp32 tile kernels' compiled widths CP (csrc/egcl_tile_f32.cuh): CP=32
 # runs C=32, CP=36 runs 32 < C <= 36 with the channels C..35 as zero pads
 F32_WIDTHS = (32, 36)
+PADDED_C = 36                  # the widest C the padded builds of both families run
+
+
+def _compiled_width(c: int, widths: tuple) -> int | None:
+    if c == TILE_C:
+        return widths[0]
+    return widths[1] if TILE_C < c <= PADDED_C else None
+
+
+def tile_width(c: int) -> int | None:
+    """The compiled width of the bf16 tile kernels that runs width `c`:
+    32 at C=32, 48 at 32 < C <= 36, else None."""
+    return _compiled_width(c, TILE_WIDTHS)
 
 
 def f32_width(c: int) -> int | None:
     """The compiled width of the fp32 tile kernels that runs width `c`:
     32 at C=32, 36 at 32 < C <= 36, else None."""
-    if c == TILE_C:
-        return TILE_C
-    return F32_WIDTHS[1] if TILE_C < c <= F32_WIDTHS[1] else None
-# the B-fragment matrices, then the fp32 vectors [32], in the order of
-# `Layout` in csrc/egcl_tile.cuh
+    return _compiled_width(c, F32_WIDTHS)
+
+
+# the B-fragment matrices, then the fp32 vectors [CP], in the order of
+# `Layout<CP>` in csrc/egcl_tile.cuh
 TILE_MATRICES = ("w1", "w2", "wc0", "wn0", "wn1")
 TILE_VECTORS = ("b1", "b2", "ln_scale", "ln_bias", "bc0", "wc1", "bn0", "bn1")
 
@@ -132,7 +149,8 @@ class Packed(NamedTuple):
     `csrc/egcl_backward_tile.cu`; `f32` for `csrc/egcl_tile_f32.cu` and
     `csrc/egcl_backward_tile_f32.cu` (`pack_params_f32`); `tile` and
     `tile_bwd` None where fast mode has no tile kernel for the layer's
-    shape, `f32` None where accurate mode has none."""
+    shape, `f32` None where accurate mode has none; each at the width
+    (`tile_width`, `f32_width`) that runs the layer's C."""
     simt: torch.Tensor
     tile: torch.Tensor | None
     tile_bwd: torch.Tensor | None
@@ -144,17 +162,18 @@ VARIANTS = ("tile", "tile_f32", "simt")
 
 def egcl_variant(c: int, k: int, head_width: int, accurate: bool) -> str:
     """Which hand-written kernel runs a layer of width `c`, `k` neighbors and
-    heads of `head_width` channels, the heads whole: at C=32, 'tile'
-    (`csrc/egcl_tile.cu`, bf16 mma.sync) in fast mode and 'tile_f32'
-    (`csrc/egcl_tile_f32.cu`, fp32 register-blocked tiles) in accurate mode;
-    at 32 < C <= 36 (KITTI's C=33) 'tile_f32' in accurate mode, padded to 36
-    channels; 'simt' (`csrc/egcl.cu`) for every other shape and mode. A
-    choice by shape, made before the launch; a launch that fails raises."""
+    heads of `head_width` channels, the heads whole: at C=32 and at
+    32 < C <= 36 (KITTI's C=33), 'tile' (`csrc/egcl_tile.cu`, bf16
+    mma.sync; padded to 48 channels above 32) in fast mode and 'tile_f32'
+    (`csrc/egcl_tile_f32.cu`, fp32 register-blocked tiles; padded to 36
+    channels above 32) in accurate mode; 'simt' (`csrc/egcl.cu`) for every
+    other shape. A choice by shape, made before the launch; a launch that
+    fails raises."""
     if k >= 1 and head_width >= 1 and c % head_width == 0:
-        if c == TILE_C:
-            return "tile_f32" if accurate else "tile"
         if accurate and f32_width(c) is not None:
             return "tile_f32"
+        if not accurate and tile_width(c) is not None:
+            return "tile"
     return "simt"
 
 
@@ -181,30 +200,45 @@ def b_fragments(w: torch.Tensor) -> torch.Tensor:
     return f.permute(0, 4, 5, 2, 1, 3).reshape(-1)                  # j, n, g, t, half, lo
 
 
-def pack_params_tile(p: EGCLParams) -> torch.Tensor:
-    """The buffer `csrc/egcl_tile.cu` reads (`Layout` in egcl_tile.cuh), as
-    float32 words: first the matrices as bf16 B fragments, two to a word —
-    w1 = [w1_hcol | w1_geo | 4 zero columns | w1_hrow] (80 inputs), the dense
-    block-diagonal w2, wc0, wn0, wn1 — then fp32 b1, b2, ln_scale, ln_bias,
-    bc0, wc1 (rounded to bf16: it is a product's operand), bn0, bn1."""
+def _tile_cp(p: EGCLParams) -> int:
+    """The bf16 tile width that runs the layer `p`; raises where none does."""
     c = p.b1.shape[0]
-    if c != TILE_C or TILE_C % p.head_width:
-        raise ValueError(f"the tile kernel takes C={TILE_C} with whole heads, got C={c}, "
-                         f"head width {p.head_width}")
+    cp = tile_width(c)
+    if cp is None or c % p.head_width:
+        raise ValueError(f"the bf16 tile kernels take C=32 or 32 < C <= {PADDED_C} with whole "
+                         f"heads, got C={c}, head width {p.head_width}")
+    return cp
+
+
+def pack_params_tile(p: EGCLParams) -> torch.Tensor:
+    """The buffer `csrc/egcl_tile.cu` reads (`Layout<CP>` in egcl_tile.cuh)
+    at the compiled width CP = `tile_width(C)`, as float32 words: first the
+    matrices as bf16 B fragments, two to a word — w1 = [w1_hcol | w1_geo |
+    4 zero columns | w1_hrow] (2 CP + 16 inputs), the dense block-diagonal
+    w2, wc0, wn0 ([h | agg_m], CP inputs each), wn1 — then fp32 b1, b2,
+    ln_scale, ln_bias, bc0, wc1 (rounded to bf16: it is a product's
+    operand), bn0, bn1. Each holds the layer's weights in its leading
+    corner and zeros in the rows and columns of the pad channels C..CP-1."""
+    cp = _tile_cp(p)
     f32 = lambda t: t.detach().to(torch.float32)
-    w1 = torch.cat([f32(p.w1_hcol), f32(p.w1_geo), torch.zeros_like(f32(p.w1_geo[:, :4])),
-                    f32(p.w1_hrow)], dim=1)
-    mats = dict(w1=w1, w2=p.w2, wc0=p.wc0, wn0=p.wn0, wn1=p.wn1)
+    sq = lambda t: _pad(f32(t), (cp, cp))
+    w1 = torch.cat([sq(p.w1_hcol), _pad(f32(p.w1_geo), (cp, 16)), sq(p.w1_hrow)], dim=1)
+    c = p.b1.shape[0]
+    wn0 = f32(p.wn0)                                          # [C, 2C]: h, agg_m
+    mats = dict(w1=w1, w2=sq(p.w2), wc0=sq(p.wc0), wn0=torch.cat([sq(wn0[:, :c]),
+                                                                sq(wn0[:, c:])], dim=1),
+                wn1=sq(p.wn1))
     frags = torch.cat([b_fragments(mats[name]) for name in TILE_MATRICES])
     vecs = dict(b1=p.b1, b2=p.b2, ln_scale=p.ln_scale, ln_bias=p.ln_bias, bc0=p.bc0,
                 wc1=_round(True)(f32(p.wc1)), bn0=p.bn0, bn1=p.bn1)
     return torch.cat([frags.contiguous().view(torch.float32),
-                      *(f32(vecs[name]).reshape(-1) for name in TILE_VECTORS)]).contiguous()
+                      *(_pad(f32(vecs[name]).reshape(-1), (cp,)) for name in TILE_VECTORS)]
+                     ).contiguous()
 
 
-# the backward's B-fragment matrices, in the order of `BwdLayout` in
-# csrc/egcl_backward_tile.cu (4, 4, 8 and 2 n-tiles): each is the weight a
-# cotangent is multiplied by on its way back, B = the weight itself
+# the backward's B-fragment matrices, in the order of `BwdLayout<CP>` in
+# csrc/egcl_backward_tile.cu (CP/8, CP/8, CP/4 and 2 n-tiles): each is the
+# weight a cotangent is multiplied by on its way back, B = the weight itself
 TILE_BWD_MATRICES = ("wc0", "w2", "w1_h", "w1_geo")
 
 
@@ -214,17 +248,14 @@ def pack_params_tile_bwd(p: EGCLParams) -> torch.Tensor:
     reads too, for the recomputed forward): the transposed products
     cotangent @ W as bf16 B fragments, `b_fragments(W.T)`, two to a word —
     Wc0 (dm from dcm_in), the dense block-diagonal w2 (ds1 from dv),
-    [W1hc | W1hr] (dh_col and dh_row from du, 8 n-tiles) and W1g (dgeo
-    from du) padded from 12 to 16 outputs with zero rows (2 n-tiles)."""
-    c = p.b1.shape[0]
-    if c != TILE_C or TILE_C % p.head_width:
-        raise ValueError(f"the tile kernel takes C={TILE_C} with whole heads, got C={c}, "
-                         f"head width {p.head_width}")
+    [W1hc | W1hr] (dh_col and dh_row from du, CP/4 n-tiles) and W1g (dgeo
+    from du) padded from 12 to 16 outputs with zero rows (2 n-tiles); at the
+    compiled width CP = `tile_width(C)`, zeros in the pad channels C..CP-1."""
+    cp = _tile_cp(p)
     f32 = lambda t: t.detach().to(torch.float32)
-    geo_t = f32(p.w1_geo).T                                                # [12, 32]
-    mats = dict(wc0=f32(p.wc0).T, w2=f32(p.w2).T,
-                w1_h=torch.cat([f32(p.w1_hcol).T, f32(p.w1_hrow).T]),
-                w1_geo=torch.cat([geo_t, torch.zeros_like(geo_t[:4])]))
+    sq = lambda t: _pad(f32(t).T, (cp, cp))
+    mats = dict(wc0=sq(p.wc0), w2=sq(p.w2), w1_h=torch.cat([sq(p.w1_hcol), sq(p.w1_hrow)]),
+                w1_geo=_pad(f32(p.w1_geo).T, (16, cp)))
     frags = torch.cat([b_fragments(mats[name]) for name in TILE_BWD_MATRICES])
     return frags.contiguous().view(torch.float32)
 
@@ -417,17 +448,17 @@ def check_inputs(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
 
 def _launch_tile(h, x, nbr, head_width, tile, agg_m, dbg):
     """Launch `csrc/egcl_tile.cu` → (h', x'); fills agg_m and dbg if given."""
-    b, n, _ = h.shape
+    b, n, c = h.shape
     h_out, x_out = torch.empty_like(h), torch.empty_like(x)
     fn = build.load("egcl_tile").egcl_tile_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = fn(h.data_ptr(), x.data_ptr(), nbr.data_ptr(), tile.data_ptr(),
                  h_out.data_ptr(), x_out.data_ptr(), ptr(agg_m), ptr(dbg), b, n,
-                 nbr.shape[-1], head_width, stream)
+                 nbr.shape[-1], c, head_width, stream)
     build.check(err, "egcl_tile_launch")
     return h_out, x_out
 
@@ -551,15 +582,17 @@ def _(h, x, nbr, buf, variant, head_width, accurate, return_aggm):
 def egcl_tile_stages(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
                      p: EGCLParams) -> tuple[torch.Tensor, torch.Tensor]:
     """The tile kernel's per-edge stages on the card, (s1, m) as
-    `edge_stages_plain` names them, each [B,N,K,32]: a check of the fragment
+    `edge_stages_plain` names them, each [B,N,K,C]: a check of the fragment
     layouts stage by stage. Not a path of the layer and not counted."""
     check_inputs(h, x, nbr, p.head_width)
-    if h.device.type != "cuda" or egcl_variant(h.shape[-1], nbr.shape[-1], p.head_width,
-                                               False) != "tile":
-        raise ValueError("the tile kernel takes CUDA tensors at C=32 with whole heads")
-    dbg = torch.zeros(*nbr.shape, 2 * TILE_C, dtype=torch.float32, device=h.device)
+    c = h.shape[-1]
+    if h.device.type != "cuda" or egcl_variant(c, nbr.shape[-1], p.head_width, False) != "tile":
+        raise ValueError("the tile kernel takes CUDA tensors at C=32 or 32 < C <= 36 with "
+                         "whole heads")
+    cp = tile_width(c)
+    dbg = torch.zeros(*nbr.shape, 2 * cp, dtype=torch.float32, device=h.device)
     _launch_tile(h, x, nbr, p.head_width, pack_params_tile(p).to(h.device), None, dbg)
-    return dbg[..., :TILE_C], dbg[..., TILE_C:]
+    return dbg[..., :c], dbg[..., cp:cp + c]
 
 
 def mma_tile_probe(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

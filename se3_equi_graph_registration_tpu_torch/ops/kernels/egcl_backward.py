@@ -1,8 +1,8 @@
 """Backward of the fused EGCL layer: the CUDA kernels
-`csrc/egcl_backward_tile.cu` (fast mode at C=32, on the tensor cores),
-`csrc/egcl_backward_tile_f32.cu` (accurate mode at C=32 and at
-32 < C <= 36, fp32 register-blocked tiles) and `csrc/egcl_backward.cu`
-(every other shape),
+`csrc/egcl_backward_tile.cu` (fast mode at C=32 and at 32 < C <= 36, on the
+tensor cores), `csrc/egcl_backward_tile_f32.cu` (accurate mode at the same
+widths, fp32 register-blocked tiles) and `csrc/egcl_backward.cu` (every
+other shape),
 their plain version, and `EGCLFunction`, the layer as a differentiable
 function (counterpart of `ops/pallas/egcl_backward.py`: `egcl_backward_pallas`
 and the custom VJP `egcl_fused_diff`).
@@ -194,7 +194,7 @@ def _launch(h, x, nbr, p, packed, dagg_m, dagg_x, variant, accurate, dbg=None):
                     else packed.tile_bwd)
         name = "egcl_backward_tile_launch"
         ptrs = [h, x, nbr, tile, tile_bwd, dagg_m, dagg_x, *outs, dbg]
-        ints = [b, n, nbr.shape[-1], p.head_width]
+        ints = [b, n, nbr.shape[-1], c, p.head_width]
     elif variant == "tile_f32":
         f32 = egcl.pack_params_f32(p).to(h.device) if packed is None else packed.f32
         name = "egcl_backward_tile_f32_launch"
@@ -242,7 +242,8 @@ def egcl_backward(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
     {name: gradient} for EDGE_PARAMS). A CPU tensor takes the plain version;
     a CUDA tensor launches the kernel that `egcl.egcl_variant` names for
     its shape and mode, as the forward does: `csrc/egcl_backward_tile.cu`
-    ('tile', bf16 mma.sync, fast mode at C=32 with whole heads),
+    ('tile', bf16 mma.sync, fast mode at C=32 and at 32 < C <= 36 with whole
+    heads),
     `csrc/egcl_backward_tile_f32.cu` ('tile_f32', fp32, accurate mode at
     C=32 and at 32 < C <= 36 with whole heads) or `csrc/egcl_backward.cu`
     ('simt', every other shape and mode). `variant='simt'` asks for the SIMT kernel where a tile kernel
@@ -264,18 +265,20 @@ def egcl_backward_tile_stages(h: torch.Tensor, x: torch.Tensor, nbr: torch.Tenso
                               p: EGCLParams, dagg_m: torch.Tensor, dagg_x: torch.Tensor
                               ) -> tuple:
     """The tile kernel's per-edge cotangents on the card, (dcm_in, dv, du) as
-    `backward_stages_plain` names them, each [B,N,K,32]: a check of the
+    `backward_stages_plain` names them, each [B,N,K,C]: a check of the
     backward's fragment plumbing stage by stage. Not a path of the layer
     and not counted."""
     egcl.check_inputs(h, x, nbr, p.head_width)
     _check_cotangents(h, dagg_m, dagg_x)
-    if h.device.type != "cuda" or egcl.egcl_variant(h.shape[-1], nbr.shape[-1], p.head_width,
+    c = h.shape[-1]
+    if h.device.type != "cuda" or egcl.egcl_variant(c, nbr.shape[-1], p.head_width,
                                                     False) != "tile":
-        raise ValueError("the tile kernel takes CUDA tensors at C=32 with whole heads")
-    dbg = torch.zeros(*nbr.shape, 3 * egcl.TILE_C, dtype=torch.float32, device=h.device)
+        raise ValueError("the tile kernel takes CUDA tensors at C=32 or 32 < C <= 36 with "
+                         "whole heads")
+    cp = egcl.tile_width(c)
+    dbg = torch.zeros(*nbr.shape, 3 * cp, dtype=torch.float32, device=h.device)
     _launch(h, x, nbr, p, None, dagg_m, dagg_x, "tile", False, dbg)
-    c = egcl.TILE_C
-    return dbg[..., :c], dbg[..., c:2 * c], dbg[..., 2 * c:]
+    return dbg[..., :c], dbg[..., cp:cp + c], dbg[..., 2 * cp:2 * cp + c]
 
 
 def bwd_tile_probe(d: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

@@ -48,21 +48,23 @@ def _inputs(k: int, seed: int):
     return h, x, knn_graph(x, k).to(torch.int32)
 
 
-def read_tile_buffer(buf: torch.Tensor) -> dict:
-    """The buffer's layout alone: per matrix its k-steps of 16, B fragments
-    in (k-step, n-tile, lane = 4g + t, (b0.lo, b0.hi, b1.lo, b1.hi)) order
-    with B[16j + 2t + {0, 1, 8, 9}][8n + g], two bf16 to a word; then eight
-    fp32 vectors of 32. Returns B = wᵀ [in, 32] per matrix and the vectors."""
-    out, o = {}, 0
-    for name, ksteps in (("w1", 5), ("w2", 2), ("wc0", 2), ("wn0", 4), ("wn1", 2)):
-        words = ksteps * 4 * 64
-        f = buf[o:o + words].view(torch.bfloat16).reshape(ksteps, 4, 8, 4, 2, 2)  # j n g t half lo
-        out[name] = f.permute(0, 4, 3, 5, 1, 2).reshape(16 * ksteps, 32).to(torch.float32)
+def read_tile_buffer(buf: torch.Tensor, cp: int = 32) -> dict:
+    """The buffer's layout alone at the compiled width cp: per matrix its
+    k-steps of 16, B fragments in (k-step, n-tile, lane = 4g + t, (b0.lo,
+    b0.hi, b1.lo, b1.hi)) order with B[16j + 2t + {0, 1, 8, 9}][8n + g], two
+    bf16 to a word; then eight fp32 vectors of cp. Returns B = wᵀ [in, cp]
+    per matrix and the vectors."""
+    out, o, ks, nt = {}, 0, cp // 16, cp // 8
+    for name, ksteps in (("w1", 2 * ks + 1), ("w2", ks), ("wc0", ks), ("wn0", 2 * ks),
+                         ("wn1", ks)):
+        words = ksteps * nt * 64
+        f = buf[o:o + words].view(torch.bfloat16).reshape(ksteps, nt, 8, 4, 2, 2)  # j n g t half lo
+        out[name] = f.permute(0, 4, 3, 5, 1, 2).reshape(16 * ksteps, cp).to(torch.float32)
         o += words
     for name in ("b1", "b2", "ln_scale", "ln_bias", "bc0", "wc1", "bn0", "bn1"):
-        out[name] = buf[o:o + 32]
-        o += 32
-    assert o == buf.numel() == 4096
+        out[name] = buf[o:o + cp]
+        o += cp
+    assert o == buf.numel() == {32: 4096, 48: 8832}[cp]
     return out
 
 
@@ -126,17 +128,18 @@ def test_tile_buffer_zeros_and_values(head_width):
         assert torch.equal(w[name], ref), name               # fp32, not rounded
 
 
-def read_tile_bwd_buffer(buf: torch.Tensor) -> dict:
-    """The backward buffer's layout alone: per matrix 2 k-steps of 16 (the
-    32 channels a cotangent has) and its n-tiles, B fragments in the order
-    of `read_tile_buffer`. Returns B [32, 8 · n-tiles] per matrix."""
-    out, o = {}, 0
-    for name, nt in (("wc0", 4), ("w2", 4), ("w1_h", 8), ("w1_geo", 2)):
-        words = 2 * nt * 64
-        f = buf[o:o + words].view(torch.bfloat16).reshape(2, nt, 8, 4, 2, 2)  # j n g t half lo
-        out[name] = f.permute(0, 4, 3, 5, 1, 2).reshape(32, 8 * nt).to(torch.float32)
+def read_tile_bwd_buffer(buf: torch.Tensor, cp: int = 32) -> dict:
+    """The backward buffer's layout alone at the compiled width cp: per
+    matrix cp / 16 k-steps of 16 (the cp channels a cotangent has) and its
+    n-tiles, B fragments in the order of `read_tile_buffer`. Returns
+    B [cp, 8 · n-tiles] per matrix."""
+    out, o, ks = {}, 0, cp // 16
+    for name, nt in (("wc0", cp // 8), ("w2", cp // 8), ("w1_h", cp // 4), ("w1_geo", 2)):
+        words = ks * nt * 64
+        f = buf[o:o + words].view(torch.bfloat16).reshape(ks, nt, 8, 4, 2, 2)  # j n g t half lo
+        out[name] = f.permute(0, 4, 3, 5, 1, 2).reshape(cp, 8 * nt).to(torch.float32)
         o += words
-    assert o == buf.numel() == 2304
+    assert o == buf.numel() == {32: 2304, 48: 4992}[cp]
     return out
 
 
@@ -171,27 +174,77 @@ def test_b_fragments_follow_the_mma_layout():
 
 
 def test_pack_params_tile_rejects_other_widths():
-    """The bf16 tile buffers exist at C=32 only; at KITTI's C=33 (one head)
-    the fp32 tile buffer is the padded one (CP=36), and widths above 36 or
+    """The bf16 tile buffers exist at C=32 and, padded to CP=48, at
+    32 < C <= 36: at KITTI's C=33 (one head) both the bf16 buffers (CP=48)
+    and the fp32 one (CP=36) are the padded ones, and widths above 36 or
     heads that do not divide C have none."""
     egnn = EGNN(in_node_nf=33, hidden_nf=33, out_node_nf=33, n_layers=1, num_heads=1)
     p33 = tk.params_from_layer(egnn.gcl_0)
-    with pytest.raises(ValueError, match="C=32"):
-        tk.pack_params_tile(p33)
-    assert tk.pack_for_kernels(p33).tile is None and tk.pack_for_kernels(p33).tile_bwd is None
-    assert torch.equal(tk.pack_for_kernels(p33).f32, tk.pack_params_f32(p33))
+    packed = tk.pack_for_kernels(p33)
+    assert torch.equal(packed.tile, tk.pack_params_tile(p33))
+    assert torch.equal(packed.tile_bwd, tk.pack_params_tile_bwd(p33))
+    assert packed.tile.numel() == 8832 and packed.tile_bwd.numel() == 4992   # at CP=48
+    assert torch.equal(packed.f32, tk.pack_params_f32(p33))
     assert tk.pack_params_f32(p33).numel() == 15552              # Layout<36>::total
-    with pytest.raises(ValueError, match="C=32"):
-        tk.pack_params_tile_bwd(p33)
     for c, heads in ((37, 1), (16, 1), (36, 1)):
         egnn = EGNN(in_node_nf=c, hidden_nf=c, out_node_nf=c, n_layers=1, num_heads=heads)
         p = tk.params_from_layer(egnn.gcl_0)
         if c == 36:
             p = p._replace(head_width=8)                     # 8 does not divide 36
-        with pytest.raises(ValueError, match="C=32"):
-            tk.pack_params_f32(p)
-        assert tk.pack_for_kernels(p).f32 is None
+        for pack in (tk.pack_params_f32, tk.pack_params_tile, tk.pack_params_tile_bwd):
+            with pytest.raises(ValueError, match="C=32"):
+                pack(p)
+        assert tk.pack_for_kernels(p).f32 is None and tk.pack_for_kernels(p).tile is None
     assert tk.pack_for_kernels(_layer(8, 0)).tile.numel() == 4096
+
+
+@pytest.mark.parametrize("heads", [1, 3])
+def test_pack_params_tile_pads_c33_to_48_with_zeros_and_round_trips(heads):
+    """At C=33 the bf16 tile buffers are built at CP=48: every matrix holds
+    the layer's bf16-rounded weights in its leading corner (w1's geometry
+    block at input 48, wn0's agg_m half at input 48) and zeros in every pad
+    row and column of the channels 33..47; the vectors (ln_scale, ln_bias
+    and wc1 included) are zero past channel 33; the layer reads back from
+    the buffers alone."""
+    rng = np.random.default_rng(48 + heads)
+    egnn = EGNN(in_node_nf=33, hidden_nf=33, out_node_nf=33, n_layers=1, num_heads=heads)
+    with torch.no_grad():
+        for q in egnn.parameters():
+            q.copy_(torch.from_numpy(rng.standard_normal(tuple(q.shape)).astype(np.float32)))
+    p = tk.params_from_layer(egnn.gcl_0)
+    c, cp = 33, 48
+    assert tk.tile_width(c) == cp
+    bf = lambda t: t.to(torch.bfloat16).to(torch.float32)
+    w = read_tile_buffer(tk.pack_params_tile(p), cp)
+    real = lambda rows, cols: (slice(0, rows), slice(0, cols))
+    blocks = dict(w1=[(real(c, c), p.w1_hcol.T), ((slice(cp, cp + 12), slice(0, c)), p.w1_geo.T),
+                      ((slice(cp + 16, cp + 16 + c), slice(0, c)), p.w1_hrow.T)],
+                  w2=[(real(c, c), p.w2.T)], wc0=[(real(c, c), p.wc0.T)],
+                  wn0=[(real(c, c), p.wn0[:, :c].T),
+                       ((slice(cp, cp + c), slice(0, c)), p.wn0[:, c:].T)],
+                  wn1=[(real(c, c), p.wn1.T)])
+    for name, parts in blocks.items():
+        mask = torch.zeros_like(w[name], dtype=torch.bool)
+        for (rows, cols), ref in parts:
+            assert torch.equal(w[name][rows, cols], bf(ref)), name
+            mask[rows, cols] = True
+        assert torch.count_nonzero(w[name][~mask]) == 0, name      # every pad exactly 0
+    for name, ref in (("b1", p.b1), ("b2", p.b2), ("ln_scale", p.ln_scale),
+                      ("ln_bias", p.ln_bias), ("bc0", p.bc0), ("bn0", p.bn0), ("bn1", p.bn1),
+                      ("wc1", bf(p.wc1.reshape(-1)))):
+        assert torch.equal(w[name][:c], ref) and torch.count_nonzero(w[name][c:]) == 0, name
+    wb = read_tile_bwd_buffer(tk.pack_params_tile_bwd(p), cp)
+    for name, cols, ref in (("wc0", slice(0, c), p.wc0), ("w2", slice(0, c), p.w2),
+                            ("w1_h", slice(0, c), p.w1_hcol),
+                            ("w1_h", slice(cp, cp + c), p.w1_hrow),
+                            ("w1_geo", slice(0, 12), p.w1_geo)):
+        assert torch.equal(wb[name][:c, cols], bf(ref)), name
+    for name, live in (("wc0", [(0, c)]), ("w2", [(0, c)]), ("w1_h", [(0, c), (cp, cp + c)]),
+                       ("w1_geo", [(0, 12)])):
+        mask = torch.zeros_like(wb[name], dtype=torch.bool)
+        for a, b in live:
+            mask[:c, a:b] = True
+        assert torch.count_nonzero(wb[name][~mask]) == 0, name
 
 
 def test_pack_params_f32_pads_c33_with_zeros_and_round_trips():
@@ -253,12 +306,18 @@ def test_egcl_variant_routes_by_shape_and_mode():
         for w in (1, 2, 4, 8, 16, 32):
             assert tk.egcl_variant(32, k, w, False) == "tile"
             assert tk.egcl_variant(32, k, w, True) == "tile_f32"
-    assert tk.egcl_variant(33, 16, 33, False) == "simt"
+    assert tk.egcl_variant(33, 16, 33, False) == "tile"           # padded to CP=48
     assert tk.egcl_variant(33, 16, 33, True) == "tile_f32"        # padded to CP=36
     assert tk.egcl_variant(33, 16, 11, True) == "tile_f32"
+    assert tk.egcl_variant(33, 16, 11, False) == "tile"
     assert tk.egcl_variant(36, 16, 12, True) == "tile_f32"
-    assert tk.egcl_variant(36, 16, 12, False) == "simt"
+    assert tk.egcl_variant(36, 16, 12, False) == "tile"
+    for c in (33, 34, 35, 36):                                    # every whole head width
+        for w in (w for w in range(1, c + 1) if c % w == 0):
+            assert tk.egcl_variant(c, 16, w, False) == "tile"
     assert tk.egcl_variant(37, 16, 37, True) == "simt"            # above the padded width
+    assert tk.egcl_variant(37, 16, 37, False) == "simt"
+    assert tk.egcl_variant(33, 16, 2, False) == "simt"            # 2 does not divide 33
     assert tk.egcl_variant(40, 16, 8, True) == "simt"
     assert tk.egcl_variant(36, 16, 8, True) == "simt"             # heads must tile C
     assert tk.egcl_variant(64, 16, 8, False) == "simt"
@@ -271,11 +330,12 @@ def test_egcl_variant_routes_by_shape_and_mode():
 @pytest.mark.parametrize("head_width", [1, 8, 32])
 def test_the_backward_routes_fast_c32_to_the_tile_kernel(k, head_width):
     """`egcl_backward` picks its kernel with the forward's `egcl_variant`:
-    at C=32 with whole heads fast mode is 'tile' and accurate mode
-    'tile_f32' at any K, the rest 'simt'."""
+    at C=32 and at 32 < C <= 36 with whole heads fast mode is 'tile' and
+    accurate mode 'tile_f32' at any K, the rest 'simt'."""
     assert tk.egcl_variant(32, k, head_width, False) == "tile"
     assert tk.egcl_variant(32, k, head_width, True) == "tile_f32"
-    assert tk.egcl_variant(33, k, 33 if head_width == 32 else 1, False) == "simt"
+    assert tk.egcl_variant(33, k, 33 if head_width == 32 else 1, False) == "tile"
+    assert tk.egcl_variant(37, k, 37 if head_width == 32 else 1, False) == "simt"
     assert tk.egcl_variant(64, k, head_width, False) == "simt"
 
 
