@@ -7,8 +7,9 @@
 Builds the CUDA kernels from `se3_equi_graph_registration_tpu_torch/csrc`
 (one nvcc per source, in parallel) and holds each against its plain PyTorch
 version on the card at the main paths' shapes. B1 packed, B1 exact (over a
-window and over the whole cloud) and B4 each have a warp-a-query kernel on
-the paths and the thread-a-query kernel kept to compare; the EGCL forward
+window and over the whole cloud, at k <= 128 and at 128 < k <= 1024) and B4
+each have a warp-a-query kernel on the paths and the thread-a-query kernel
+kept to compare; the EGCL forward
 and backward have, at C=32, a bf16 tensor-core tile kernel for fast mode
 and an fp32 register-blocked tile kernel for accurate mode, each built a
 second time for 32 < C <= 36 (KITTI's C=33, one head: zero pads), the bf16
@@ -44,7 +45,10 @@ everything runs):
   `register_fpfh_batch` at B=8 and 32, and a profile of one b=1 call; then
   `register_fpfh` at its defaults (knn_method='approx': 2 whole-cloud k-NN
   launches at k=60 on the exact warp kernel, no B4 or B5) at 4 branches
-  against the CPU;
+  against the CPU; then at k_fpfh=300, b=1, on the two routes that reach
+  B1's exact keys beyond k=128: fused with exact keys over W=768 (2 k-NN
+  launches on the large-k warp kernel and 2 SPFH) and at its defaults (2
+  whole-cloud k-NN launches on it), each against the CPU and timed;
 - the robust evaluation path (`robust`): a `.pth` written by the port's
   exporter from the seeded weights, loaded by
   `Registrar.from_checkpoint(robust=True)` on the card and on the CPU
@@ -183,12 +187,15 @@ one JSON object with the device.
 
 Tolerances (kernel vs its plain version, same inputs, on the card):
 - knn, B1 packed (k=16/W=384 and k=60/W=768), B4 (k=60/W=768), B1 exact
-  (k=16/W=384, and the whole cloud of N=2048 at k=16 and k=60; k=300/W=768
-  on the thread kernel alone, in blocks of 64 queries), at B=64
-  and at one cloud, and the CPU emulation's edge cases at small size: the
-  warp kernel, the thread kernel and the plain version give identical
-  lists (the same keys from the same round-to-nearest d²: unique within a
-  query in packed mode, ties to the lower id in exact mode).
+  (k=16/W=384, and the whole cloud of N=2048 at k=16 and k=60; k=300 at
+  W=768 and over the whole cloud on the large-k warp kernel, the thread
+  kernel in blocks of 64 queries beside it), at B=64 and at one cloud,
+  and the CPU emulation's edge cases at small size and more (k up to the
+  large-k kernel's 1024, where the thread kernel, which stops near 840,
+  is left out): the warp kernel, the thread kernel and the plain version
+  give identical lists (the same keys from the same round-to-nearest d²:
+  unique within a query in packed mode, ties to the lower id in exact
+  mode).
 - egcl, h′: max |Δ| ≤ tol · max|ref h′|; coordinates through their update
   u = x′ − x: max |Δu| ≤ tol · max|ref u| + ε₃₂ · max|x|, the last term
   being the fp32 spacing at which x′ = x + u can be read back. The update
@@ -279,6 +286,11 @@ Tolerances (kernel vs its plain version, same inputs, on the card):
   does not (7630 of 135168 entries moved by more than 0.1, at most 27.9;
   not traced further), so the matches differ and 10 ICP steps end short of
   the fixed point (H100 80GB HBM3, 700 W).
+- register_fpfh at k_fpfh=300 (fused with exact keys over W=768, and at
+  its defaults): the default path's gate, both poses within 0.5 deg and 5
+  mm of the truth and card vs CPU within 2e-3 at 60 ICP steps; 2 k-NN
+  launches a call, both on the large-k kernel, and 2 'redux' SPFH on the
+  fused route.
 - cli: each command's launches by kernel exactly as counted from the
   dataset (train: 2 k-NN, 6 B2 and 6 B3 a step and 2 k-NN and 6 B2 a
   validation batch; eval: 2 and 6 a test batch; export: none); the export
@@ -458,7 +470,7 @@ FPFH_BATCHES = (8, 32)      # register_fpfh_batch sizes timed
 # seeded pairs of the printed 60-step ICP sweep, card vs CPU: ~7.4 s a pair,
 # most of it the CPU side; 6 (once 12) keep the whole smoke near half its limit
 ICP60_SWEEP_PAIRS = 6
-KNN_LARGE_K = 300           # exact keys beyond the warp kernel's k <= 128
+KNN_LARGE_K = 300           # exact keys beyond k = 128: csrc/knn_exact_large.cu
 # the robust phase's ICP cases: steps a scale, the pyramid's coarse cell (m),
 # and the Registrar's bumpy-surface pairs
 ROBUST_ICP_ITERS, ROBUST_VOXEL, ROBUST_ICP_PAIRS = 60, 0.1, 4
@@ -898,13 +910,15 @@ def egcl_backward_c33_mode(torch, p33, p3, pc, packed, h33, xs, nbr, dm, dx, acc
 
 PHASES = ("knn", "egcl", "serve", "bwd", "train", "fpfh", "robust", "cli", "serve_extra",
           "variants", "multiway", "tools", "dist", "point", "extras", "kitti")
-ROW_ORDER = ("knn_window", "egcl_layer", "egcl_layer_f32", "egcl_layer_f32_cp36",
+ROW_ORDER = ("knn_window", "knn_exact_large", "egcl_layer", "egcl_layer_f32", "egcl_layer_f32_cp36",
              "egcl_layer_cp48", "egcl_backward", "egcl_backward_f32", "egcl_backward_f32_cp36",
              "egcl_backward_cp48", "knn_chunked", "spfh")
 # the phases whose paths launch each kernel row's kernel
 DRIVEN_BY = dict(knn_window=("serve", "train", "fpfh", "robust", "cli", "serve_extra",
                              "variants", "multiway", "tools", "dist", "point", "extras",
                              "kitti"),
+                 # register_fpfh at k_fpfh = KNN_LARGE_K, fused and at its defaults
+                 knn_exact_large=("fpfh",),
                  egcl_layer=("serve", "train", "robust", "serve_extra", "variants", "tools",
                              "dist", "extras"),
                  egcl_layer_f32=("serve", "train", "cli", "variants", "tools", "dist", "point",
@@ -1000,6 +1014,7 @@ def reset_knn_counters(knn):
     for fn in (knn.knn_window, knn.knn_chunked):
         fn.launches = 0
         fn.launches_by_variant = {"warp": 0, "thread": 0}
+    knn.knn_window.launches_by_source = dict.fromkeys(knn.WINDOW_SOURCES, 0)
 
 
 def reset_egcl_counters(egcl):
@@ -1033,7 +1048,8 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
     rows = {}
 
     if "knn" in phases:
-        rows["knn_window"], rows["knn_chunked"] = knn_phase(torch, x, xs, k, tile, window)
+        rows["knn_window"], rows["knn_exact_large"], rows["knn_chunked"] = knn_phase(
+            torch, x, xs, k, tile, window)
     if "egcl" in phases:
         rows["egcl_layer"], rows["egcl_layer_f32"] = egcl_phase(torch, p, h, xs, nbr, gen)
         rows["egcl_layer_f32_cp36"], rows["egcl_layer_cp48"] = egcl_c33_phase(torch, xs, nbr,
@@ -1051,6 +1067,7 @@ def run(torch, dev, cfg, bsz, phases=PHASES):
         rows["spfh"] = fpfh_kernel_phase(torch, dev, bsz)
         register_fpfh_phase(torch, dev, rows)
         register_fpfh_default_phase(torch, dev, rows)
+        register_fpfh_large_k_phase(torch, dev, rows)
     if "robust" in phases:
         robust_phase(torch, dev, cfg, bsz, sd, rows)
     if "cli" in phases:
@@ -1115,6 +1132,19 @@ KNN_EDGE_CASES = (
     ("exact", 2, 256, 1, 128, None, True, "uniform"),
     ("exact", 1, 1152, 128, 128, None, True, "uniform"),
     ("exact", 1, 3000, 128, 120, None, True, "uniform"),
+    # exact keys at 128 < k <= 1024 (csrc/knn_exact_large.cu): k = 129, 256,
+    # W and the kernel's limit, repeated and equal points, no self, B=2
+    ("exact", 2, 1024, 129, 128, 768, True, "repeated"),
+    ("exact", 1, 2048, 256, 128, 768, False, "uniform"),
+    ("exact", 2, 1024, 300, 128, 768, True, "offset"),
+    ("exact", 1, 768, 768, 128, 768, True, "uniform"),
+    ("exact", 2, 2048, 129, 128, None, False, "repeated"),
+    ("exact", 1, 2048, 301, 128, None, True, "repeated"),
+    ("exact", 1, 1280, 256, 128, None, True, "equal"),
+    ("exact", 1, 640, 640, 128, None, False, "uniform"),
+    ("exact", 1, 3000, 840, 120, None, True, "uniform"),
+    ("exact", 2, 2048, 1024, 128, None, True, "repeated"),
+    ("exact", 1, 2048, 1024, 128, 1024, False, "uniform"),
 )
 
 
@@ -1158,16 +1188,36 @@ def surface_clouds(torch, dev, bsz, sort=True):
 
 def knn_pair(torch, fn, plain, x, what, **kw):
     """The warp and the thread kernel of one k-NN on x, each launched once
-    and counted by variant; both must equal the plain version bit for bit."""
+    and counted by variant (the thread kernel only where it takes k: up to
+    ~840 exact keys); both must equal the plain version bit for bit. For
+    `knn_window`, the warp launch must run the source `knn_window_source`
+    names for the shape."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn
+
     counts = fn.launches_by_variant
     before = dict(counts)
-    warp = fn(x, **kw)
-    thread = fn(x, variant="thread", **kw)
+    by_source = dict(knn.knn_window.launches_by_source)
+    kernels = [("warp", fn(x, **kw))]
     torch.cuda.synchronize()
-    check({v: counts[v] - before[v] for v in counts} == {"warp": 1, "thread": 1},
+    thread_takes_k = True
+    if fn is knn.knn_window:
+        packed = kw.get("packed", False)
+        source = knn.knn_window_source(packed, kw["window"], kw["k"])
+        check(fn.launches_by_source[source] == by_source[source] + 1,
+              f"{what}: the warp launch did not run csrc/{source}.cu "
+              f"({fn.launches_by_source}, before {by_source})")
+        smem = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
+        try:
+            knn.thread_queries_per_block(kw["k"], kw["tile"], packed, smem)
+        except ValueError:
+            thread_takes_k = False     # beyond its lists: the warp kernel alone
+    if thread_takes_k:
+        kernels.append(("thread", fn(x, variant="thread", **kw)))
+        torch.cuda.synchronize()
+    check({v: counts[v] - before[v] for v in counts} == {"warp": 1, "thread": len(kernels) - 1},
           f"{what}: launches by kernel {counts} (before {before})")
     ref = plain(x, **kw)
-    for name, got in (("warp", warp), ("thread", thread)):
+    for name, got in kernels:
         if not torch.equal(got, ref):
             bad = torch.nonzero(torch.any(got != ref, -1))
             b, q = bad[0].tolist()
@@ -1183,8 +1233,9 @@ def knn_phase(torch, x, xs, k, tile, window):
     B4 at k=60/W=768, B1 exact at k=16/W=384 on the served clouds (`xs`,
     curve-sorted) and over the whole cloud at the engine default's k=16 on
     the unsorted served clouds (`x`) and at register_fpfh's default k=60 on
-    unsorted surface clouds; then the edge cases. Returns the knn_window and
-    knn_chunked rows."""
+    unsorted surface clouds, B1 exact at k=300 (the large-k kernel) at
+    W=768 and over the whole cloud; then the edge cases. Returns the
+    knn_window, knn_exact_large and knn_chunked rows."""
     from se3_equi_graph_registration_tpu_torch.ops.kernels import knn
 
     dev = xs.device
@@ -1226,32 +1277,36 @@ def knn_phase(torch, x, xs, k, tile, window):
                 + (f", plain {plain_ms:.3f} ms" if plain_ms else "")
                 + f", bound {bb:.4f} ms ({bby}; warp at {100 * bb / ms:.2f}%, thread at "
                 f"{100 * bb / thread:.2f}%)")
-    # exact keys at k > 128 run only on the thread kernel (csrc/knn.cu), in
-    # blocks of fewer queries than the tile once the lists outgrow 128 a block
-    kw = dict(k=KNN_LARGE_K, tile=FPFH_TILE, window=FPFH_WINDOW, packed=False)
-    counts = w1.launches_by_variant
-    qb = knn.thread_queries_per_block(
-        KNN_LARGE_K, FPFH_TILE, False,
-        torch.cuda.get_device_properties(dev).shared_memory_per_block_optin)
-    for b in (bsz, 1):
-        xb = surf[:b].contiguous()
-        what = f"B1 exact B={b} k={KNN_LARGE_K} W={FPFH_WINDOW}"
-        before = dict(counts)
-        got = w1(xb, **kw)
-        torch.cuda.synchronize()
-        check({v: counts[v] - before[v] for v in counts} == {"warp": 0, "thread": 1},
-              f"{what}: launches by kernel {counts} (before {before})")
-        check(torch.equal(got, knn.knn_window_plain(xb, **kw)),
-              f"{what}: the thread kernel's lists differ from the plain version")
-        ms = cuda_ms(torch, lambda: w1(xb, **kw), 10)
-        plain_ms = cuda_ms(torch, lambda: knn.knn_window_plain(xb, **kw), 3) if b == bsz else None
-        bb, bby = bound_ms(xb.numel() * 4 + n * b * KNN_LARGE_K * 4, n * b * FPFH_WINDOW * 8,
-                           PEAK_FP32)
-        stats["B1 exact large k", b] = dict(ms=ms, thread_ms=ms, plain_ms=plain_ms, bound_ms=bb,
-                                            bound_by=bby)
-        log(f"knn {what}: the thread kernel ({qb} queries a block) identical to the plain "
-            f"version; {ms:.4f} ms" + (f", plain {plain_ms:.3f} ms" if plain_ms else "")
-            + f", bound {bb:.4f} ms ({bby}; at {100 * bb / ms:.2f}%)")
+    # exact keys at k = 300 (csrc/knn_exact_large.cu), over the fused path's
+    # window and over the whole cloud, beside the thread kernel (csrc/knn.cu,
+    # in blocks of fewer queries than the tile once the lists outgrow 128 a
+    # block), the plain version and torch.topk over the plain version's d²
+    for name, data, w in (("B1 exact large k", surf, FPFH_WINDOW),
+                          ("B1 whole cloud large k",
+                           surface_clouds(torch, dev, bsz, sort=False), None)):
+        kw = dict(k=KNN_LARGE_K, tile=FPFH_TILE, window=w, packed=False)
+        for b in (bsz, 1):
+            xb = data[:b].contiguous()
+            what = f"{name} B={b} k={KNN_LARGE_K} W={w or n}"
+            knn_pair(torch, w1, knn.knn_window_plain, xb, what, **kw)
+            ms = cuda_ms(torch, lambda: w1(xb, **kw), 20)
+            thread = cuda_ms(torch, lambda: w1(xb, variant="thread", **kw), 10 if w else 3)
+            plain_ms = topk_ms = None
+            if b == bsz:
+                plain_ms = cuda_ms(torch, lambda: knn.knn_window_plain(xb, **kw), 3)
+                d2, _ = knn.window_sq_dists(xb, FPFH_TILE, w or n)
+                topk_ms = cuda_ms(torch, lambda: torch.topk(d2, KNN_LARGE_K, largest=False), 3)
+                del d2
+            bb, bby = bound_ms(xb.numel() * 4 + n * b * KNN_LARGE_K * 4, n * b * (w or n) * 8,
+                               PEAK_FP32)
+            stats[name, b] = dict(ms=ms, thread_ms=thread, plain_ms=plain_ms, bound_ms=bb,
+                                  bound_by=bby, topk_ms=topk_ms)
+            log(f"knn {what}: the large-k warp kernel and the thread kernel identical to the "
+                f"plain version; warp {ms:.4f} ms, thread {thread:.4f} ms ({thread / ms:.2f}x)"
+                + (f", plain {plain_ms:.3f} ms ({plain_ms / ms:.2f}x the warp kernel), "
+                   f"torch.topk over the plain d² {topk_ms:.3f} ms" if plain_ms else "")
+                + f", bound {bb:.4f} ms ({bby}; warp at {100 * bb / ms:.2f}%, thread at "
+                f"{100 * bb / thread:.2f}%)")
     for i, (kind, b, n_, k_, t_, w_, inc, cloud) in enumerate(KNN_EDGE_CASES):
         x_ = edge_cloud(torch, dev, i, b, n_, cloud, sort=w_ is not None)
         kw = dict(k=k_, tile=t_, window=w_, include_self=inc)
@@ -1262,9 +1317,10 @@ def knn_phase(torch, x, xs, k, tile, window):
             knn_pair(torch, w1, knn.knn_window_plain, x_, what, packed=kind == "window", **kw)
     log(f"knn edge cases: {len(KNN_EDGE_CASES)} (packed and chunked: W 128-1024, k 1-128, no "
         "self, repeated points, offset 1e3, class 0, B=1 and 2; exact: W 128-1024 and the "
-        "whole cloud at N 256-3000 over 1-3 chunks, tiles 1, 120, 125 and 128, k 1-128, no self, "
-        "repeated and equal points, offset 1e3, B=1 and 2): warp and thread kernels identical "
-        "to the plain version")
+        "whole cloud at N 256-3000 over 1-3 chunks, tiles 1, 120, 125 and 128, k 1-128 and, "
+        "on the large-k kernel, 129, 256, 300, 301, 640, 768, 840 and 1024, no self, repeated "
+        "and equal points, offset 1e3, B=1 and 2): warp and thread kernels (the thread kernel "
+        "to k = 840) identical to the plain version")
 
     def row(name, source, thread_source, replaces, case, extra):
         big, one = stats[case, bsz], stats[case, 1]
@@ -1283,14 +1339,18 @@ def knn_phase(torch, x, xs, k, tile, window):
                     bound_ms_b1=one["bound_ms"])
 
     src = "se3_equi_graph_registration_tpu_torch/csrc/"
+    b1 = "se3_equi_graph_registration_tpu/ops/pallas/knn_kernel.py:26"
     shapes = {"packed k=60 W=768": shape("B1 packed on surfaces"),
               f"exact k={k} W={window}": shape("B1 exact"),
               f"exact whole cloud k={k} N={n}": shape("B1 whole cloud"),
-              f"exact whole cloud k={FPFH_K} N={n}": shape("B1 whole cloud on surfaces"),
-              f"exact k={KNN_LARGE_K} W={FPFH_WINDOW} (thread kernel)": shape("B1 exact large k")}
-    return (row("knn_window", src + "knn_warp.cu", src + "knn.cu",
-                "se3_equi_graph_registration_tpu/ops/pallas/knn_kernel.py:26", "B1 packed",
+              f"exact whole cloud k={FPFH_K} N={n}": shape("B1 whole cloud on surfaces")}
+    large = {f"exact whole cloud k={KNN_LARGE_K} N={n}": dict(
+        shape("B1 whole cloud large k"), topk_ms=stats["B1 whole cloud large k", bsz]["topk_ms"])}
+    return (row("knn_window", src + "knn_warp.cu", src + "knn.cu", b1, "B1 packed",
                 dict(exact_source=src + "knn_exact_warp.cu", shapes=shapes)),
+            row("knn_exact_large", src + "knn_exact_large.cu", src + "knn.cu", b1,
+                "B1 exact large k", dict(k=KNN_LARGE_K, window=FPFH_WINDOW, shapes=large,
+                                         topk_ms=stats["B1 exact large k", bsz]["topk_ms"])),
             row("knn_chunked", src + "knn_chunked_warp.cu", src + "knn_chunked.cu",
                 "se3_equi_graph_registration_tpu/ops/pallas/knn_kernel.py:93", "B4", {}))
 
@@ -2040,7 +2100,7 @@ def spfh_inputs(torch, dev, bsz, k, kind="surface"):
         xs = xs.contiguous()
     if k == FPFH_K and kind == "surface":
         nbr = knn.knn_chunked(xs, k, FPFH_TILE, FPFH_WINDOW)
-    else:   # exact window keys: the warp kernel to k = 128, the thread kernel beyond
+    else:   # exact window keys: csrc/knn_exact_warp.cu to k = 128, knn_exact_large.cu beyond
         nbr = knn.knn_window(xs, k, FPFH_TILE, FPFH_WINDOW, packed=False)
     normals = fpfh.estimate_normals_window(xs, nbr[..., :min(k, FPFH_KN)]).contiguous()
     return xs, normals, nbr
@@ -2370,6 +2430,69 @@ def register_fpfh_default_phase(torch, dev, rows):
     log(f"register_fpfh at its defaults: {rate:.2f} pairs/s at b=1 (host clock incl. "
         f"sampling, H2D, noise draw and result copy); path run "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def register_fpfh_large_k_phase(torch, dev, rows):
+    """The checkpoint-free path at k_fpfh = KNN_LARGE_K (300) on the two
+    routes that reach B1's exact keys beyond k = 128, b=1, N=2048, 4
+    branches: fused with exact keys over the window (knn_packed=False,
+    W=768: the TPU kernel's own path; 2 knn_window launches on the large-k
+    warp kernel and 2 'redux' B5 a call) and at its defaults (the whole
+    cloud; 2 knn_window launches on the large-k kernel, no B4 or B5). Each
+    on the card against the same call on the CPU at the default path's
+    gate: both poses within 0.5 deg and 5 mm of the truth, card vs CPU
+    within 2e-3 at 60 ICP steps; launches exact; a call timed with CUDA
+    events."""
+    from se3_equi_graph_registration_tpu_torch import registration
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn, spfh
+
+    (src, tgt, R, t), = surface_pairs(1, 6)
+    routes = {"fused exact W=768": (dict(knn_method="fused", knn_packed=False,
+                                          window=FPFH_WINDOW, k_fpfh=KNN_LARGE_K),
+                                     dict(knn_window=2, knn_chunked=0, spfh=2)),
+              "defaults (approx, whole cloud)": (dict(k_fpfh=KNN_LARGE_K),
+                                                 dict(knn_window=2, knn_chunked=0, spfh=0))}
+    counters = dict(knn_window=knn.knn_window, knn_chunked=knn.knn_chunked, spfh=spfh.spfh)
+    for route, (kw, want) in routes.items():
+        what = f"register_fpfh k_fpfh={KNN_LARGE_K}, {route}"
+        for fn in counters.values():
+            fn.launches = 0
+        reset_knn_counters(knn)
+        spfh.spfh.launches_by_variant = dict.fromkeys(spfh.VARIANTS, 0)
+        Rc, tc, ic = registration.register_fpfh(src, tgt, **kw)
+        torch.cuda.synchronize()
+        d = {k_: fn.launches for k_, fn in counters.items()}
+        sources = dict(knn.knn_window.launches_by_source)
+        check(d == want and sources["knn_exact_large"] == 2
+              and knn.knn_window.launches_by_variant == {"warp": 2, "thread": 0}
+              and spfh.spfh.launches_by_variant.get("redux", 0) == want["spfh"],
+              f"{what}: launches {d}, knn_window by source {sources}, by kernel "
+              f"{knn.knn_window.launches_by_variant}, spfh by kernel "
+              f"{spfh.spfh.launches_by_variant} (want {want}, knn_window all on the large-k "
+              "kernel, spfh all 'redux')")
+        record_launches(rows, f"register_fpfh k_fpfh={KNN_LARGE_K} {route}",
+                        dict(knn_exact_large=2), dict(knn_exact_large={"warp": 2, "thread": 0}))
+        t1 = time.perf_counter()
+        Rp, tp, _ = registration.register_fpfh(src, tgt, device="cpu", **kw)
+        cpu_s = time.perf_counter() - t1
+        dR = float(np.linalg.norm(Rc - Rp) / np.sqrt(2))
+        dt = float(np.abs(tc - tp).max())
+        (ec, etc), (ep, etp) = pose_err(Rc, tc, R, t), pose_err(Rp, tp, R, t)
+        check(all(np.isfinite(a).all() for a in (Rc, tc, ic["weights"], ic["pose_covariance"])),
+              f"{what}: non-finite output")
+        check(ec < 0.5 and etc < 5e-3 and ep < 0.5 and etp < 5e-3,
+              f"{what}: ground truth missed, card {ec} deg {etc} m, CPU {ep} deg {etp} m")
+        Rc60, tc60, _ = registration.register_fpfh(src, tgt, icp_iters=60, **kw)
+        Rp60, tp60, _ = registration.register_fpfh(src, tgt, icp_iters=60, device="cpu", **kw)
+        dR60 = float(np.linalg.norm(Rc60 - Rp60) / np.sqrt(2))
+        dt60 = float(np.abs(tc60 - tp60).max())
+        check(dR60 <= 2e-3 and dt60 <= 2e-3,
+              f"{what} at 60 ICP steps: card vs CPU dR {dR60} dt {dt60}")
+        ms = event_ms(torch, lambda: registration.register_fpfh(src, tgt, **kw), 5)
+        log(f"{what}, N={FPFH_N}, b=1: launches {d}, knn_window by source {sources}; ground "
+            f"truth card {ec:.4f} deg {etc * 1e3:.3f} mm, CPU {ep:.4f} deg {etp * 1e3:.3f} mm; "
+            f"card vs CPU ‖ΔR‖/√2 {dR:.3g}, |Δt| {dt:.3g} m (CPU run {cpu_s:.1f} s), at 60 ICP "
+            f"steps {dR60:.3g}, {dt60:.3g} m; {ms:.2f} ms a call (CUDA events, 5 calls)")
 
 
 def event_ms(torch, fn, reps):

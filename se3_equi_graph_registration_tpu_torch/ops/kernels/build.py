@@ -26,9 +26,9 @@ from typing import Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("knn", "knn_warp", "knn_exact_warp", "knn_chunked", "knn_chunked_warp", "egcl",
-           "egcl_tile", "egcl_tile_f32", "egcl_backward", "egcl_backward_tile",
-           "egcl_backward_tile_f32", "spfh", "spfh_redux")
+SOURCES = ("knn", "knn_warp", "knn_exact_warp", "knn_exact_large", "knn_chunked",
+           "knn_chunked_warp", "egcl", "egcl_tile", "egcl_tile_f32", "egcl_backward",
+           "egcl_backward_tile", "egcl_backward_tile_f32", "spfh", "spfh_redux")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

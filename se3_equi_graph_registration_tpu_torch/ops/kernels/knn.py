@@ -24,25 +24,29 @@ wrapper's `launches_by_variant`:
 
 - 'warp', one warp a query, on `csrc/knn_select.cuh`: B1 packed over a
   window (`csrc/knn_warp.cu`), B1 exact over a window or the whole cloud
-  at k ≤ 128 (`csrc/knn_exact_warp.cu`), B4 (`csrc/knn_chunked_warp.cu`).
+  at k ≤ 128 (`csrc/knn_exact_warp.cu`) and at 128 < k ≤ 1024
+  (`csrc/knn_exact_large.cu`), B4 (`csrc/knn_chunked_warp.cu`);
+  `knn_window_source` names the source a shape runs.
   Neither bytes nor the 8 flops per (query, candidate) bound these on an
   H100, but instruction issue; so the lanes compute their candidates' keys
   from candidates staged once a block and sort them in registers, and
   warp-min steps (`__reduce_min_sync`) extract the smallest keys in
   ascending order, never by divergent insertion. The exact kernel streams
   the candidates in chunks of 1024, drops those not below the query's
-  running K-th key, and merges the rest into the running list. A block of
-  4 warps covers 4 queries of a tile (16 from 64 k queries on), so one
-  cloud fills the card.
+  running K-th key, and merges the rest into the running list. The
+  large-k kernel finds the K-th key by a radix search over d², compacts
+  the K keys at or below it and sorts them by a stable radix sort in
+  shared memory. A block of 4 warps covers 4 queries of a tile (16 from
+  64 k queries on), so one cloud fills the card. Beyond k = 1024 exact
+  keys raise before any launch.
 - 'thread', one thread a query, sorted insertion lists in shared memory:
   `csrc/knn.cu` (B1, both modes) and `csrc/knn_chunked.cu` (B4). Kept for
   comparison: `variant='thread'` launches them where the warp kernel would
-  run, for `chip_smoke.py` to compare and time the two. Exact keys at
-  k > 128 run only there, by shape: a block takes 128, 64 or 32 queries of a
-  tile (`thread_queries_per_block`), the most whose lists fit the card's
-  opt-in shared memory, which the wrapper reads from the device's
-  properties; beyond what 32 queries can hold (k ≈ 840 on an H100) it
-  raises before any launch.
+  run, for `chip_smoke.py` to compare and time the two. A block takes 128,
+  64 or 32 queries of a tile (`thread_queries_per_block`), the most whose
+  lists fit the card's opt-in shared memory, which the wrapper reads from
+  the device's properties; beyond what 32 queries can hold (k ≈ 840 on an
+  H100) it raises before any launch.
 """
 from __future__ import annotations
 
@@ -73,15 +77,22 @@ def _geometry(n: int, tile: int, window: Optional[int], packed: bool, k: int
     return w, pad_tiles, (n - w) // tile
 
 
+def window_sq_dists(x: torch.Tensor, tile: int, w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """d² [B, N/T, T, W] of each query against its tile's window of w
+    candidates, summed in the kernels' order, and the window starts [N/T]."""
+    queries, cand, starts = morton.window_candidates(x, tile, w)
+    d2 = (sq_norms(queries)[..., :, None] - 2.0 * cross_dots(queries, cand)
+          + sq_norms(cand)[..., None, :])
+    return d2, starts
+
+
 def knn_window_plain(x: torch.Tensor, k: int, tile: int = 128,
                      window: Optional[int] = None, packed: bool = False,
                      include_self: bool = True) -> torch.Tensor:
     """Plain PyTorch version of the kernel: x [B, N, 3] f32 → [B, N, K] int32."""
     n = x.shape[-2]
     w, _, _ = _geometry(n, tile, window, packed, k)
-    queries, cand, starts = morton.window_candidates(x, tile, w)
-    d2 = (sq_norms(queries)[..., :, None] - 2.0 * cross_dots(queries, cand)
-          + sq_norms(cand)[..., None, :])                       # [B, N/T, T, W]
+    d2, starts = window_sq_dists(x, tile, w)                    # [B, N/T, T, W]
     lane = torch.arange(w, device=x.device)
     if not include_self:
         qid = torch.arange(n, device=x.device).reshape(n // tile, tile)
@@ -98,20 +109,44 @@ def knn_window_plain(x: torch.Tensor, k: int, tile: int = 128,
 
 
 EXACT_WARP_MAX_K = 128    # the exact warp kernel keeps ⌈K/32⌉ running-list keys a lane
+EXACT_LARGE_MAX_K = 1024  # the large-k kernel's launcher refuses more
 
 
 def knn_variant(packed: bool | str, window: Optional[int], k: int = 1) -> str:
     """Which hand-written kernel runs a k-NN: 'warp' for packed keys over a
     window of at most 1024 (`csrc/knn_warp.cu`), for chunked keys
     (`packed='chunked'`, `csrc/knn_chunked_warp.cu`) and for exact keys over
-    a window or the whole cloud at k ≤ 128 (`csrc/knn_exact_warp.cu`);
-    'thread' for exact keys at larger k (`csrc/knn.cu`). A choice by shape,
-    made before the launch; a launch that fails raises."""
-    if packed == "chunked" or (packed and window is not None and window <= 1024):
-        return "warp"
-    if not packed and k <= EXACT_WARP_MAX_K:
+    a window or the whole cloud (`csrc/knn_exact_warp.cu` at k ≤ 128,
+    `csrc/knn_exact_large.cu` at k ≤ 1024, see `knn_window_source`);
+    'thread' for packed keys beyond a window of 1024 (`csrc/knn.cu`), which
+    the geometry refuses. A choice by shape, made before the launch; a
+    launch that fails raises."""
+    if not packed or packed == "chunked" or (window is not None and window <= 1024):
         return "warp"
     return "thread"
+
+
+def knn_window_source(packed: bool, window: Optional[int], k: int,
+                      variant: Optional[str] = None) -> str:
+    """The source under `csrc/` whose kernel a `knn_window` launch runs:
+    'knn' for `variant='thread'` (or the shape `knn_variant` gives the
+    thread kernel), else 'knn_warp' for packed keys, 'knn_exact_warp' for
+    exact keys at k ≤ 128 and 'knn_exact_large' at 128 < k ≤ 1024. Raises
+    ValueError, naming the limit, for exact keys beyond it on the warp
+    kernels."""
+    if (variant or knn_variant(packed, window, k)) == "thread":
+        return "knn"
+    if packed:
+        return "knn_warp"
+    if k <= EXACT_WARP_MAX_K:
+        return "knn_exact_warp"
+    if k <= EXACT_LARGE_MAX_K:
+        return "knn_exact_large"
+    raise ValueError(f"k={k} exact k-NN: the warp kernel csrc/knn_exact_large.cu takes "
+                     f"k <= {EXACT_LARGE_MAX_K}")
+
+
+WINDOW_SOURCES = ("knn_warp", "knn_exact_warp", "knn_exact_large", "knn")
 
 
 THREAD_STAGED_BYTES = 4 * 1024 * 4   # csrc/knn.cu: x, y, z and ‖c‖² of 1024 candidates
@@ -194,11 +229,12 @@ def knn_window(x: torch.Tensor, k: int, tile: int = 128,
     """k-NN of curve-sorted clouds x [B, N, 3] f32 → nbr [B, N, K] int32.
 
     `window=None` searches the whole cloud. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel `knn_variant` names
+    version; a CUDA tensor launches the kernel `knn_window_source` names
     (`csrc/knn_warp.cu` for packed keys, `csrc/knn_exact_warp.cu` for exact
-    keys) through the custom op `se3gspr_torch::knn_window`. `variant='thread'`
-    asks for `csrc/knn.cu` where a warp kernel would run (to compare the
-    two); 'warp' where there is none, or any variant on a CPU tensor, raises.
+    keys at k ≤ 128, `csrc/knn_exact_large.cu` to k ≤ 1024) through the
+    custom op `se3gspr_torch::knn_window`. `variant='thread'` asks for
+    `csrc/knn.cu` where a warp kernel would run (to compare the two); 'warp'
+    where there is none, or any variant on a CPU tensor, raises.
     """
     by_shape = knn_variant(packed, window, k)
     _check_call(x, tile, variant, by_shape)
@@ -206,6 +242,7 @@ def knn_window(x: torch.Tensor, k: int, tile: int = 128,
         return knn_window_plain(x, k, tile, window, packed, include_self)
     _geometry(x.shape[1], tile, window, packed, k)
     variant = variant or by_shape
+    knn_window_source(packed, window, k, variant)   # raises beyond the kernel's k, before any work
     qb = 0
     if variant == "thread":
         optin = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
@@ -216,28 +253,32 @@ def knn_window(x: torch.Tensor, k: int, tile: int = 128,
 def run_knn_window(x: torch.Tensor, k: int, tile: int, window: Optional[int], packed: bool,
                    include_self: bool, variant: str, queries_per_block: int) -> torch.Tensor:
     """The CUDA side of `se3gspr_torch::knn_window`: allocates the table,
-    launches the variant's kernel and counts the launch (at call time, so an
-    exported program counts each of its runs)."""
+    launches the kernel of `knn_window_source` and counts the launch, by
+    variant and by source (at call time, so an exported program counts each
+    of its runs)."""
     b, n, _ = x.shape
     w, pad_tiles, max_tile = _geometry(n, tile, window, packed, k)
+    source = knn_window_source(packed, window, k, variant)
     out = torch.empty((b, n, k), dtype=torch.int32, device=x.device)
-    if variant == "warp" and packed:
-        _launch("knn_warp", "knn_warp_launch", x, out, b, n, k, tile, w, pad_tiles, max_tile,
+    if source == "knn_warp":
+        _launch(source, "knn_warp_launch", x, out, b, n, k, tile, w, pad_tiles, max_tile,
                 int(include_self), _queries_per_warp(b, n))
-    elif variant == "warp":
-        _launch("knn_exact_warp", "knn_exact_warp_launch", x, out, b, n, k,
+    elif source in ("knn_exact_warp", "knn_exact_large"):
+        _launch(source, source + "_launch", x, out, b, n, k,
                 *exact_warp_geometry(n, k, tile, window), int(include_self),
                 _queries_per_warp(b, n))
     else:
-        _launch("knn", "knn_launch", x, out, b, n, k, tile, queries_per_block, w, pad_tiles,
+        _launch(source, "knn_launch", x, out, b, n, k, tile, queries_per_block, w, pad_tiles,
                 max_tile, int(packed), int(include_self))
     knn_window.launches += 1
     knn_window.launches_by_variant[variant] += 1
+    knn_window.launches_by_source[source] += 1
     return out
 
 
 knn_window.launches = 0
 knn_window.launches_by_variant = {"warp": 0, "thread": 0}
+knn_window.launches_by_source = dict.fromkeys(WINDOW_SOURCES, 0)
 knn_window_op = torch.library.custom_op(OPS + "::knn_window", run_knn_window,
                                         mutates_args=(), device_types="cuda")
 

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from se3_equi_graph_registration_tpu_torch.ops.kernels import build
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "se3_equi_graph_registration_tpu_torch",
@@ -58,6 +60,8 @@ PORT_MODULES = [
     "se3_equi_graph_registration_tpu_torch.models.egnn",
     "se3_equi_graph_registration_tpu_torch.ops.morton",
     "se3_equi_graph_registration_tpu_torch.ops.knn",
+    "se3_equi_graph_registration_tpu_torch.ops.kernels.knn",
+    "se3_equi_graph_registration_tpu_torch.ops.kernels.build",
     "se3_equi_graph_registration_tpu_torch.ops.kabsch",
     "se3_equi_graph_registration_tpu_torch.utils.nn_extras",
     "se3_equi_graph_registration_tpu_torch.utils.reversible",
@@ -113,6 +117,34 @@ def test_card_scripts_import_no_jax(script):
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
     bad = [m for m in names if m.split(".")[0] in ("jax", "se3_equi_graph_registration_tpu")]
     assert names and not bad, bad
+
+
+TOOLKIT_HEADERS = ("cuda_runtime.h", "math_constants.h", "cuda_bf16.h", "climits", "cstdint",
+                   "stdint.h")
+
+
+@pytest.mark.parametrize("source", build.SOURCES)
+def test_kernel_sources_build_from_the_checkout_and_the_cuda_toolkit_alone(source):
+    """Every kernel the card builds (`build.SOURCES`, the large-k k-NN
+    `knn_exact_large` among them) is a source under csrc/ that includes only
+    the CUDA toolkit's and the C++ library's headers and csrc/'s own, and
+    names nothing of jax."""
+    import re
+
+    assert "knn_exact_large" in build.SOURCES
+    seen, todo = set(), [f"{source}.cu"]
+    while todo:
+        name = todo.pop()
+        seen.add(name)
+        with open(os.path.join(build.CSRC, name)) as f:
+            text = f.read()
+        assert "jax" not in text.lower(), name
+        for quote, header in re.findall(r'#include\s*([<"])([^>"]+)[>"]', text):
+            if quote == "<":
+                assert header in TOOLKIT_HEADERS, (name, header)
+            elif header not in seen:
+                assert os.path.exists(os.path.join(build.CSRC, header)), (name, header)
+                todo.append(header)
 
 
 def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch, tmp_path):
@@ -204,8 +236,10 @@ def test_knn_wrappers_reject_a_kernel_variant_as_they_reject_a_bad_geometry():
         assert knn.knn_variant(False, window, 8) == "warp"
         with pytest.raises(ValueError, match="CPU tensor"):
             knn.knn_window(x, 8, 128, window, packed=False, variant="warp")
+    with pytest.raises(ValueError, match="CPU tensor"):               # exact, k > 128: the
+        knn.knn_window(x, 200, 128, 384, packed=False, variant="warp")  # large-k warp kernel
     with pytest.raises(ValueError, match="no 'warp'"):
-        knn.knn_window(x, 200, 128, 384, packed=False, variant="warp")  # exact, k > 128
+        knn.knn_window(x, 8, 128, None, packed=True, variant="warp")    # packed, whole cloud
     with pytest.raises(ValueError, match="no 'simt'"):
         knn.knn_chunked(x, 8, 128, 256, variant="simt")
     assert knn.knn_window(x, 8, 128, 384, packed=True).shape == (1, 512, 8)

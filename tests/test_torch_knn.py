@@ -78,7 +78,71 @@ def test_knn_variant_routes_exact_keys_to_the_warp_kernel_up_to_k_128(window):
 
     for k in (1, 16, 60, 128):
         assert kk.knn_variant(False, window, k) == "warp"
-    assert kk.knn_variant(False, window, 129) == "thread"
+        assert kk.knn_window_source(False, window, k) == "knn_exact_warp"
+    assert kk.knn_variant(False, window, 129) == "warp"
+    assert kk.knn_window_source(False, window, 129) == "knn_exact_large"
+
+
+@pytest.mark.parametrize("k", [129, 200, 300, 840, 1024])
+def test_exact_keys_beyond_k_128_go_to_the_large_k_warp_kernel_up_to_its_limit(k):
+    """128 < k ≤ 1024 runs `csrc/knn_exact_large.cu`, counted as 'warp';
+    `variant='thread'` still names `csrc/knn.cu`, and packed keys
+    `csrc/knn_warp.cu`."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import build
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn as kk
+
+    assert "knn_exact_large" in build.SOURCES
+    for window in (768, 2048, None):
+        assert kk.knn_variant(False, window, k) == "warp"
+        assert kk.knn_window_source(False, window, k) == "knn_exact_large"
+        assert kk.knn_window_source(False, window, k, "thread") == "knn"
+    assert kk.knn_window_source(True, 1024, k) == "knn_warp"
+
+
+def test_exact_keys_beyond_the_large_k_limit_raise_naming_it():
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn as kk
+
+    assert kk.EXACT_LARGE_MAX_K == 1024
+    for window in (2048, None):
+        with pytest.raises(ValueError, match=r"csrc/knn_exact_large.cu takes k <= 1024"):
+            kk.knn_window_source(False, window, 1025)
+
+
+@pytest.fixture
+def recorded_launches(monkeypatch):
+    """The CUDA side of `se3gspr_torch::knn_window` (`run_knn_window`) on CPU
+    tensors, with `_launch` recording (source, symbol, integer arguments) in
+    place of the launch, and the counters put back afterwards."""
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn as kk
+
+    calls = []
+    monkeypatch.setattr(kk, "_launch", lambda source, symbol, x, out, *ints:
+                        calls.append((source, symbol, ints)))
+    monkeypatch.setattr(kk.knn_window, "launches", 0)
+    monkeypatch.setattr(kk.knn_window, "launches_by_variant", {"warp": 0, "thread": 0})
+    monkeypatch.setattr(kk.knn_window, "launches_by_source", dict.fromkeys(kk.WINDOW_SOURCES, 0))
+    return calls
+
+
+@pytest.mark.parametrize("window", [768, None], ids=["window-768", "whole-cloud"])
+def test_large_k_exact_keys_launch_the_large_k_kernel_and_thread_only_when_asked(
+        recorded_launches, window):
+    from se3_equi_graph_registration_tpu_torch.ops.kernels import knn as kk
+
+    x = torch.zeros(2, 2048, 3)
+    out = kk.run_knn_window(x, 300, 128, window, False, True, "warp", 0)
+    assert out.shape == (2, 2048, 300) and out.dtype == torch.int32
+    t, w, pad_tiles, max_tile = kk.exact_warp_geometry(2048, 300, 128, window)
+    assert recorded_launches == [("knn_exact_large", "knn_exact_large_launch",
+                                  (2, 2048, 300, t, w, pad_tiles, max_tile, 1, 1))]
+    kk.run_knn_window(x, 300, 128, window, False, True, "thread", 64)
+    assert recorded_launches[1][:2] == ("knn", "knn_launch")
+    assert kk.knn_window.launches_by_variant == {"warp": 1, "thread": 1}
+    assert kk.knn_window.launches_by_source == {"knn_warp": 0, "knn_exact_warp": 0,
+                                                "knn_exact_large": 1, "knn": 1}
+    with pytest.raises(ValueError, match="k <= 1024"):
+        kk.run_knn_window(torch.zeros(1, 2048, 3), 1025, 128, None, False, True, "warp", 0)
+    assert len(recorded_launches) == 2 and kk.knn_window.launches == 2
 
 
 def test_exact_warp_geometry_treats_the_whole_cloud_as_one_tile():

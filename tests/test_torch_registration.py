@@ -90,7 +90,8 @@ def _agree(got, ref):
     dict(knn_packed=True, ransac_branches=4),
     dict(knn_packed=False, ransac_branches=1),
     dict(knn_packed="chunked", coarse="spectral"),
-], ids=["chunked-4", "chunked-1", "packed-4", "exact-1", "chunked-spectral"])
+    dict(knn_packed=False, ransac_branches=1, k_fpfh=160),
+], ids=["chunked-4", "chunked-1", "packed-4", "exact-1", "chunked-spectral", "exact-1-k160"])
 def test_register_fpfh_fused_matches_jax(bumpy, same_noise_as_jax, knobs):
     src, tgt, R, t = _pair(bumpy, 4, same_points=True)
     kw = dict(n_points=N_POINTS, window=WINDOW, knn_method="fused", **knobs)

@@ -1,7 +1,8 @@
 // Host emulation of the CUDA the port's hand-written kernels use, for CPU tests
 // (tests/test_torch_*_emulated.py): a block runs its CUDA threads as fibers
-// (ucontext) on the calling thread, blocks one after another; __syncthreads,
-// __syncwarp, the warp shuffles, the warp min and add reductions, the ballot and mma.sync.m16n8k16
+// on the calling thread, blocks one after another; __syncthreads,
+// __syncwarp, the warp shuffles, the warp min and add reductions, the ballot,
+// the match-any and mma.sync.m16n8k16
 // (bf16 operands, fp32 accumulation, the PTX fragment layouts) are
 // collectives over barriers at which a fiber yields until its peers arrive.
 // One OS thread does all the work, so a loaded machine slows it in proportion
@@ -20,6 +21,7 @@
 #include <algorithm>
 using std::min; using std::max;
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __shared__ static
@@ -43,16 +45,42 @@ inline int cudaGetLastError() { return 0; }
 template <class F> inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
   *n = 1; return 0; }
 inline dim3m threadIdx, blockIdx, blockDim, gridDim;
+// Fibers switch on x86-64 by saving the callee-saved registers on their own
+// stack and swapping stack pointers (`emulated_switch`): swapcontext also
+// saves and restores the signal mask, a system call at every switch, which
+// made it the emulation's main cost. Elsewhere, ucontext.
+#if defined(__x86_64__)
+#define EMULATED_FAST_SWITCH 1
+extern "C" void emulated_switch(void** save_sp, void* load_sp);
+__asm__(".text\n"
+        ".weak emulated_switch\n"
+        ".hidden emulated_switch\n"
+        ".type emulated_switch, @function\n"
+        "emulated_switch:\n"
+        "  pushq %rbp\n  pushq %rbx\n  pushq %r12\n  pushq %r13\n  pushq %r14\n  pushq %r15\n"
+        "  movq %rsp, (%rdi)\n"
+        "  movq %rsi, %rsp\n"
+        "  popq %r15\n  popq %r14\n  popq %r13\n  popq %r12\n  popq %rbx\n  popq %rbp\n"
+        "  ret\n"
+        ".size emulated_switch, .-emulated_switch\n");
+#else
+#define EMULATED_FAST_SWITCH 0
+#endif
 // the fiber running now and the scheduler it yields to
-struct EmulatedFiber { ucontext_t ctx; int tid = 0; struct WarpCtx* warp = nullptr;
-                       unsigned reductions = 0; bool done = false; };
+struct EmulatedFiber { ucontext_t ctx; void* sp = nullptr; int tid = 0;
+                       struct WarpCtx* warp = nullptr; unsigned reductions = 0; bool done = false; };
 inline ucontext_t emulated_scheduler;
+inline void* emulated_scheduler_sp = nullptr;
 inline EmulatedFiber* emulated_current = nullptr;
 inline std::function<void()>* emulated_body = nullptr;
 inline unsigned emulated_reductions = 0;   // the running fiber's count of min reductions
 inline void emulated_yield() {
   emulated_current->reductions = emulated_reductions;
+#if EMULATED_FAST_SWITCH
+  emulated_switch(&emulated_current->sp, emulated_scheduler_sp);
+#else
   swapcontext(&emulated_current->ctx, &emulated_scheduler);
+#endif
 }
 struct FiberBarrier {
   explicit FiberBarrier(int n) : n(n) {}
@@ -73,6 +101,9 @@ template <class T> inline T __shfl_sync(unsigned, T v, int src) {
   warp_ctx->bar.arrive_and_wait(); T r; std::memcpy(&r, &warp_ctx->buf[src & 31][0], 4);
   warp_ctx->bar.arrive_and_wait(); return r; }
 template <class T> inline T __shfl_xor_sync(unsigned m, T v, int x) { return __shfl_sync(m, v, (threadIdx.x & 31) ^ x); }
+template <class T> inline T __shfl_up_sync(unsigned m, T v, unsigned d) {
+  const int lane = threadIdx.x & 31, src = lane - static_cast<int>(d);
+  return __shfl_sync(m, v, src < 0 ? lane : src); }
 // the warp min reduction and the ballot: each lane posts its value, all read
 // all. One barrier: consecutive collectives alternate between two slots, and
 // a lane can write a slot again only after every lane has passed the barrier
@@ -99,12 +130,18 @@ inline unsigned __ballot_sync(unsigned, int p) {
   unsigned r = 0;
   for (int l = 0; l < 32; ++l) r |= all[l] << l;
   return r; }
+inline unsigned __match_any_sync(unsigned, unsigned v) {
+  const uint32_t* all = emulated_post(v);
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r |= static_cast<unsigned>(all[l] == v) << l;
+  return r; }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) {
   const uint32_t* all = emulated_post(v);
   unsigned r = 0;
   for (int l = 0; l < 32; ++l) r += all[l];
   return r; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(unsigned v) { return __builtin_ffs(static_cast<int>(v)); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
@@ -118,6 +155,8 @@ inline float __expf(float a) { return std::exp(a); }
 inline float rsqrtf(float a) { return 1.0f / std::sqrt(a); }
 // atomicAdd on float, global or shared memory alike
 inline float atomicAdd(float* p, float v) { float o = *p; *p = o + v; return o; }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { unsigned o = *p; *p = o + v; return o; }
+inline unsigned atomicOr(unsigned* p, unsigned v) { unsigned o = *p; *p = o | v; return o; }
 // the block's dynamic shared memory (`extern __shared__`), set by emulated_launch
 inline void* emulated_dynamic_shared = nullptr;
 inline float bf2f(uint16_t b) { uint32_t u = (uint32_t)b << 16; float f; std::memcpy(&f, &u, 4); return f; }
@@ -143,6 +182,24 @@ inline void emulated_mma(float (&d)[4], const uint32_t (&a)[4], uint2 b) {
   warp_ctx->bar.arrive_and_wait();
 }
 inline void emulated_fiber_main() { (*emulated_body)(); emulated_current->done = true; }
+#if EMULATED_FAST_SWITCH
+// a fiber's first frame: runs the body, then hands the stack back for good
+inline void emulated_fiber_entry() {
+  emulated_fiber_main();
+  emulated_switch(&emulated_current->sp, emulated_scheduler_sp);
+  __builtin_trap();
+}
+// the stack of a fiber that has not run yet: six zero callee-saved registers
+// for emulated_switch to pop and the entry to return into, which then
+// starts as if called (its stack pointer 8 off 16-byte alignment)
+inline void* emulated_fiber_stack(char* base, size_t size) {
+  auto top = reinterpret_cast<uintptr_t*>((reinterpret_cast<uintptr_t>(base) + size) & ~uintptr_t(15));
+  top[-1] = 0;
+  top[-2] = reinterpret_cast<uintptr_t>(&emulated_fiber_entry);
+  for (int i = 3; i <= 8; ++i) top[-i] = 0;
+  return top - 8;
+}
+#endif
 template <class F> void emulated_launch(int grid, int block, int shared_bytes, F body) {
   constexpr size_t kStack = 256 << 10;
   std::function<void()> fn = body;
@@ -160,18 +217,26 @@ template <class F> void emulated_launch(int grid, int block, int shared_bytes, F
       EmulatedFiber& f = fibers[i];
       f = EmulatedFiber{};
       f.tid = i; f.warp = ws[i / 32].get();
+#if EMULATED_FAST_SWITCH
+      f.sp = emulated_fiber_stack(stacks.data() + static_cast<size_t>(i) * kStack, kStack);
+#else
       getcontext(&f.ctx);
       f.ctx.uc_stack.ss_sp = stacks.data() + static_cast<size_t>(i) * kStack;
       f.ctx.uc_stack.ss_size = kStack;
       f.ctx.uc_link = &emulated_scheduler;
       makecontext(&f.ctx, emulated_fiber_main, 0);
+#endif
     }
     for (int left = block; left > 0;) {          // round robin until every fiber returned
       for (EmulatedFiber& f : fibers) {
         if (f.done) continue;
         threadIdx.x = f.tid; warp_ctx = f.warp; emulated_reductions = f.reductions;
         emulated_current = &f;
+#if EMULATED_FAST_SWITCH
+        emulated_switch(&emulated_scheduler_sp, f.sp);
+#else
         swapcontext(&emulated_scheduler, &f.ctx);
+#endif
         left -= f.done;
       }
     }
