@@ -59,6 +59,10 @@ from .parallel.mesh import (all_reduce_min, broadcast_, check_mesh, gather_pairs
 from .registration import _export_device, _save_export, match_features
 from .train import engine
 from .train.checkpoints import TrainCheckpointer, convert_reference_checkpoint
+from .utils.timer import span
+
+# register() calls and the bytes they copied host to device, over the process
+counters = {"calls": 0, "bytes_in": 0}
 
 
 class Registrar:
@@ -131,7 +135,7 @@ class Registrar:
         src = batch["src_pts"]
         R, t, w, cov_tgt = engine.robust_pose(self.stages, src, batch["tgt_pts"], out.R,
                                               out.t, out.weights, icp_prior=True)
-        with fp32_matmuls():
+        with span("forward.covariance"), fp32_matmuls():
             cov = pose_covariance(src, cov_tgt, R, t, w)
         return R, t, out.similarity.mean(-1), cov
 
@@ -283,7 +287,17 @@ class Registrar:
         clique size after fitting to the model's point count). The clique
         labels, computed on the raw input, replace `labels`. With a mesh,
         every rank calls with the same requests and gets every pair's
-        results."""
+        results.
+
+        Under `torch.profiler` the call's host stages are named spans, in
+        order: `register.clique` (with `clique_prefilter`), `register.sample`
+        (fitting each pair to N, stacking), `register.copy_in` (the mesh's
+        padding and sharding, the copy to the device), `register.forward`
+        (`forward.curve_sort`, `.knn`, `.egnn`, `.head`, `.robust`,
+        `.covariance` inside it), `register.copy_out` (the mesh's gather, the
+        copy back, which waits for the device, and unpacking). Every call adds
+        1 to `counters["calls"]` and the bytes it copies to the device to
+        `counters["bytes_in"]`."""
         squeeze = (not isinstance(src_pts, (list, tuple))
                    and np.asarray(src_pts).ndim == 2)
         if squeeze:
@@ -292,40 +306,49 @@ class Registrar:
             if labels is not None:
                 labels = labels[None]
         if clique_prefilter:
-            labels = [self._clique_labels(np.asarray(src_pts[i], np.float32),
-                                          np.asarray(tgt_pts[i], np.float32), clique_tau)
-                      for i in range(len(src_pts))]
+            with span("register.clique"):
+                labels = [self._clique_labels(np.asarray(src_pts[i], np.float32),
+                                              np.asarray(tgt_pts[i], np.float32), clique_tau)
+                          for i in range(len(src_pts))]
         n = self.cfg.num_nodes
-        rng = np.random.default_rng(seed)
         b = len(src_pts)
-        cols: dict[str, list] = {k: [] for k in
-                                 ("src_pts", "src_feat", "tgt_pts", "tgt_feat", "labels")}
-        for i in range(b):
-            sp_i = np.asarray(src_pts[i], np.float32)
-            tp_i = np.asarray(tgt_pts[i], np.float32)
-            sp, idx = fit_to_count(sp_i, n, rng)
-            tp = tp_i[idx] if len(tp_i) == len(sp_i) else fit_to_count(tp_i, n, rng)[0]
-            sf_i = np.asarray(src_feat[i], np.float32)
-            tf_i = np.asarray(tgt_feat[i], np.float32)
-            cols["src_pts"].append(sp)
-            cols["src_feat"].append(sf_i[idx])
-            cols["tgt_pts"].append(tp)
-            cols["tgt_feat"].append(tf_i[idx] if len(tf_i) == len(sf_i)
-                                    else fit_to_count(tf_i, n, rng)[0])
-            cols["labels"].append(np.asarray(labels[i], np.float32)[idx]
-                                  if labels is not None else np.ones(n, np.float32))
-        batch = {k: torch.from_numpy(np.stack(v)) for k, v in cols.items()}
-        if self.mesh is not None:
-            # pad the pair axis to a multiple of the data axis (the last
-            # pair repeats; the padded rows are sliced off), run this rank's rows
-            batch = shard_pair_batch(pad_pairs(batch, self.mesh.axis_size("data")), self.mesh)
-        res = self._apply({k: v.to(self.device) for k, v in batch.items()})
-        if self.mesh is not None:
-            res = gather_pairs(res, self.mesh)[:b]
-        res = res.cpu().numpy()
-        R, t = res[:, :9].reshape(b, 3, 3), res[:, 9:12]
-        info = {"similarity_mean": float(np.mean(res[:, 12])),
-                "pose_covariance": res[:, 13:].reshape(b, 6, 6)}
+        with span("register.sample"):
+            rng = np.random.default_rng(seed)
+            cols: dict[str, list] = {k: [] for k in
+                                     ("src_pts", "src_feat", "tgt_pts", "tgt_feat", "labels")}
+            for i in range(b):
+                sp_i = np.asarray(src_pts[i], np.float32)
+                tp_i = np.asarray(tgt_pts[i], np.float32)
+                sp, idx = fit_to_count(sp_i, n, rng)
+                tp = tp_i[idx] if len(tp_i) == len(sp_i) else fit_to_count(tp_i, n, rng)[0]
+                sf_i = np.asarray(src_feat[i], np.float32)
+                tf_i = np.asarray(tgt_feat[i], np.float32)
+                cols["src_pts"].append(sp)
+                cols["src_feat"].append(sf_i[idx])
+                cols["tgt_pts"].append(tp)
+                cols["tgt_feat"].append(tf_i[idx] if len(tf_i) == len(sf_i)
+                                        else fit_to_count(tf_i, n, rng)[0])
+                cols["labels"].append(np.asarray(labels[i], np.float32)[idx]
+                                      if labels is not None else np.ones(n, np.float32))
+            batch = {k: torch.from_numpy(np.stack(v)) for k, v in cols.items()}
+        with span("register.copy_in"):
+            if self.mesh is not None:
+                # pad the pair axis to a multiple of the data axis (the last
+                # pair repeats; the padded rows are sliced off), run this rank's rows
+                batch = shard_pair_batch(pad_pairs(batch, self.mesh.axis_size("data")),
+                                         self.mesh)
+            counters["calls"] += 1
+            counters["bytes_in"] += sum(v.numel() * v.element_size() for v in batch.values())
+            batch = {k: v.to(self.device) for k, v in batch.items()}
+        with span("register.forward"):
+            res = self._apply(batch)
+        with span("register.copy_out"):
+            if self.mesh is not None:
+                res = gather_pairs(res, self.mesh)[:b]
+            res = res.cpu().numpy()
+            R, t = res[:, :9].reshape(b, 3, 3), res[:, 9:12]
+            info = {"similarity_mean": float(np.mean(res[:, 12])),
+                    "pose_covariance": res[:, 13:].reshape(b, 6, 6)}
         if clique_prefilter:
             info["clique_inliers"] = [int(lbl.sum()) for lbl in cols["labels"]]
         if squeeze:

@@ -62,6 +62,7 @@ from ..ops.spectral import spectral_match_weights
 from ..parallel.mesh import (Mesh, all_reduce_sum, all_reduce_sum_, barrier, broadcast_,
                              check_mesh, shard_points_batch)
 from ..utils.bf16_training import Bf16SROptimizer, fp32_parameters
+from ..utils.timer import span
 from . import losses as losses_lib
 from . import metrics as metrics_lib
 from .checkpoints import init_weights
@@ -163,7 +164,7 @@ def robust_pose(cfg: EngineConfig, src: torch.Tensor, tgt: torch.Tensor, R: torc
     pairs with: `tgt`, or after ICP each posed source point's nearest target
     point)."""
     cov_tgt = tgt
-    with fp32_matmuls():
+    with span("forward.robust"), fp32_matmuls():
         if cfg.spectral_topm > 0:
             w = spectral_match_weights(src, tgt, w, top_m=cfg.spectral_topm,
                                        sigma=cfg.spectral_sigma, iters=cfg.spectral_iters)
@@ -259,7 +260,9 @@ def _forward_with_graphs(model: RegistrationModel, cfg: EngineConfig, batch: dic
     `model.egnn`. The head runs on the original order. Differentiable when
     autograd records; with `cfg.remat` the EGNN pass runs under
     `torch.utils.checkpoint` whenever autograd records. bf16 parameters
-    compute in fp32 (`fp32_parameters`)."""
+    compute in fp32 (`fp32_parameters`). Under `torch.profiler` the stages
+    are named spans: `forward.curve_sort`, `forward.knn`, `forward.egnn`
+    (the encoder too) for each cloud, then `forward.head`."""
     _check_batch(model, batch)
     with fp32_parameters(model):
         fused = _fused_egnn(cfg)
@@ -283,17 +286,24 @@ def _forward_with_graphs(model: RegistrationModel, cfg: EngineConfig, batch: dic
             """(the head's raw features, the EGNN's (h, x)) of one cloud."""
             raw = h
             if window is not None:
-                h, x, perm = morton.sort_by_curve(h, x, cfg.curve)
-            nbr = knn_window(x.contiguous(), cfg.k, tile=tile, window=window, packed=packed)
-            if model.pointnet is not None:      # never with a window (build_model)
-                h = raw = model.pointnet(x, nbr)
-            out = egnn(h, x, nbr)
-            return raw, (out if window is None else morton.unsort_rows(out, perm))
+                with span("forward.curve_sort"):
+                    h, x, perm = morton.sort_by_curve(h, x, cfg.curve)
+            with span("forward.knn"):
+                nbr = knn_window(x.contiguous(), cfg.k, tile=tile, window=window, packed=packed)
+            with span("forward.egnn"):
+                if model.pointnet is not None:      # never with a window (build_model)
+                    h = raw = model.pointnet(x, nbr)
+                out = egnn(h, x, nbr)
+            if window is None:
+                return raw, out
+            with span("forward.curve_sort"):
+                return raw, morton.unsort_rows(out, perm)
 
         raw_s, (h_s, x_s) = embed(batch["src_feat"], batch["src_pts"])
         raw_t, (h_t, x_t) = embed(batch["tgt_feat"], batch["tgt_pts"])
-        return model.head_from_embeddings(raw_s, raw_t, batch["src_pts"], batch["tgt_pts"],
-                                          h_s, x_s, h_t, x_t, batch["labels"])
+        with span("forward.head"):
+            return model.head_from_embeddings(raw_s, raw_t, batch["src_pts"], batch["tgt_pts"],
+                                              h_s, x_s, h_t, x_t, batch["labels"])
 
 
 @torch.no_grad()
@@ -311,8 +321,9 @@ def train_loss(model: RegistrationModel, cfg: EngineConfig, batch: dict,
     through `EGCLFunction`, forward and backward kernels), the train head,
     `total_loss` (with a mesh, this rank's share of the global batch's)."""
     out = _forward_with_graphs(model, cfg, batch)
-    return losses_lib.total_loss(out, batch["gt_pose"], batch["labels"],
-                                 cfg.loss_weights, mesh)
+    with span("forward.losses"):
+        return losses_lib.total_loss(out, batch["gt_pose"], batch["labels"],
+                                     cfg.loss_weights, mesh)
 
 
 def lr_schedule(cfg: EngineConfig, steps_per_epoch: Optional[int] = None
@@ -413,7 +424,15 @@ def train_step_from_loss(model: RegistrationModel, optimizer: Optimizer, cfg: En
     this rank differentiates, the LossBreakdown it reports), which runs
     with the parameters presented in fp32 (`fp32_parameters`). With a mesh
     the gradients are summed over all of its ranks before each Adam
-    step."""
+    step.
+
+    Under `torch.profiler` a step's host stages are named spans:
+    `train.forward` (`loss(batch)`, holding the forward's `forward.*`
+    spans), `train.backward` (the backward's launches and, with bf16
+    parameters, the masters' accumulation; on a card the autograd engine
+    launches from its own thread while this one waits in the span) and, on
+    the steps that step Adam, `train.optimizer` (the all-reduce, averaging,
+    Adam, the schedule, clearing the gradients)."""
     k = cfg.grad_accum_steps
     if k < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {k}")
@@ -424,20 +443,24 @@ def train_step_from_loss(model: RegistrationModel, optimizer: Optimizer, cfg: En
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         # the backward inside too: a remat pass recomputes from the fp32 views
         with fp32_parameters(model):
-            objective, lb = loss(batch)
-            objective.backward()
+            with span("train.forward"):
+                objective, lb = loss(batch)
+            with span("train.backward"):
+                objective.backward()
         if sr is not None:
-            sr.accumulate()
+            with span("train.backward"):
+                sr.accumulate()
         if (state.step + 1) % k == 0:
-            if mesh is not None:
-                all_reduce_sum_([p.grad for p in stepped if p.grad is not None], mesh)
-            if k > 1:
-                for p in stepped:
-                    if p.grad is not None:      # Adam skips them too
-                        p.grad.div_(k)
-            opt.step()
-            optimizer.schedule.step()
-            opt.zero_grad()
+            with span("train.optimizer"):
+                if mesh is not None:
+                    all_reduce_sum_([p.grad for p in stepped if p.grad is not None], mesh)
+                if k > 1:
+                    for p in stepped:
+                        if p.grad is not None:      # Adam skips them too
+                            p.grad.div_(k)
+                opt.step()
+                optimizer.schedule.step()
+                opt.zero_grad()
         state.step += 1
         return state, {name: v.detach() for name, v in lb._asdict().items()}
 
@@ -467,8 +490,9 @@ def make_eval_step(model: RegistrationModel, cfg: EngineConfig, with_loss: bool 
         m = {"rot_err_deg": rot_err, "trans_err_cm": trans_err,
              "recall": recall, "precision": precision}
         if with_loss:
-            lb = losses_lib.total_loss(out, batch["gt_pose"], batch["labels"],
-                                       cfg.loss_weights, mesh)
+            with span("forward.losses"):
+                lb = losses_lib.total_loss(out, batch["gt_pose"], batch["labels"],
+                                           cfg.loss_weights, mesh)
             total = lb.total if mesh is None else all_reduce_sum(lb.total, mesh)
             m["loss"] = total.expand_as(rot_err)
         return m
@@ -511,7 +535,9 @@ def fit(model: RegistrationModel, optimizer: Optimizer, cfg: EngineConfig,
     epochs. Batches are the reference 7-tuples or engine dicts.
     `profile_dir` runs the first epoch's training steps under
     `torch.profiler` (CPU and, with a card, CUDA activities) and writes the
-    trace there as `trace.json` (chrome trace format).
+    trace there as `trace.json` (chrome trace format); the trace carries the
+    step's named spans (`train.forward`, `train.backward`, `train.optimizer`
+    and the forward's `forward.*`, see `train_step_from_loss`).
 
     With a data-parallel `mesh`, every rank calls fit with its own rows of
     each global batch (its `PairLoader(process_shard=...)` slice; equal

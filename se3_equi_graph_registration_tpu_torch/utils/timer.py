@@ -2,11 +2,12 @@
 parity with the reference's utils/timer.py:28-55 `Timer` / `AverageMeter`)
 plus a `device_timer` that waits for the card: PyTorch returns from a CUDA
 call before the device finishes, so the clock stops only after the work
-queued on the current stream has run."""
+queued on the current stream has run; and `span`, the program's named host
+stages in a `torch.profiler` trace."""
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Callable, Optional
 
 import torch
@@ -73,3 +74,20 @@ def device_timer(label: str, device: Optional[torch.device] = None,
         torch.cuda.synchronize(device)
     wall = (time.perf_counter() - t0) * 1e3
     sink(f"{label}: {wall:.2f} ms" + (f" (device {e0.elapsed_time(e1):.2f} ms)" if cuda else ""))
+
+
+_NO_SPAN = nullcontext()
+
+
+def span(name: str):
+    """A named range of host work, `with span("register.sample"): ...`.
+
+    While a `torch.profiler` records, the range is a `record_function`: a
+    `user_annotation` event in the same trace, on the same clock, as the
+    device's kernels and copies, and the parent of the spans it encloses on
+    its thread. Otherwise, and while `torch.export` or `torch.compile`
+    traces (so no graph captures a profiler op), it is one shared null
+    context: two flag reads, well under a microsecond."""
+    if torch.autograd._profiler_enabled() and not torch.compiler.is_compiling():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

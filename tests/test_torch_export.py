@@ -218,6 +218,22 @@ def test_registrar_artifact_is_traced_from_the_weights_it_is_given(exported):
     assert not program.state_dict and not program.constants
 
 
+def test_an_export_under_the_profiler_holds_no_profiler_op(exported, monkeypatch, tmp_path):
+    """The forward's named spans step aside while `torch.export` traces:
+    exported with a profiler recording, no span is opened and the program
+    holds no profiler op."""
+    opened = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: opened.append(name) or real(name))
+    path = str(tmp_path / "profiled.pt2")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        exported["treg"].export_compiled(path, batch=1)
+    assert opened == []
+    targets = [str(n.target) for n in torch.export.load(path).graph.nodes]
+    assert not [t for t in targets if "profiler" in t or "record_function" in t]
+
+
 def test_fake_implementations_give_the_kernels_shapes_on_fake_cuda_tensors():
     """Each op traced under a FakeTensorMode through its public wrapper (the
     wrapper's checks and variant choice run as on the card): outputs on the
